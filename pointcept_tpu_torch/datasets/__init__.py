@@ -1,0 +1,5 @@
+from .synthetic import synthesize_scene, synthetic_arrays
+from .transform import TRANSFORMS, Compose
+from .utils import point_collate_fn
+
+__all__ = ["TRANSFORMS", "Compose", "point_collate_fn", "synthesize_scene", "synthetic_arrays"]

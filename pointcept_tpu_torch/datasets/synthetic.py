@@ -1,0 +1,79 @@
+"""Synthetic ScanNet-like scenes (counterpart of `synthesize_scene` in
+`pointcept_tpu/datasets/synthetic.py`): floor and wall planes plus furniture
+surface shells, deterministic per seed. numpy only."""
+
+from __future__ import annotations
+
+import numpy as np
+
+
+def synthesize_scene(seed: int, num_points: int = 120000, num_classes: int = 20, extent: float = 8.0):
+    rng = np.random.RandomState(seed)
+    n_floor = num_points // 4
+    n_wall = num_points // 4
+    n_obj = num_points - n_floor - n_wall
+    floor = np.stack(
+        [rng.uniform(0, extent, n_floor), rng.uniform(0, extent, n_floor), np.abs(rng.normal(0, 0.02, n_floor))],
+        axis=1,
+    )
+    w1 = np.stack(
+        [rng.uniform(0, extent, n_wall // 2), np.abs(rng.normal(0, 0.02, n_wall // 2)), rng.uniform(0, 3, n_wall // 2)],
+        axis=1,
+    )
+    w2 = np.stack(
+        [np.abs(rng.normal(0, 0.02, n_wall - n_wall // 2)), rng.uniform(0, extent, n_wall - n_wall // 2),
+         rng.uniform(0, 3, n_wall - n_wall // 2)],
+        axis=1,
+    )
+    # furniture: surface shells (half boxes, half ellipsoids), as real scans are 2-manifolds
+    n_blobs = rng.randint(5, 15)
+    centers = rng.uniform(0.5, extent - 0.5, size=(n_blobs, 3))
+    centers[:, 2] = rng.uniform(0.2, 1.5, n_blobs)
+    sizes = rng.uniform(0.2, 1.0, size=(n_blobs, 3))
+    blob_ids = rng.randint(0, n_blobs, n_obj)
+    dirs = rng.normal(0, 1, (n_obj, 3))
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-9
+    shell = dirs / np.maximum(np.abs(dirs), 1e-6).max(axis=1, keepdims=True)
+    is_box = (blob_ids % 2)[:, None]
+    surf = np.where(is_box, shell, dirs)
+    objs = centers[blob_ids] + surf * sizes[blob_ids] * 0.5 + rng.normal(0, 0.004, (n_obj, 3))
+    coord = np.concatenate([floor, w1, w2, objs]).astype(np.float32)
+
+    seg = np.concatenate(
+        [np.full(n_floor, 1), np.full(n_wall, 0), (blob_ids % (num_classes - 2)) + 2]
+    ).astype(np.int32)
+    inst = np.concatenate([np.full(n_floor, -1), np.full(n_wall, -1), blob_ids]).astype(np.int32)
+    color = (rng.rand(len(coord), 3) * 55 + np.eye(3)[seg % 3] * 200).astype(np.float32)
+    normal = rng.randn(len(coord), 3).astype(np.float32)
+    normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-9
+    perm = rng.permutation(len(coord))
+    return dict(coord=coord[perm], color=color[perm], normal=normal[perm], segment=seg[perm], instance=inst[perm])
+
+
+def synthetic_arrays(capacity, num_scenes, seed=0, num_classes=13, grid_size=0.05,
+                     oversample=1.0, extent=8.0, crop=False, rng=None):
+    """One collated fixed-capacity batch of synthetic scenes: the pipeline of
+    the repository's synthetic benchmark batch (CenterShift, GridSample in
+    train mode, optional center SphereCrop, CenterShift, NormalizeColor,
+    Collect). GridSample draws from `rng` (the global numpy state when None)."""
+    from .transform import Compose
+    from .utils import point_collate_fn
+
+    steps = [
+        dict(type="CenterShift", apply_z=True),
+        dict(type="GridSample", grid_size=grid_size, mode="train", return_grid_coord=True, rng=rng),
+    ]
+    if crop:
+        steps.append(dict(type="SphereCrop", point_max=capacity // max(num_scenes, 1), mode="center"))
+    steps += [
+        dict(type="CenterShift", apply_z=False),
+        dict(type="NormalizeColor"),
+        dict(type="Collect", keys=("coord", "grid_coord", "segment"), feat_keys=("color", "normal")),
+    ]
+    pipeline = Compose(steps)
+    per_scene = max(256, int(capacity * oversample) // max(num_scenes, 1))
+    samples = []
+    for i in range(num_scenes):
+        data = synthesize_scene(seed + i, num_points=per_scene, num_classes=num_classes, extent=extent)
+        samples.append(pipeline(data))
+    return point_collate_fn(samples, capacity=capacity)

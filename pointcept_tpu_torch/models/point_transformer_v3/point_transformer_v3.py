@@ -1,0 +1,409 @@
+"""Point Transformer V3 (PT-v3m1), eval forward (counterpart of
+`pointcept_tpu/models/point_transformer_v3/point_transformer_v3.py`).
+
+Serialization -> SubM k5 stem -> U-Net of [SerializedPooling + Block x d]
+encoder stages and [SerializedUnpooling + Block x d] decoder stages; a Block
+is xCPE (SubM k3 conv + linear + LN) + serialized patch attention + MLP with
+pre-norm residuals. As in the JAX package the batch is pinned to z-order
+after serialization (the sorted layout), every capacity is static, and the
+block-dense conv engine serves stages of at least `block_engine_min_points`
+points while smaller stages use gather-GEMM rule maps.
+
+Parameter names follow the reference Pointcept state dict
+(`backbone.enc.enc0.block0.cpe.0.weight`, ...), so reference checkpoints and
+the JAX package's converter read them directly. Conv weights are
+``[k^3, Cin, Cout]`` in `kernel_offsets` order.
+
+Not ported in this slice: training (loss, dropout, drop path, order
+shuffling), PDNorm, RPE, the v3m2/v3m3 options (linear stem, LayerScale,
+RoPE), LoRA, enc_mode, host geometry, `build_geometry`/`precomputed`, and
+the scene-blocked layout. Each raises when asked for.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from ...ops import serialization as ser
+from ...ops.attention import patch_attention
+from ...ops.block_conv import block_subm_conv, build_block_tables, default_block_capacity
+from ...ops.segment_ops import segment_reduce
+from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
+from ..builder import MODELS
+from ..modules import LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
+from ..utils.structure import PointBatch
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+class SubMConv(nn.Module):
+    """Submanifold sparse conv: the block-dense engine when given block
+    tables, gather-GEMM over a rule map otherwise. Weight [k^3, Cin, Cout]."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True):
+        super().__init__()
+        self.kernel_size = kernel_size
+        self.weight = nn.Parameter(torch.empty(kernel_size**3, in_channels, out_channels))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, feat: torch.Tensor, geom) -> torch.Tensor:
+        if isinstance(geom, dict):
+            return block_subm_conv(feat, geom, self.weight, self.bias, kernel_size=self.kernel_size)
+        return gather_conv(feat, geom, self.weight, self.bias, compute_dtype=torch.bfloat16)
+
+
+class SerializedAttention(nn.Module):
+    def __init__(self, channels, num_heads, patch_size, qkv_bias=True, qk_scale=None,
+                 compute_dtype=None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.patch_size = patch_size
+        self.scale = qk_scale or (channels // num_heads) ** -0.5
+        self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, compute_dtype=compute_dtype)
+        self.proj = Linear(channels, channels, compute_dtype=compute_dtype)
+
+    def forward(self, feat: torch.Tensor, partition) -> torch.Tensor:
+        slot_to_point, point_to_slot = partition
+        out = patch_attention(self.qkv(feat), slot_to_point, point_to_slot,
+                              num_heads=self.num_heads, patch_size=self.patch_size,
+                              scale=self.scale)
+        return self.proj(out)
+
+
+class Block(nn.Module):
+    """xCPE + attention + MLP with residuals (reference names: cpe.{0,1,2},
+    norm1.0, attn.{qkv,proj}, norm2.0, mlp.0.{fc1,fc2})."""
+
+    def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
+                 qk_scale=None, pre_norm=True, compute_dtype=None):
+        super().__init__()
+        c = channels
+        self.pre_norm = pre_norm
+        self.cpe = nn.ModuleList([
+            SubMConv(c, c, 3, bias=True), Linear(c, c, compute_dtype=compute_dtype), LayerNorm(c)
+        ])
+        self.norm1 = nn.ModuleList([LayerNorm(c)])
+        self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype)
+        self.norm2 = nn.ModuleList([LayerNorm(c)])
+        self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
+
+    def forward(self, pb: PointBatch, nbr3, partition, cpe_feat=None) -> PointBatch:
+        # `cpe_feat`: the first decoder block's conv reads the skip branch
+        # alone. The reference never re-syncs its sparse-conv feature after
+        # unpooling, and trained weights depend on that.
+        feat = pb.feat
+        cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
+        feat = feat + self.cpe[2](self.cpe[1](cpe))
+        x = self.norm1[0](feat) if self.pre_norm else feat
+        feat = feat + self.attn(x, partition)
+        if not self.pre_norm:
+            feat = self.norm1[0](feat)
+        x = self.norm2[0](feat) if self.pre_norm else feat
+        feat = feat + self.mlp[0](x)
+        if not self.pre_norm:
+            feat = self.norm2[0](feat)
+        return pb.replace(feat=feat)
+
+
+def pooling_geometry(pb: PointBatch, stride: int, out_capacity: int, orders, needed) -> dict:
+    """Feature-independent half of SerializedPooling on the sorted layout:
+    clusters are runs of equal shifted order-0 keys; the pooled keys of the
+    orders in `needed` are re-encoded from the pooled grid (curve codes are
+    hierarchical), and pooled order 0 is already sorted."""
+    dev = pb.device
+    pdepth = stride.bit_length() - 1
+    m = out_capacity
+    n = pb.capacity
+    s = pb.serialized_keys.shape[0]
+    sk = ser.key_shift_right(pb.serialized_keys[0], 3 * pdepth)
+    valid = pb.mask
+    prev_eq = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), ser.keys_equal(sk[1:], sk[:-1])])
+    head = valid & ~prev_eq
+    cluster = (torch.cumsum(head.to(torch.int32), 0) - 1).to(torch.int32)
+    ok = valid & (cluster < m)
+    seg_ids = torch.where(ok, cluster, m)
+    overflow = (valid & (cluster >= m)).sum().to(torch.int32)
+
+    # each cluster's head position, without host syncs (see build_block_tables)
+    is_head = head & ok
+    tgt = torch.where(is_head, cluster, m).long()
+    hsel = torch.zeros(m + 1, dtype=torch.long, device=dev).scatter_(
+        0, tgt, torch.arange(n, device=dev))[:m]
+    head_valid = torch.arange(m, device=dev) < is_head.sum()
+    grid = torch.where(head_valid[:, None], pb.grid_coord[hsel] >> pdepth, 0)
+    batch = torch.where(head_valid, pb.batch[hsel], -1)
+    segment = None if pb.segment is None else torch.where(head_valid, pb.segment[hsel], -1)
+
+    depth = pb.serialized_depth - pdepth
+    kb = torch.where(batch >= 0, batch, ser.BATCH_SENTINEL).to(torch.int32)
+    iota = torch.arange(m, dtype=torch.int32, device=dev)
+    k0 = ser.encode(grid, kb, depth, orders[0])
+    keys, order, inverse = [], [], []
+    for i in range(s):
+        keys.append(ser.encode(grid, kb, depth, orders[i]) if (i != 0 and i in needed) else k0)
+        if i == 0 or i not in needed:
+            order.append(iota)
+            inverse.append(iota)
+        else:
+            o = ser.argsort_keys(keys[i], depth)
+            order.append(o)
+            inverse.append(ser.invert_order(o))
+    return dict(seg_ids=seg_ids, cluster_of_point=seg_ids, overflow=overflow, grid=grid,
+                batch=batch, segment=segment, keys=torch.stack(keys), order=torch.stack(order),
+                inverse=torch.stack(inverse), depth=depth)
+
+
+class SerializedPooling(nn.Module):
+    """Grid pooling by shifted curve codes into a static `out_capacity`
+    (clusters beyond it are dropped and counted). Names: proj, norm.0."""
+
+    def __init__(self, in_channels, out_channels, stride=2, compute_dtype=None):
+        super().__init__()
+        self.stride = stride
+        self.proj = Linear(in_channels, out_channels, compute_dtype=compute_dtype)
+        self.norm = nn.ModuleList([MaskedBatchNorm(out_channels)])
+
+    def forward(self, pb: PointBatch, out_capacity: int, orders, needed):
+        g = pooling_geometry(pb, self.stride, out_capacity, orders, needed)
+        m = out_capacity
+        feat = segment_reduce(self.proj(pb.feat), g["seg_ids"], m, reduce="max")
+        coord = segment_reduce(pb.coord, g["seg_ids"], m, reduce="mean")
+        out = PointBatch(
+            coord=coord, feat=gelu(self.norm[0](feat)), grid_coord=g["grid"], batch=g["batch"],
+            segment=g["segment"], serialized_keys=g["keys"], serialized_order=g["order"],
+            serialized_inverse=g["inverse"], serialized_depth=g["depth"],
+            num_scenes=pb.num_scenes,
+        )
+        return out, g["cluster_of_point"], g["overflow"]
+
+
+class SerializedUnpooling(nn.Module):
+    """proj + skip add by cluster. Names: proj.{0,1}, proj_skip.{0,1}."""
+
+    def __init__(self, in_channels, skip_channels, out_channels, compute_dtype=None):
+        super().__init__()
+        self.proj = nn.ModuleList([
+            Linear(in_channels, out_channels, compute_dtype=compute_dtype), MaskedBatchNorm(out_channels)
+        ])
+        self.proj_skip = nn.ModuleList([
+            Linear(skip_channels, out_channels, compute_dtype=compute_dtype),
+            MaskedBatchNorm(out_channels),
+        ])
+
+    def forward(self, pb: PointBatch, skip_pb: PointBatch, cluster: torch.Tensor):
+        m = pb.capacity
+        x = gelu(self.proj[1](self.proj[0](pb.feat)))
+        skip = gelu(self.proj_skip[1](self.proj_skip[0](skip_pb.feat)))
+        up = x[torch.clamp(cluster, max=m - 1).long()]
+        up = torch.where((cluster < m)[:, None], up, torch.zeros((), dtype=up.dtype, device=up.device))
+        # the second output, the skip branch alone, feeds the next block's cpe
+        return skip_pb.replace(feat=skip + up), skip
+
+
+class Embedding(nn.Module):
+    """SubM k5 stem + BN + GELU. Names: stem.conv, stem.norm."""
+
+    def __init__(self, in_channels, embed_channels):
+        super().__init__()
+        self.stem = nn.Module()
+        self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False)
+        self.stem.norm = MaskedBatchNorm(embed_channels)
+
+    def forward(self, pb: PointBatch, nbr5) -> PointBatch:
+        return pb.replace(feat=gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5))))
+
+
+_UNSUPPORTED = dict(
+    enc_mode=False, pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
+    sorted_layout=True, embed_mode="conv", mask_token=False, layer_scale=None, rope_base=None,
+    lora_rank=0,
+)
+
+
+@MODELS.register_module("PT-v3m1")
+class PointTransformerV3(nn.Module):
+    """PT-v3m1 backbone; `forward(pb)` returns (decoded PointBatch in the
+    caller's point order, diagnostics). The diagnostics count the points
+    dropped by static capacities: ``block_overflow`` (one per block-table
+    build) and ``pool_overflow`` (one per pooling)."""
+
+    def __init__(
+        self,
+        in_channels: int = 6,
+        order: Sequence[str] = ("z", "z-trans", "hilbert", "hilbert-trans"),
+        stride: Sequence[int] = (2, 2, 2, 2),
+        enc_depths: Sequence[int] = (2, 2, 2, 6, 2),
+        enc_channels: Sequence[int] = (32, 64, 128, 256, 512),
+        enc_num_head: Sequence[int] = (2, 4, 8, 16, 32),
+        enc_patch_size: Sequence[int] = (1024, 1024, 1024, 1024, 1024),
+        dec_depths: Sequence[int] = (2, 2, 2, 2),
+        dec_channels: Sequence[int] = (64, 64, 128, 256),
+        dec_num_head: Sequence[int] = (4, 4, 8, 16),
+        dec_patch_size: Sequence[int] = (1024, 1024, 1024, 1024),
+        mlp_ratio: float = 4.0,
+        qkv_bias: bool = True,
+        qk_scale: Optional[float] = None,
+        pre_norm: bool = True,
+        serialize_depth: int = 12,
+        pool_capacity_factors: Sequence[float] = (0.5, 0.5, 0.5, 0.5),
+        conv_engine: str = "gather",
+        block_capacity_factor=1.0 / 16.0,
+        block_bits: int = 3,
+        block_engine_min_points: int = 8192,
+        grid_size: float = 0.02,
+        amp: bool = False,
+        # eval no-ops (training-time or config-parity options)
+        attn_drop: float = 0.0,
+        proj_drop: float = 0.0,
+        drop_path: float = 0.3,
+        shuffle_orders: bool = True,
+        enable_flash: bool = True,
+        upcast_attention: bool = False,
+        upcast_softmax: bool = False,
+        pdnorm_decouple: bool = True,
+        pdnorm_adaptive: bool = False,
+        pdnorm_affine: bool = True,
+        pdnorm_conditions: Sequence[str] = ("ScanNet", "S3DIS", "Structured3D"),
+        shift_coords=None,
+        jitter_coords=None,
+        rescale_coords=None,
+        **unsupported,
+    ):
+        super().__init__()
+        for key, value in unsupported.items():
+            if key not in _UNSUPPORTED:
+                raise TypeError(f"PT-v3m1: unexpected argument {key!r}")
+            if value != _UNSUPPORTED[key]:
+                raise NotImplementedError(f"PT-v3m1: {key}={value!r} is not ported yet")
+        self.order = (order,) if isinstance(order, str) else tuple(order)
+        self.stride = tuple(stride)
+        self.enc_depths = tuple(enc_depths)
+        self.dec_depths = tuple(dec_depths)
+        self.enc_patch_size = tuple(enc_patch_size)
+        self.dec_patch_size = tuple(dec_patch_size)
+        self.serialize_depth = serialize_depth
+        self.pool_capacity_factors = tuple(pool_capacity_factors)
+        self.conv_engine = conv_engine
+        self.block_capacity_factor = block_capacity_factor
+        self.block_bits = block_bits
+        self.block_engine_min_points = block_engine_min_points
+        self.grid_size = grid_size
+        self.amp = amp
+        dt = torch.bfloat16 if amp else None
+        n = len(enc_depths)
+
+        self.embedding = Embedding(in_channels, enc_channels[0])
+        self.enc = nn.Module()
+        for s in range(n):
+            stage = nn.Module()
+            if s > 0:
+                stage.down = SerializedPooling(enc_channels[s - 1], enc_channels[s],
+                                               stride=stride[s - 1], compute_dtype=dt)
+            for i in range(enc_depths[s]):
+                stage.add_module(f"block{i}", Block(
+                    enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
+                    qk_scale, pre_norm, dt,
+                ))
+            self.enc.add_module(f"enc{s}", stage)
+        dec_ch = list(dec_channels) + [enc_channels[-1]]
+        self.dec = nn.Module()
+        for s in reversed(range(n - 1)):
+            stage = nn.Module()
+            stage.up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], compute_dtype=dt)
+            for i in range(dec_depths[s]):
+                stage.add_module(f"block{i}", Block(
+                    dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
+                    qk_scale, pre_norm, dt,
+                ))
+            self.dec.add_module(f"dec{s}", stage)
+        self.out_channels = dec_ch[0]
+
+    def _used_orders(self, stage: int):
+        s_orders = len(self.order)
+        used = {0} | {i % s_orders for i in range(self.enc_depths[stage])}
+        if stage < len(self.enc_depths) - 1:
+            used |= {i % s_orders for i in range(self.dec_depths[stage])}
+        return tuple(sorted(used))
+
+    def _block_tables(self, pb: PointBatch, stage: int, diag: dict) -> dict:
+        f = self.block_capacity_factor
+        if isinstance(f, (tuple, list)):
+            f = f[min(stage, len(f) - 1)]
+        curve_is_z = self.order[0] == "z"
+        t = build_block_tables(
+            pb.serialized_keys[0], pb.serialized_order[0], pb.grid_coord, pb.mask,
+            pb.serialized_depth, default_block_capacity(pb.capacity, f),
+            block_bits=self.block_bits, inverse0=pb.serialized_inverse[0],
+            curve_is_z=curve_is_z, identity_order0=curve_is_z,
+        )
+        diag["block_overflow"].append(t["overflow"])
+        return t
+
+    def _stage_ctx(self, pb: PointBatch, stage: int, patch_size: int, nbr5, stage0_tables, diag):
+        if self.conv_engine == "block" and pb.capacity >= self.block_engine_min_points:
+            nbr3 = stage0_tables if stage == 0 else self._block_tables(pb, stage, diag)
+        elif stage == 0 and not isinstance(nbr5, dict):
+            # the stage-0 k3 map is a column subset of the stem's k5 map
+            nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=pb.device).long()]
+        else:
+            nbr3 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
+                                           self.serialize_depth - stage, 3)
+        parts = {oi: pb.patch_partition(oi, patch_size) for oi in self._used_orders(stage)}
+        return dict(nbr3=nbr3, parts=parts)
+
+    def forward(self, pb: PointBatch):
+        s_orders = len(self.order)
+        num_stages = len(self.enc_depths)
+        if self.amp:
+            pb = pb.replace(feat=pb.feat.to(torch.bfloat16))
+        diag = {"block_overflow": [], "pool_overflow": []}
+        pb = pb.with_grid_coord(self.grid_size)
+        used0 = self._used_orders(0)
+        pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
+                          sort_indices=used0, key_orders=used0)
+        # sorted layout: pin the batch to order 0, which then is the identity
+        perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
+        pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
+
+        stage0_tables = None
+        if self.conv_engine == "block":
+            stage0_tables = nbr5 = self._block_tables(pb, 0, diag)
+        else:
+            nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
+                                           self.serialize_depth, 5)
+        pb = self.embedding(pb, nbr5)
+
+        skips = []
+        ctx = None
+        cap = pb.capacity
+        for s in range(num_stages):
+            stage = getattr(self.enc, f"enc{s}")
+            if s > 0:
+                cap = _round_up(max(int(math.ceil(cap * self.pool_capacity_factors[s - 1])), 128), 128)
+                skip_pb = pb
+                pb, cluster, overflow = stage.down(pb, cap, self.order, self._used_orders(s))
+                diag["pool_overflow"].append(overflow)
+                skips.append((skip_pb, cluster, ctx))
+            ctx = self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag)
+            for i in range(self.enc_depths[s]):
+                pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders])
+
+        for s in reversed(range(num_stages - 1)):
+            stage = getattr(self.dec, f"dec{s}")
+            skip_pb, cluster, skip_ctx = skips[s]
+            pb, stale_cpe_feat = stage.up(pb, skip_pb, cluster)
+            for i in range(self.dec_depths[s]):
+                pb = getattr(stage, f"block{i}")(
+                    pb, skip_ctx["nbr3"], skip_ctx["parts"][i % s_orders],
+                    cpe_feat=stale_cpe_feat if i == 0 else None,
+                )
+        # restore the caller's point order
+        pb = pb.reorder(inv0, perm0, rebase_orders=(), rebase_keys=False)
+        pb = pb.replace(serialized_keys=None, serialized_order=None, serialized_inverse=None)
+        return pb, diag

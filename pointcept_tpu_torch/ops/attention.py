@@ -1,0 +1,57 @@
+"""Serialized patch attention (counterpart of `pointcept_tpu/ops/attention.py`).
+
+The static patch layout of `PointBatch.patch_partition` makes attention a
+dense [num_patches, K, K] problem per head. The port gathers the packed qkv
+rows of every slot once (``qkv[slot_to_point]``, bf16) and hands them to the
+patch-attention kernel; each point then reads its own slot's output row.
+
+Not carried over from the JAX package, all TPU workarounds: the
+identity-layout window splice (it avoided slot gathers on the TPU and gives
+the same valid rows), the split per-head layout (a VMEM limit), and the
+scene-blocked window attention.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .kernels.patch_attention import patch_attention_fwd
+
+
+def patch_attention(
+    qkv: torch.Tensor,  # [N, 3*C]
+    slot_to_point: torch.Tensor,  # [P]
+    point_to_slot: torch.Tensor,  # [N]
+    num_heads: int,
+    patch_size: int,
+    scale: Optional[float] = None,
+    bias: Optional[torch.Tensor] = None,  # [num_patches, H, K, K]
+    compute_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """Returns [N, C] attention output per point, in qkv's dtype.
+
+    Without `bias` the slots go through the patch-attention kernel. With an
+    additive `bias` (RPE) the dense plain path runs: normalised probabilities
+    rounded to `compute_dtype`, as the JAX package's dense path does."""
+    n, c3 = qkv.shape
+    c = c3 // 3
+    h = num_heads
+    d = c // h
+    k = patch_size
+    p = slot_to_point.shape[0]
+    assert p % k == 0
+    np_ = p // k
+    if scale is None:
+        scale = d**-0.5
+    qkv_p = qkv.to(compute_dtype)[slot_to_point.long()].reshape(np_, k, c3)
+    if bias is None:
+        out = patch_attention_fwd(qkv_p, h, scale)
+    else:
+        x = qkv_p.reshape(np_, k, 3, h, d)
+        q, kk, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # [nP, H, K, D]
+        s = torch.einsum("phkd,phmd->phkm", (q * scale).float(), kk.float()) + bias
+        a = torch.softmax(s.float(), dim=-1).to(compute_dtype)
+        out = torch.einsum("phkm,phmd->phkd", a.float(), v.float()).transpose(1, 2)
+    return out.reshape(p, c)[point_to_slot.long()].to(qkv.dtype)

@@ -1,0 +1,88 @@
+"""The port stands alone: `pointcept_tpu_torch` imports neither JAX, flax nor
+the JAX package, and its entry points refuse to run quietly on the CPU."""
+
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+PACKAGE = ROOT / "pointcept_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pointcept_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in FORBIDDEN)
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys\n"
+        "import pointcept_tpu_torch, pointcept_tpu_torch.models, pointcept_tpu_torch.engines\n"
+        "import pointcept_tpu_torch.datasets, pointcept_tpu_torch.ops.kernels\n"
+        "import pointcept_tpu_torch.models.point_transformer_v3.point_transformer_v3\n"
+        "import pointcept_tpu_torch.models.utils.convert\n"
+        "print(' '.join(sorted(m for m in sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         check=True, env=dict(os.environ, PYTHONPATH=str(ROOT))).stdout
+    loaded = [m for m in out.split() if _forbidden(m)]
+    assert loaded == []
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py"))
+                         + ["chip_smoke.py"])
+def test_source_imports_nothing_of_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names.append(node.module)
+    assert [n for n in names if _forbidden(n)] == []
+
+
+def test_entry_points_raise_without_a_gpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the entry points would run on it")
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.models import build_model
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model(dict(type="DefaultSegmentorV2", num_classes=4, backbone_out_channels=16,
+                         backbone=dict(type="PT-v3m1", enc_depths=(1,), enc_channels=(16,),
+                                       enc_num_head=(1,), enc_patch_size=(16,), dec_depths=(),
+                                       dec_channels=(), dec_num_head=(), dec_patch_size=())))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_point_batch({"coord": [[0.0, 0.0, 0.0]], "batch": [0]}, 1)
+
+
+@pytest.mark.parametrize("option", [dict(scene_blocked=True), dict(enable_rpe=True),
+                                    dict(sorted_layout=False), dict(enc_mode=True)])
+def test_unported_options_raise(option):
+    from pointcept_tpu_torch.models import MODELS
+
+    with pytest.raises(NotImplementedError):
+        MODELS.build(dict(type="PT-v3m1", **option))
+
+
+def test_scannet_config_model_builds():
+    """The ScanNet PTv3-base model dict builds with the port's registry."""
+    from pointcept_tpu_torch.models import build_model
+
+    ns = {}
+    exec(compile((ROOT / "configs/scannet/semseg-pt-v3m1-0-base.py").read_text(), "cfg", "exec"), ns)
+    model = build_model(ns["model"], device="cpu")
+    n = sum(p.numel() for p in model.parameters())
+    assert 40e6 < n < 50e6, n  # PTv3-base: about 46 M parameters
+
+
+def test_kernels_are_not_built_at_import():
+    from pointcept_tpu_torch.ops.kernels import build
+
+    assert build._libs == {}

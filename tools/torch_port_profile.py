@@ -1,0 +1,125 @@
+#!/usr/bin/env python3
+"""Where the time of the port's main path goes, on one CUDA card.
+
+    python3 tools/torch_port_profile.py [--requests N] [--out DIR]
+
+Runs the PTv3-base eval forward of `chip_smoke.py` (102,400-point synthetic
+scenes, one per request) under `torch.profiler`, after one warm-up request,
+and prints JSON lines: the calls that make the host wait for the card in
+one request, the device's busy time per request and its idle
+share of the same requests run without the profiler, the
+device time by category (the port's kernels, convs, matmuls, sorts, gathers
+and scatters, elementwise) and the top kernels by device time. The full
+table goes to DIR/torch_port_profile.txt (default build/profile/).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import re
+import sys
+import time
+import warnings
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CATEGORIES = [  # first match wins
+    ("patch_attention kernel", r"patch_attention_fwd_kernel"),
+    ("block_fill kernel", r"block_fill_kernel"),
+    ("take_back kernel", r"take_back"),
+    ("conv (cuDNN)", r"conv|cudnn|implicit|fprop|dgrad|nchw|nhwc|ndhwc"),
+    ("matmul", r"gemm|cutlass|sm90_xmma|cublas|matmul"),
+    ("sort", r"sort|radix|onesweep|histogram"),
+    ("gather/scatter/index", r"index|gather|scatter|take|put"),
+    ("reduce/scan", r"reduce|scan|cumsum|sum_kernel|max_kernel"),
+    ("elementwise/copy", r"elementwise|vectorized|copy|fill|cat|unrolled|memcpy|memset"),
+]
+
+
+def category(name: str) -> str:
+    for cat, pat in CATEGORIES:
+        if re.search(pat, name, re.IGNORECASE):
+            return cat
+    return "other"
+
+
+def main() -> int:
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("torch_port_profile: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, ROOT)
+    import chip_smoke as cs
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.models import build_model
+
+    device = torch.device("cuda", 0)
+    card = cs.nvidia_smi("name,power.limit")
+    model = build_model(cs.MODEL, device=device, generator=torch.Generator().manual_seed(0))
+    scenes = [cs.scene(seed) for seed in cs.SEEDS[: args.requests + 1]]
+    model(make_point_batch(scenes[0], 1, device=device))
+    torch.cuda.synchronize()
+    # calls that make the host wait for the card, in one request (the batch's
+    # host-to-device copies included)
+    torch.cuda.set_sync_debug_mode("warn")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        model(make_point_batch(scenes[0], 1, device=device))
+    torch.cuda.set_sync_debug_mode("default")
+    syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
+    print(json.dumps({"phase": "host_syncs", "per_request": len(syncs), "kinds": sorted(set(syncs))}))
+    t0 = time.perf_counter()
+    for arrays in scenes[1:]:
+        model(make_point_batch(arrays, 1, device=device))
+    torch.cuda.synchronize()
+    plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for arrays in scenes[1:]:
+            model(make_point_batch(arrays, 1, device=device))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+
+    kernels = {}
+    for evt in prof.key_averages():
+        dev = getattr(evt, "self_device_time_total", None)
+        if dev is None:
+            dev = getattr(evt, "self_cuda_time_total", 0)
+        if dev and evt.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(evt.key, [0.0, 0])
+            k[0] += dev / 1e3
+            k[1] += evt.count
+    busy_ms = sum(v[0] for v in kernels.values())
+    cats = {}
+    for name, (ms, _) in kernels.items():
+        cats[category(name)] = cats.get(category(name), 0.0) + ms
+    n = args.requests
+    # idle share against the unprofiled wall time of the same requests: the
+    # profiler's own host cost stretches the profiled window
+    print(json.dumps({"phase": "profile_window", "card": card, "requests": n,
+                      "wall_ms_per_request": plain_wall_ms / n,
+                      "profiled_wall_ms_per_request": wall_ms / n,
+                      "device_busy_ms_per_request": busy_ms / n,
+                      "device_idle_share": 1 - busy_ms / plain_wall_ms}))
+    print(json.dumps({"phase": "profile_categories", "ms_per_request": {
+        c: ms / n for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])}}))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
+    print(json.dumps({"phase": "profile_top", "kernels": [
+        {"name": name[:120], "ms_per_request": ms / n, "launches_per_request": cnt / n}
+        for name, (ms, cnt) in top[:15]]}))
+    os.makedirs(args.out, exist_ok=True)
+    with open(os.path.join(args.out, "torch_port_profile.txt"), "w") as f:
+        f.write(f"{card}\n")
+        f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
