@@ -10,16 +10,28 @@ each printing JSON lines:
 1. device: torch version, the card's name and power limit;
 2. build: the CUDA kernels, one nvcc per source, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the shapes
-   of the main path (stage-0 tables from a real synthetic scene);
+   of the main paths (stage-0 tables from a real synthetic scene): the
+   attention forward and backward (the backward at K 1024 and, for the
+   TPU's whole-K kernels, at K 128), the fill and the take-back, and the
+   two as each other's VJP (`BlockFill`, `TakeBack` backward passes) in the
+   sorted and the shuffled route;
 4. times: kernel, plain version, one PyTorch library call computing the same
    function, and the least time the card could take (bound);
-5. the main path: the PTv3-base ScanNet eval forward (`DefaultSegmentorV2` +
-   `PT-v3m1`, 5 stages at full width, AMP bf16, block-dense convs with 4^3
+5. the serving path: the PTv3-base ScanNet eval forward (`DefaultSegmentorV2`
+   + `PT-v3m1`, 5 stages at full width, AMP bf16, block-dense convs with 4^3
    blocks) on distinct synthetic scenes of 102,400 points, with the launch
    counters of every kernel set to 0 just before and read just after;
 6. the same port on the card and on the CPU (plain versions), small depth,
    same weights: logits compared;
-7. one {"kernels": [...]} line.
+7. the training path: the config's train step (drop path 0.3, shuffled
+   orders, cross-entropy + Lovász, AdamW with the `block` lr group, OneCycle
+   over 1,000 steps) on two labelled 102,400-point scenes per step, one
+   warm-up step and 4 timed ones, launch counters set to 0 just before the
+   timed steps and read just after;
+8. one train step of the small-depth model on the card and on the CPU, same
+   weights and batch: loss and per-tensor gradients compared, beside the
+   CPU's own noise floor (the step again on inputs nudged by 1e-6);
+9. one {"kernels": [...]} line (launches: the training path's).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -74,7 +86,25 @@ PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 EXP_PER_CLOCK_PER_SM = 16
 # card-vs-CPU bounds of the whole slice (tests/test_torch_port_ptv3.py)
-SLICE_BOUNDS = {False: (3e-2, 0.99), True: (5e-2, 0.97)}
+SLICE_BOUNDS = {False: (1e-2, 0.99), True: (5e-2, 0.97)}
+# the config's train recipe (configs/scannet/semseg-pt-v3m1-0-base.py) at the
+# benchmark geometry: two scenes of 102,400 points per step. Each pair of
+# seeds is one step: a warm-up, then the timed ones (seeds 4 and 9 overflow)
+TRAIN_MODEL = dict(MODEL, backbone=dict(BACKBONE, drop_path=0.3, shuffle_orders=True),
+                   criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1),
+                             dict(type="LovaszLoss", mode="multiclass", loss_weight=1.0,
+                                  ignore_index=-1)])
+OPTIMIZER = dict(type="AdamW", lr=0.006, weight_decay=0.05)
+PARAM_DICTS = [dict(keyword="block", lr=0.0006)]
+SCHEDULER = dict(type="OneCycleLR", max_lr=[0.006, 0.0006], pct_start=0.05, anneal_strategy="cos",
+                 div_factor=10.0, final_div_factor=1000.0)
+TOTAL_STEPS = 1000
+EVAL_KERNELS = ("patch_attention", "block_fill", "take_back")
+TRAIN_SEEDS = ((0, 1), (2, 3), (5, 6), (7, 8), (100, 1000))
+# card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
+# loss relative error, per-tensor gradient relative L2 error, cosine; the
+# gradient bounds widen to twice the run's own noise floor (phase 8)
+TRAIN_BOUNDS = {False: (2e-2, 5e-2, 0.999), True: (1e-1, 1.5e-1, 0.99)}
 
 
 def emit(phase: str, **kw) -> None:
@@ -87,19 +117,18 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def scene(seed: int, capacity: int = CAPACITY, extent: float = 6.0):
-    """One collated ScanNet-like synthetic scene at 0.02 m (numpy), labels
-    dropped: the repository's benchmark scene (a 6 m room, 4x oversampled,
-    center-cropped to `capacity` points)."""
-    import numpy as np
+def scene(seed, capacity: int = CAPACITY, extent: float = 6.0, labelled: bool = False):
+    """Collated ScanNet-like synthetic scenes at 0.02 m (numpy): the
+    repository's benchmark scene (a 6 m room, 4x oversampled, center-cropped
+    to `capacity` points), one per seed (`seed` an int or a tuple of seeds),
+    labels dropped unless `labelled`."""
+    from pointcept_tpu_torch.datasets import scene_batch
 
-    from pointcept_tpu_torch.datasets import synthetic_arrays
-
-    arrays = synthetic_arrays(capacity=capacity, num_scenes=1, seed=seed, num_classes=20,
-                              grid_size=0.02, oversample=4.0, extent=extent, crop=True,
-                              rng=np.random.RandomState(seed))
+    seeds = (seed,) if isinstance(seed, int) else tuple(seed)
+    arrays = scene_batch(seeds, points_per_scene=capacity, num_classes=20, extent=extent)
     arrays.pop("num_scenes")
-    arrays.pop("segment")
+    if not labelled:
+        arrays.pop("segment")
     return arrays
 
 
@@ -153,6 +182,14 @@ def _named(row: dict) -> dict:
     return {("kernel_ms" if k == "ms" else k): v for k, v in row.items()}
 
 
+def _patches(capacity: int, stage: int, num_scenes: int, k: int = 1024) -> int:
+    """Patches of one stage: the model's static pooled capacity, padded."""
+    cap = capacity
+    for f in BACKBONE["pool_capacity_factors"][:stage]:
+        cap = -(-max(math.ceil(cap * f), 128) // 128) * 128
+    return -(-cap // k) + num_scenes  # padded_capacity / K
+
+
 def kernel_cases(device, arrays):
     """Phase 3 and 4: every kernel against its plain version, then timed.
     Returns {kernel: dict of the numbers of its main-path case}."""
@@ -160,8 +197,8 @@ def kernel_cases(device, arrays):
     import torch.nn.functional as F
 
     from pointcept_tpu_torch.ops.kernels import (
-        block_fill, block_fill_plain, patch_attention_fwd, patch_attention_fwd_plain,
-        take_back_rows, take_back_rows_plain,
+        block_fill, block_fill_plain, patch_attention_bwd, patch_attention_bwd_plain,
+        patch_attention_fwd, patch_attention_fwd_plain, take_back_rows, take_back_rows_plain,
     )
 
     gen = torch.Generator(device=device).manual_seed(0)
@@ -174,10 +211,7 @@ def kernel_cases(device, arrays):
     pb, t = stage0_tables(arrays, device)
     k = 1024
     for stage, (c, h) in ((0, (32, 2)), (2, (128, 8)), (4, (512, 32))):
-        cap = CAPACITY  # the model's static pooled capacity at this stage
-        for f in BACKBONE["pool_capacity_factors"][:stage]:
-            cap = -(-max(math.ceil(cap * f), 128) // 128) * 128
-        np_ = -(-cap // k) + 1  # padded_capacity / K for one scene
+        np_ = _patches(CAPACITY, stage, 1)  # one scene per request
         qkv = torch.randn((np_, k, 3 * c), generator=gen, device=device).to(torch.bfloat16)
         d = c // h
         scale = d**-0.5
@@ -249,11 +283,96 @@ def kernel_cases(device, arrays):
     row["bound_by"] = "bytes"
     emit("time", kernel="take_back", library="torch.index_select", **_named(row))
     results["take_back"] = row
+
+    # D. attention backward at the training path's shapes (two scenes per
+    # step, K 1024: the TPU's K-chunked kernels), then at patch 128 over the
+    # same points (the TPU's whole-K kernels, which only K <= 512 reaches)
+    cases = [(stage, _patches(2 * CAPACITY, stage, 2), 1024, c, h)
+             for stage, (c, h) in ((0, (32, 2)), (2, (128, 8)), (4, (512, 32)))]
+    cases += [(None, 2 * CAPACITY // 128 + 2, 128, c, h) for c, h in ((32, 2), (256, 16))]
+    for stage, np_, k, c, h in cases:
+        d = c // h
+        scale = d**-0.5
+        qkv = torch.randn((np_, k, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+        dout = torch.randn((np_, k, c), generator=gen, device=device).to(torch.bfloat16)
+        out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
+        got = patch_attention_bwd(qkv, out, dout, m_, l_, h, scale)
+        want = patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale)
+        torch.cuda.synchronize()
+        # bf16 outputs (one ulp 2^-8 relative), p and dS rounded to bf16 after
+        # exps and sums taken in another order: bounded against the largest
+        # gradient, as tests/test_torch_port_kernels.py
+        err = check_close(f"patch_attention_bwd[C={c},K={k}]", got, want,
+                          atol=2e-2 * float(want.float().abs().max()), rtol=2e-2)
+        q, kk, v = (qkv.view(np_, k, 3, h, d)[:, :, i].transpose(1, 2).contiguous().requires_grad_()
+                    for i in range(3))
+        sdpa = F.scaled_dot_product_attention(q, kk, v, scale=scale)
+        do4 = dout.view(np_, k, h, d).transpose(1, 2).contiguous()
+        row = dict(
+            shape=dict(nP=np_, K=k, C=c, H=h), max_abs_err=err,
+            ms=time_ms(lambda: patch_attention_bwd(qkv, out, dout, m_, l_, h, scale)),
+            plain_ms=time_ms(lambda: patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale),
+                             samples=3, reps=1),
+            library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (q, kk, v), do4, retain_graph=True)),
+        )
+        # qkv, out, dout, m and l read once, dqkv written once
+        bytes_ = np_ * k * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * k * 8
+        exps = np_ * h * k * k
+        flops = 10 * np_ * h * k * k * d  # 5 products of 2*D flops per score
+        row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
+        row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
+        emit("time", kernel="patch_attention_bwd", library="backward of F.scaled_dot_product_attention",
+             **_named(row))
+        if stage == 0:
+            results["patch_attention_bwd"] = row
+
+    # E. the fill and the take-back as each other's VJP, in the sorted route
+    # (the eval forward's tables) and the shuffled one (tables re-sorted by z)
+    vjp_cases(device, arrays, gen)
     return results
 
 
+def vjp_cases(device, arrays, gen):
+    """`BlockFill` backward (the take-back kernel, zero rows at the zero tile)
+    and `TakeBack` backward (the fill kernel on the z-ordered cotangent)
+    against the plain versions on the same inputs: exactly equal."""
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.ops.block_conv import (
+        BlockFill, TakeBack, build_block_tables, default_block_capacity,
+    )
+    from pointcept_tpu_torch.ops.kernels import block_fill_plain, take_back_rows_plain
+
+    _, sorted_t = stage0_tables(arrays, device)
+    pb = make_point_batch(arrays, 1, device=device)
+    pb = pb.serialize(BACKBONE["order"], BACKBONE["serialize_depth"])
+    shuffled_t = build_block_tables(
+        pb.serialized_keys[0], pb.serialized_order[0], pb.grid_coord, pb.mask, pb.serialized_depth,
+        default_block_capacity(pb.capacity, BACKBONE["block_capacity_factor"][0]),
+        block_bits=BACKBONE["block_bits"], inverse0=pb.serialized_inverse[0], curve_is_z=False)
+    b3 = 1 << (3 * BACKBONE["block_bits"])
+    for route, t in (("sorted", sorted_t), ("shuffled", shuffled_t)):
+        n = t["slot"].shape[0]
+        rows = (t["nbr"].shape[0] + 1) * b3
+        for c in (6, 32):
+            feat = torch.randn((n, c), generator=gen, device=device).to(torch.bfloat16).requires_grad_()
+            g_dense = torch.randn((rows, c), generator=gen, device=device).to(torch.bfloat16)
+            (got,) = torch.autograd.grad(BlockFill.apply(feat, t, torch.bfloat16), feat, g_dense)
+            want = take_back_rows_plain(g_dense, t["slot"], bound=rows - b3)
+            check_close(f"BlockFill.backward[{route},C={c}]", got, want, atol=0.0, rtol=0.0)
+            dense = torch.zeros((rows, c), dtype=torch.bfloat16, device=device, requires_grad=True)
+            g_rows = torch.randn((n, c), generator=gen, device=device).to(torch.bfloat16)
+            (got,) = torch.autograd.grad(TakeBack.apply(dense, t), dense, g_rows)
+            g_z = g_rows if t["identity_order0"] else g_rows[t["order0"].long()]
+            want = block_fill_plain(g_z.contiguous(), t["rc_sorted"], t["fill_start"], b3)
+            check_close(f"TakeBack.backward[{route},C={c}]", got, want, atol=0.0, rtol=0.0)
+    torch.cuda.synchronize()
+
+
 def main_path(device, card):
-    """Phase 5: the full-width eval forward, one scene per request."""
+    """Phase 5: the full-width eval forward, one scene per request (the
+    serving path; it launches no backward kernel)."""
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
@@ -301,9 +420,9 @@ def main_path(device, card):
             raise AssertionError(f"bad logits: shape {shape}, finite {finite}")
         if overflow != 0:
             raise AssertionError(f"{overflow} points overflowed static capacities")
-    for name, count in launches.items():
-        if count == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    for name in EVAL_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the serving path")
     return launches
 
 
@@ -341,6 +460,155 @@ def card_vs_cpu(device):
             raise AssertionError(f"card and CPU disagree (amp={amp}): rel {rel}, agreement {agree}")
 
 
+def _train_setup(cfg, device, seed):
+    import torch
+
+    from pointcept_tpu_torch.engines import build_train_step
+    from pointcept_tpu_torch.models import build_model
+    from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
+
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    optimizer = build_optimizer(OPTIMIZER, model, PARAM_DICTS)
+    scheduler = build_scheduler(SCHEDULER, optimizer, total_steps=TOTAL_STEPS)
+    return model, build_train_step(model, optimizer, scheduler)
+
+
+def _grad_norm(model) -> float:
+    import torch
+
+    return float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(p.grad.float()) for p in model.parameters() if p.grad is not None])))
+
+
+def train_path(device, card):
+    """Phase 7: the full-width train step, two labelled scenes per step."""
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    model, step = _train_setup(TRAIN_MODEL, device, seed=0)
+    batches = [scene(seeds, labelled=True) for seeds in TRAIN_SEEDS]
+    emit("train_setup", capacity=2 * CAPACITY, scenes_per_step=2, seeds=[list(p) for p in TRAIN_SEEDS],
+         valid_points=[int((b["batch"] >= 0).sum()) for b in batches],
+         parameters=sum(p.numel() for p in model.parameters()), total_steps=TOTAL_STEPS)
+    gen = torch.Generator(device=device).manual_seed(7)
+
+    def run(arrays):
+        return step(make_point_batch(arrays, 2, device=device), gen)
+
+    run(batches[0])  # warm-up: cuDNN plans for the backward, allocator
+    torch.cuda.synchronize()
+    before = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    steps = []
+    for arrays in batches[1:]:
+        t1 = time.perf_counter()
+        res = run(arrays)
+        torch.cuda.synchronize()
+        steps.append(dict(ms=(time.perf_counter() - t1) * 1e3, res=res, grad_norm=_grad_norm(model)))
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    n = len(steps)
+    rows = [dict(ms=st["ms"], loss=float(st["res"]["loss"]), grad_norm=st["grad_norm"],
+                 pool_overflow=int(st["res"]["pool_overflow"]),
+                 block_overflow=int(st["res"]["block_overflow"])) for st in steps]
+    for r in rows:
+        emit("train_step", **r)
+    changed = sum(int(not torch.equal(a, p.detach())) for a, p in zip(before, model.parameters()))
+    emit("train_path", card=card, median_step_ms=statistics.median(r["ms"] for r in rows),
+         scenes_per_s=2 * n / (sum(r["ms"] for r in rows) / 1e3), peak_memory_bytes=peak,
+         launches=launches,
+         launches_per_step={k: v / n for k, v in launches.items()},
+         parameters_changed=changed, parameters=len(before))
+    for r in rows:
+        if not (math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])):
+            raise AssertionError(f"non-finite loss or gradient: {r}")
+        if r["pool_overflow"] or r["block_overflow"]:
+            raise AssertionError(f"points overflowed static capacities: {r}")
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"kernel {name} was not launched on the training path")
+    if changed != len(before):
+        raise AssertionError(f"only {changed} of {len(before)} parameters changed")
+    return launches
+
+
+def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
+    """Worst per-tensor relative L2 error of `got` against `want`, its
+    tensor, and the lowest cosine, over the tensors not in `vanishing`."""
+    import numpy as np
+
+    worst, worst_name, low_cos = 0.0, None, 1.0
+    for name, c in want.items():
+        g = got[name].astype(np.float64)
+        c = c.astype(np.float64)
+        if name in vanishing:
+            if max(np.abs(c).max(), np.abs(g).max()) > 1e-3 * gmax:
+                raise AssertionError(f"{name}: a vanishing gradient above the noise floor")
+            continue
+        err = float(np.linalg.norm(g - c) / np.linalg.norm(c))
+        if err > worst:
+            worst, worst_name = err, name
+        low_cos = min(low_cos, float(g.ravel() @ c.ravel() / (np.linalg.norm(g) * np.linalg.norm(c))))
+    return worst, worst_name, low_cos
+
+
+def card_vs_cpu_train(device):
+    """Phase 8: one train step of the small-depth model on the card and on
+    the CPU, same weights, batch and order permutations (drawn from a CPU
+    generator of one seed; drop path 0, so nothing else is drawn).
+
+    The gradients of one step are sensitive by nature: attention operands
+    round to bf16 and pooling takes a max, so a change of the input far
+    below any rounding moves some gradient tensors by several percent. The
+    run measures that noise floor itself: the CPU step again, on features
+    scaled by 1 + 1e-6 * N(0, 1). The card must agree with the CPU within
+    the slice test's bounds, or within twice the floor where the floor of
+    this model and scene is above them."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+
+    arrays = scene(100, capacity=16384, extent=2.4, labelled=True)
+    nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
+        *arrays["feat"].shape).astype(np.float32)))
+    vanishing = set()
+    for amp in (False, True):
+        bb = dict(BACKBONE, enc_depths=(1, 1, 1, 1, 1), dec_depths=(1, 1, 1, 1), amp=amp,
+                  block_engine_min_points=4096, block_capacity_factor=(1 / 8,) * 5,
+                  pool_capacity_factors=(0.5,) * 4, shuffle_orders=True, drop_path=0.0)
+        cfg = dict(TRAIN_MODEL, backbone=bb)
+        out = {}
+        for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays),
+                                ("cpu_nudged", "cpu", nudged)):
+            model, step = _train_setup(cfg, dev, seed=1)
+            res = step(make_point_batch(data, 1, device=dev), torch.Generator().manual_seed(5))
+            out[name] = (float(res["loss"]), {n: p.grad.float().cpu().numpy()
+                                              for n, p in model.named_parameters()})
+        (gl, gg), (cl, cg), (nl, ng) = out["card"], out["cpu"], out["cpu_nudged"]
+        gmax = max(float(np.abs(g).max()) for g in cg.values())
+        if not amp:
+            # biases that feed only train-mode BatchNorms: zero gradient in
+            # exact arithmetic, rounding noise on both devices
+            vanishing = {n for n, c in cg.items() if np.abs(c).max() < 1e-6 * gmax}
+        worst, worst_name, low_cos = _grad_distance(gg, cg, vanishing, gmax)
+        floor, floor_name, floor_cos = _grad_distance(ng, cg, vanishing, gmax)
+        max_loss, max_grad, min_cos = TRAIN_BOUNDS[amp]
+        max_grad = max(max_grad, 2 * floor)
+        min_cos = min(min_cos, 1 - 2 * (1 - floor_cos))
+        rel_loss = abs(gl - cl) / abs(cl)
+        emit("card_vs_cpu_train", amp=amp, loss=[gl, cl], rel_loss_err=rel_loss,
+             worst_grad_rel_l2=worst, worst_tensor=worst_name, min_cos=low_cos,
+             noise_floor=dict(loss=nl, grad_rel_l2=floor, tensor=floor_name, min_cos=floor_cos),
+             vanishing_tensors=len(vanishing), bounds=[max_loss, max_grad, min_cos])
+        if not (rel_loss < max_loss and worst < max_grad and low_cos > min_cos):
+            raise AssertionError(f"card and CPU train steps disagree (amp={amp})")
+
+
 def main() -> int:
     import torch
 
@@ -358,21 +626,27 @@ def main() -> int:
         raise RuntimeError(f"needs a Hopper card (capability 9.0), got {cap}")
 
     t0 = time.perf_counter()
-    logs = build.build_all(["patch_attention", "block_fill", "take_back"])
+    logs = build.build_all(["patch_attention", "patch_attention_bwd", "block_fill", "take_back"])
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
 
     kernels = kernel_cases(device, scene(1000))
-    launches = main_path(device, card)
+    main_path(device, card)
     card_vs_cpu(device)
+    launches = train_path(device, card)
+    card_vs_cpu_train(device)
 
     sources = {"patch_attention": "pointcept_tpu_torch/csrc/patch_attention.cu",
+               "patch_attention_bwd": "pointcept_tpu_torch/csrc/patch_attention_bwd.cu",
                "block_fill": "pointcept_tpu_torch/csrc/block_fill.cu",
                "take_back": "pointcept_tpu_torch/csrc/take_back.cu"}
     replaces = {
         "patch_attention": "pointcept_tpu/ops/pallas/flash_attention.py:206 "
                            "(_fwd_kernel_kmajor; also _fwd_kernel at :51)",
+        "patch_attention_bwd": "pointcept_tpu/ops/pallas/flash_attention.py:281 "
+                               "(_bwd_kernel_kmajor_chunked; also _bwd_kernel_kmajor at :238, "
+                               "_bwd_kernel_chunked at :113, _bwd_kernel at :66)",
         "block_fill": "pointcept_tpu/ops/pallas/block_fill.py:40",
         "take_back": "pointcept_tpu/ops/pallas/layout_pin.py:30",
     }

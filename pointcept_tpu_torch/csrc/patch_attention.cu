@@ -25,6 +25,10 @@
 // and V (transposed) of the (patch, head) sit in shared memory with rows
 // padded by 8 elements, which makes the fragment loads bank-conflict free.
 //
+// For the backward (csrc/patch_attention_bwd.cu) it also writes, when asked,
+// each row's f32 max m and denominator l ([nP, H, K] each): the backward then
+// recomputes the forward's unrounded p = exp(s * scale - m) / l exactly.
+//
 // Grid: one block per (patch, head, tile of 128 query rows); 8 warps.
 
 #include <cuda_bf16.h>
@@ -71,8 +75,8 @@ __device__ __forceinline__ void scores(float (&s)[2][4], const uint32_t (&qa)[D 
 
 template <int D>
 __global__ void __launch_bounds__(32 * kWarps) patch_attention_fwd_kernel(
-    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out, int K, int C,
-    int H, float scale) {
+    const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
+    float* __restrict__ m_out, float* __restrict__ l_out, int K, int C, int H, float scale) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem);  // [K, D+pad]
   __nv_bfloat16* vt = ks + (size_t)K * (D + kPad);              // [D, K+pad]
@@ -169,11 +173,18 @@ __global__ void __launch_bounds__(32 * kWarps) patch_attention_fwd_kernel(
     *reinterpret_cast<uint32_t*>(og + j * 8 + 2 * t) = pack_bf16(acc[j][0] * inv0, acc[j][1] * inv0);
     *reinterpret_cast<uint32_t*>(og8 + j * 8 + 2 * t) = pack_bf16(acc[j][2] * inv1, acc[j][3] * inv1);
   }
+  if (m_out != nullptr && t == 0) {
+    const size_t srow = (p * H + h) * K + r0;
+    m_out[srow + g] = m0;
+    m_out[srow + g + 8] = m1;
+    l_out[srow + g] = l0;
+    l_out[srow + g + 8] = l1;
+  }
 }
 
 template <int D>
-int launch(const void* qkv, void* out, int np, int K, int C, int H, float scale,
-           cudaStream_t stream) {
+int launch(const void* qkv, void* out, float* m, float* l, int np, int K, int C, int H,
+           float scale, cudaStream_t stream) {
   const size_t smem = ((size_t)K * (D + kPad) + (size_t)D * (K + kPad)) * sizeof(__nv_bfloat16);
   cudaError_t err = cudaFuncSetAttribute(patch_attention_fwd_kernel<D>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -181,23 +192,27 @@ int launch(const void* qkv, void* out, int np, int K, int C, int H, float scale,
   const int tiles = (K + kRows - 1) / kRows;
   const unsigned blocks = (unsigned)np * H * tiles;
   patch_attention_fwd_kernel<D><<<blocks, 32 * kWarps, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), K, C, H, scale);
+      static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), m, l, K, C, H,
+      scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // qkv [np, K, 3C] bf16 row-major (q | k | v, heads of D columns each) ->
-// out [np, K, C] bf16; K % 16 == 0. Returns the cudaError_t of the launch.
-extern "C" int patch_attention_fwd(const void* qkv, void* out, int np, int K, int C, int H,
-                                   int D, float scale, void* stream) {
+// out [np, K, C] bf16, and when m and l are not null the row statistics
+// m, l [np, H, K] f32; K % 16 == 0. Returns the cudaError_t of the launch.
+extern "C" int patch_attention_fwd(const void* qkv, void* out, void* m, void* l, int np, int K,
+                                   int C, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (K % 16 != 0) return (int)cudaErrorInvalidValue;
+  auto* mf = static_cast<float*>(m);
+  auto* lf = static_cast<float*>(l);
   switch (D) {
     case 16:
-      return launch<16>(qkv, out, np, K, C, H, scale, s);
+      return launch<16>(qkv, out, mf, lf, np, K, C, H, scale, s);
     case 32:
-      return launch<32>(qkv, out, np, K, C, H, scale, s);
+      return launch<32>(qkv, out, mf, lf, np, K, C, H, scale, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -1,5 +1,5 @@
-from .synthetic import synthesize_scene, synthetic_arrays
+from .synthetic import scene_batch, synthesize_scene, synthetic_arrays
 from .transform import TRANSFORMS, Compose
 from .utils import point_collate_fn
 
-__all__ = ["TRANSFORMS", "Compose", "point_collate_fn", "synthesize_scene", "synthetic_arrays"]
+__all__ = ["TRANSFORMS", "Compose", "point_collate_fn", "scene_batch", "synthesize_scene", "synthetic_arrays"]

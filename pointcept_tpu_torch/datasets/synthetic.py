@@ -50,30 +50,55 @@ def synthesize_scene(seed: int, num_points: int = 120000, num_classes: int = 20,
     return dict(coord=coord[perm], color=color[perm], normal=normal[perm], segment=seg[perm], instance=inst[perm])
 
 
-def synthetic_arrays(capacity, num_scenes, seed=0, num_classes=13, grid_size=0.05,
-                     oversample=1.0, extent=8.0, crop=False, rng=None):
-    """One collated fixed-capacity batch of synthetic scenes: the pipeline of
-    the repository's synthetic benchmark batch (CenterShift, GridSample in
-    train mode, optional center SphereCrop, CenterShift, NormalizeColor,
-    Collect). GridSample draws from `rng` (the global numpy state when None)."""
+def _pipeline(grid_size, crop_points, rng):
+    """The synthetic benchmark batch's transforms: CenterShift, GridSample in
+    train mode (drawing from `rng`), optional center SphereCrop, CenterShift,
+    NormalizeColor, Collect (coord, grid_coord, segment; color + normal)."""
     from .transform import Compose
-    from .utils import point_collate_fn
 
     steps = [
         dict(type="CenterShift", apply_z=True),
         dict(type="GridSample", grid_size=grid_size, mode="train", return_grid_coord=True, rng=rng),
     ]
-    if crop:
-        steps.append(dict(type="SphereCrop", point_max=capacity // max(num_scenes, 1), mode="center"))
+    if crop_points:
+        steps.append(dict(type="SphereCrop", point_max=crop_points, mode="center"))
     steps += [
         dict(type="CenterShift", apply_z=False),
         dict(type="NormalizeColor"),
         dict(type="Collect", keys=("coord", "grid_coord", "segment"), feat_keys=("color", "normal")),
     ]
-    pipeline = Compose(steps)
+    return Compose(steps)
+
+
+def synthetic_arrays(capacity, num_scenes, seed=0, num_classes=13, grid_size=0.05,
+                     oversample=1.0, extent=8.0, crop=False, rng=None):
+    """One collated fixed-capacity batch of synthetic scenes (seeds `seed`,
+    `seed + 1`, ...) through `_pipeline`, labels kept. GridSample draws from
+    `rng` (the global numpy state when None)."""
+    from .utils import point_collate_fn
+
+    pipeline = _pipeline(grid_size, capacity // max(num_scenes, 1) if crop else 0, rng)
     per_scene = max(256, int(capacity * oversample) // max(num_scenes, 1))
     samples = []
     for i in range(num_scenes):
         data = synthesize_scene(seed + i, num_points=per_scene, num_classes=num_classes, extent=extent)
         samples.append(pipeline(data))
     return point_collate_fn(samples, capacity=capacity)
+
+
+def scene_batch(seeds, points_per_scene=102400, num_classes=20, grid_size=0.02, oversample=4.0,
+                extent=6.0):
+    """One labelled batch of ScanNet-like scenes, one per seed, each made as
+    the single-scene batch of that seed: `oversample` x `points_per_scene`
+    raw points in an `extent` m room, GridSample drawing from
+    `RandomState(seed)`, center-cropped to `points_per_scene`. Capacity
+    len(seeds) * points_per_scene; padding rows carry batch and label -1."""
+    from .utils import point_collate_fn
+
+    samples = []
+    for seed in seeds:
+        pipeline = _pipeline(grid_size, points_per_scene, np.random.RandomState(seed))
+        data = synthesize_scene(seed, num_points=int(points_per_scene * oversample),
+                                num_classes=num_classes, extent=extent)
+        samples.append(pipeline(data))
+    return point_collate_fn(samples, capacity=points_per_scene * len(seeds))

@@ -1,3 +1,3 @@
-from .train import make_point_batch
+from .train import build_train_step, make_point_batch
 
-__all__ = ["make_point_batch"]
+__all__ = ["build_train_step", "make_point_batch"]

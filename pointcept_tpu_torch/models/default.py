@@ -2,10 +2,14 @@
 
 from __future__ import annotations
 
+import contextlib
+from typing import Optional
+
 import torch
 from torch import nn
 
 from .builder import MODELS
+from .losses import build_criteria
 from .modules import Linear
 from .utils.structure import PointBatch
 
@@ -14,8 +18,11 @@ from .utils.structure import PointBatch
 class DefaultSegmentorV2(nn.Module):
     """Backbone returning a PointBatch, then a linear seg head (in f32).
 
-    Eval only: `forward` returns ``{"seg_logits", "feat", "diagnostics"}``.
-    A batch with labels would need the loss, which is not ported yet."""
+    `forward(pb, generator)` returns ``{"seg_logits", "feat", "diagnostics"}``
+    and, when the batch carries labels (``pb.segment``, -1 = ignore), the
+    summed criteria as ``"loss"``. Gradients are recorded in train mode only;
+    the eval forward runs under `torch.no_grad`. In train mode the backbone
+    draws its order shuffles and drop-path masks from `generator`."""
 
     def __init__(self, num_classes: int = 20, backbone_out_channels: int = 64, backbone=None,
                  criteria=None, freeze_backbone: bool = False, up_cast_level: int = 0):
@@ -25,14 +32,16 @@ class DefaultSegmentorV2(nn.Module):
         if backbone_out_channels != in_ch:
             raise ValueError(f"backbone_out_channels={backbone_out_channels} but the backbone "
                              f"emits {in_ch} channels")
+        self.criteria = build_criteria(criteria)
+        self.freeze_backbone = freeze_backbone
         self.seg_head = Linear(in_ch, num_classes) if num_classes > 0 else nn.Identity()
 
-    def forward(self, pb: PointBatch) -> dict:
-        if self.training:
-            raise NotImplementedError("DefaultSegmentorV2: training is not ported yet; call .eval()")
-        if pb.segment is not None:
-            raise NotImplementedError("DefaultSegmentorV2: labels need the loss, not ported yet")
-        with torch.no_grad():
-            out, diag = self.backbone(pb)
-            logits = self.seg_head(out.feat)
-        return {"seg_logits": logits, "feat": out.feat, "diagnostics": diag}
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None) -> dict:
+        with contextlib.nullcontext() if self.training else torch.no_grad():
+            out, diag = self.backbone(pb, generator=generator)
+            feat = out.feat.detach() if self.freeze_backbone else out.feat
+            logits = self.seg_head(feat)
+            result = {"seg_logits": logits, "feat": feat, "diagnostics": diag}
+            if pb.segment is not None:
+                result["loss"] = self.criteria(logits, pb.segment)
+        return result

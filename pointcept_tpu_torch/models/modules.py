@@ -1,5 +1,4 @@
-"""Shared building blocks (counterpart of `pointcept_tpu/models/modules.py`),
-eval semantics only.
+"""Shared building blocks (counterpart of `pointcept_tpu/models/modules.py`).
 
 Dtypes follow the JAX package's AMP policy with explicit casts rather than
 `torch.autocast`: a `Linear` with a compute dtype casts its input and its f32
@@ -31,20 +30,39 @@ class Linear(nn.Linear):
 
 
 class MaskedBatchNorm(nn.Module):
-    """BatchNorm1d in eval: running statistics, eps 1e-3, affine; computed in
-    the activation dtype (the bf16 stream stays bf16)."""
+    """BatchNorm1d over the valid rows only (torch semantics, eps 1e-3,
+    momentum 0.01, affine); normalisation in the activation dtype (the bf16
+    stream stays bf16).
 
-    def __init__(self, channels: int, eps: float = 1e-3):
+    Train mode: f32 batch statistics over the rows where `mask` holds, the
+    variance in two passes (shifted), biased for the normalisation and
+    unbiased for the running update. Eval: the running statistics."""
+
+    def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
         self.register_buffer("running_var", torch.ones(channels))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        inv = torch.rsqrt(self.running_var + self.eps)
-        y = (x - self.running_mean.to(x.dtype)) * inv.to(x.dtype)
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.training:
+            xf = x.float()
+            mf = (torch.ones((x.shape[0], 1), device=x.device) if mask is None
+                  else mask.float()[:, None])
+            cnt = torch.clamp(mf.sum(), min=1.0)
+            mean = (xf * mf).sum(dim=0) / cnt
+            var = torch.clamp((torch.square(xf - mean) * mf).sum(dim=0) / cnt, min=0.0)
+            with torch.no_grad():
+                unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
+                self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
+                self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
+        else:
+            mean, var = self.running_mean, self.running_var
+        inv = torch.rsqrt(var + self.eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
         return y * self.weight.to(y.dtype) + self.bias.to(y.dtype)
 
 
@@ -67,8 +85,29 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+class DropPath(nn.Module):
+    """Per-row stochastic depth (timm semantics): in train mode each row is
+    kept with probability 1 - rate and scaled by 1 / (1 - rate), the mask
+    drawn from the caller's generator; the identity at rate 0 and in eval."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        if self.rate == 0.0 or not self.training:
+            return x
+        if generator is None:
+            raise ValueError("DropPath: train mode draws its mask from an explicit generator")
+        keep = 1.0 - self.rate
+        rows = torch.rand((x.shape[0],) + (1,) * (x.dim() - 1), generator=generator,
+                          device=x.device) < keep
+        return torch.where(rows, x / keep, torch.zeros((), dtype=x.dtype, device=x.device)).to(x.dtype)
+
+
 class MLP(nn.Module):
-    """fc1 -> GELU -> fc2 (dropout is the identity in eval)."""
+    """fc1 -> GELU -> fc2 (the MLP's dropout is 0 in every config the port
+    builds)."""
 
     def __init__(self, in_channels: int, hidden_channels: int, out_channels: int,
                  compute_dtype: Optional[torch.dtype] = None):

@@ -1,23 +1,35 @@
-"""Point Transformer V3 (PT-v3m1), eval forward (counterpart of
+"""Point Transformer V3 (PT-v3m1), eval and train forward (counterpart of
 `pointcept_tpu/models/point_transformer_v3/point_transformer_v3.py`).
 
 Serialization -> SubM k5 stem -> U-Net of [SerializedPooling + Block x d]
 encoder stages and [SerializedUnpooling + Block x d] decoder stages; a Block
 is xCPE (SubM k3 conv + linear + LN) + serialized patch attention + MLP with
-pre-norm residuals. As in the JAX package the batch is pinned to z-order
-after serialization (the sorted layout), every capacity is static, and the
-block-dense conv engine serves stages of at least `block_engine_min_points`
-points while smaller stages use gather-GEMM rule maps.
+pre-norm residuals. Every capacity is static, and the block-dense conv engine
+serves stages of at least `block_engine_min_points` points while smaller
+stages use gather-GEMM rule maps.
+
+Two geometry routes, as in the JAX package:
+* unshuffled (eval, or train with ``shuffle_orders=False``): only the orders
+  the blocks read are sorted, and with ``sorted_layout`` the batch is pinned
+  to z order after serialization, so order 0 is the identity at every stage;
+* shuffled (train with ``shuffle_orders``): every order is sorted at every
+  stage and the orders are permuted after serialization and after every
+  pooling (draws from the caller's generator). Nothing is pinned: block
+  tables re-sort by the z curve, pooling reduces through a non-identity
+  order 0, and pooled keys are gathered from the shifted keys.
+Train mode also takes BatchNorm statistics over the valid rows and applies
+the drop-path schedule (a linspace over the encoder depths, reversed slices
+in the decoder).
 
 Parameter names follow the reference Pointcept state dict
 (`backbone.enc.enc0.block0.cpe.0.weight`, ...), so reference checkpoints and
 the JAX package's converter read them directly. Conv weights are
 ``[k^3, Cin, Cout]`` in `kernel_offsets` order.
 
-Not ported in this slice: training (loss, dropout, drop path, order
-shuffling), PDNorm, RPE, the v3m2/v3m3 options (linear stem, LayerScale,
-RoPE), LoRA, enc_mode, host geometry, `build_geometry`/`precomputed`, and
-the scene-blocked layout. Each raises when asked for.
+Not ported: PDNorm, RPE, the v3m2/v3m3 options (linear stem, LayerScale,
+RoPE), LoRA, enc_mode, attention and projection dropout, host geometry,
+`build_geometry`/`precomputed`, and the scene-blocked layout. Each raises
+when asked for.
 """
 
 from __future__ import annotations
@@ -25,6 +37,7 @@ from __future__ import annotations
 import math
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -34,7 +47,7 @@ from ...ops.block_conv import block_subm_conv, build_block_tables, default_block
 from ...ops.segment_ops import segment_reduce
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
 from ..builder import MODELS
-from ..modules import LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
+from ..modules import DropPath, LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
 from ..utils.structure import PointBatch
 
 
@@ -81,10 +94,11 @@ class Block(nn.Module):
     norm1.0, attn.{qkv,proj}, norm2.0, mlp.0.{fc1,fc2})."""
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
-                 qk_scale=None, pre_norm=True, compute_dtype=None):
+                 qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
+        self.drop_path = DropPath(drop_path)
         self.cpe = nn.ModuleList([
             SubMConv(c, c, 3, bias=True), Linear(c, c, compute_dtype=compute_dtype), LayerNorm(c)
         ])
@@ -93,7 +107,8 @@ class Block(nn.Module):
         self.norm2 = nn.ModuleList([LayerNorm(c)])
         self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
 
-    def forward(self, pb: PointBatch, nbr3, partition, cpe_feat=None) -> PointBatch:
+    def forward(self, pb: PointBatch, nbr3, partition, cpe_feat=None,
+                generator: Optional[torch.Generator] = None) -> PointBatch:
         # `cpe_feat`: the first decoder block's conv reads the skip branch
         # alone. The reference never re-syncs its sparse-conv feature after
         # unpooling, and trained weights depend on that.
@@ -101,34 +116,50 @@ class Block(nn.Module):
         cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
         feat = feat + self.cpe[2](self.cpe[1](cpe))
         x = self.norm1[0](feat) if self.pre_norm else feat
-        feat = feat + self.attn(x, partition)
+        feat = feat + self.drop_path(self.attn(x, partition), generator)
         if not self.pre_norm:
             feat = self.norm1[0](feat)
         x = self.norm2[0](feat) if self.pre_norm else feat
-        feat = feat + self.mlp[0](x)
+        feat = feat + self.drop_path(self.mlp[0](x), generator)
         if not self.pre_norm:
             feat = self.norm2[0](feat)
         return pb.replace(feat=feat)
 
 
-def pooling_geometry(pb: PointBatch, stride: int, out_capacity: int, orders, needed) -> dict:
-    """Feature-independent half of SerializedPooling on the sorted layout:
-    clusters are runs of equal shifted order-0 keys; the pooled keys of the
-    orders in `needed` are re-encoded from the pooled grid (curve codes are
-    hierarchical), and pooled order 0 is already sorted."""
+def pooling_geometry(pb: PointBatch, stride: int, out_capacity: int, orders, needed,
+                     identity_order0: bool) -> dict:
+    """Feature-independent half of SerializedPooling: clusters are runs of
+    equal shifted order-0 keys in order-0 sorted order (`identity_order0`:
+    the batch already is in that order). With `needed` (unshuffled orders)
+    the pooled keys of those orders are re-encoded from the pooled grid
+    (curve codes are hierarchical); without it (shuffled orders) every
+    order's pooled keys are the shifted keys of each cluster's head point.
+    Pooled order 0 is already sorted."""
     dev = pb.device
     pdepth = stride.bit_length() - 1
+    bits = 3 * pdepth
     m = out_capacity
     n = pb.capacity
     s = pb.serialized_keys.shape[0]
-    sk = ser.key_shift_right(pb.serialized_keys[0], 3 * pdepth)
-    valid = pb.mask
+    reencode = needed is not None
+    order0, inverse0 = pb.serialized_order[0].long(), pb.serialized_inverse[0].long()
+    shifted = None
+    if reencode:
+        shifted0 = ser.key_shift_right(pb.serialized_keys[0], bits)
+    else:
+        shifted = torch.stack([ser.key_shift_right(pb.serialized_keys[i], bits) for i in range(s)])
+        shifted0 = shifted[0]
+    if identity_order0:
+        sk, valid = shifted0, pb.mask
+    else:
+        sk, valid = shifted0[order0], pb.mask[order0]
     prev_eq = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), ser.keys_equal(sk[1:], sk[:-1])])
     head = valid & ~prev_eq
     cluster = (torch.cumsum(head.to(torch.int32), 0) - 1).to(torch.int32)
     ok = valid & (cluster < m)
     seg_ids = torch.where(ok, cluster, m)
     overflow = (valid & (cluster >= m)).sum().to(torch.int32)
+    cluster_of_point = seg_ids if identity_order0 else seg_ids[inverse0]
 
     # each cluster's head position, without host syncs (see build_block_tables)
     is_head = head & ok
@@ -136,25 +167,33 @@ def pooling_geometry(pb: PointBatch, stride: int, out_capacity: int, orders, nee
     hsel = torch.zeros(m + 1, dtype=torch.long, device=dev).scatter_(
         0, tgt, torch.arange(n, device=dev))[:m]
     head_valid = torch.arange(m, device=dev) < is_head.sum()
-    grid = torch.where(head_valid[:, None], pb.grid_coord[hsel] >> pdepth, 0)
-    batch = torch.where(head_valid, pb.batch[hsel], -1)
-    segment = None if pb.segment is None else torch.where(head_valid, pb.segment[hsel], -1)
+    head_point = hsel if identity_order0 else order0[hsel]
+    grid = torch.where(head_valid[:, None], pb.grid_coord[head_point] >> pdepth, 0)
+    batch = torch.where(head_valid, pb.batch[head_point], -1)
+    segment = None if pb.segment is None else torch.where(head_valid, pb.segment[head_point], -1)
 
     depth = pb.serialized_depth - pdepth
-    kb = torch.where(batch >= 0, batch, ser.BATCH_SENTINEL).to(torch.int32)
     iota = torch.arange(m, dtype=torch.int32, device=dev)
-    k0 = ser.encode(grid, kb, depth, orders[0])
     keys, order, inverse = [], [], []
+    if reencode:
+        kb = torch.where(batch >= 0, batch, ser.BATCH_SENTINEL).to(torch.int32)
+        k0 = ser.encode(grid, kb, depth, orders[0])
+    else:
+        sentinel = torch.zeros(3, dtype=torch.int32, device=dev)
+        sentinel[0] = ser.BATCH_SENTINEL
     for i in range(s):
-        keys.append(ser.encode(grid, kb, depth, orders[i]) if (i != 0 and i in needed) else k0)
-        if i == 0 or i not in needed:
+        if not reencode:
+            keys.append(torch.where(head_valid[:, None], shifted[i][head_point], sentinel))
+        else:
+            keys.append(ser.encode(grid, kb, depth, orders[i]) if (i != 0 and i in needed) else k0)
+        if i == 0 or (reencode and i not in needed):
             order.append(iota)
             inverse.append(iota)
         else:
             o = ser.argsort_keys(keys[i], depth)
             order.append(o)
             inverse.append(ser.invert_order(o))
-    return dict(seg_ids=seg_ids, cluster_of_point=seg_ids, overflow=overflow, grid=grid,
+    return dict(seg_ids=seg_ids, cluster_of_point=cluster_of_point, overflow=overflow, grid=grid,
                 batch=batch, segment=segment, keys=torch.stack(keys), order=torch.stack(order),
                 inverse=torch.stack(inverse), depth=depth)
 
@@ -169,17 +208,27 @@ class SerializedPooling(nn.Module):
         self.proj = Linear(in_channels, out_channels, compute_dtype=compute_dtype)
         self.norm = nn.ModuleList([MaskedBatchNorm(out_channels)])
 
-    def forward(self, pb: PointBatch, out_capacity: int, orders, needed):
-        g = pooling_geometry(pb, self.stride, out_capacity, orders, needed)
+    def forward(self, pb: PointBatch, out_capacity: int, orders, needed, identity_order0: bool,
+                generator: Optional[torch.Generator] = None):
+        """`generator`: shuffle the pooled batch's orders (the shuffled route)."""
+        g = pooling_geometry(pb, self.stride, out_capacity, orders, needed, identity_order0)
         m = out_capacity
-        feat = segment_reduce(self.proj(pb.feat), g["seg_ids"], m, reduce="max")
-        coord = segment_reduce(pb.coord, g["seg_ids"], m, reduce="mean")
+        proj, coord = self.proj(pb.feat), pb.coord
+        if not identity_order0:
+            # reduce in the sorted layout: cluster ids are non-decreasing there
+            order0 = pb.serialized_order[0].long()
+            proj, coord = proj[order0], coord[order0]
+        feat = segment_reduce(proj, g["seg_ids"], m, reduce="max")
+        coord = segment_reduce(coord, g["seg_ids"], m, reduce="mean")
         out = PointBatch(
-            coord=coord, feat=gelu(self.norm[0](feat)), grid_coord=g["grid"], batch=g["batch"],
+            coord=coord, feat=feat, grid_coord=g["grid"], batch=g["batch"],
             segment=g["segment"], serialized_keys=g["keys"], serialized_order=g["order"],
             serialized_inverse=g["inverse"], serialized_depth=g["depth"],
             num_scenes=pb.num_scenes,
         )
+        out = out.replace(feat=gelu(self.norm[0](feat, out.mask)))
+        if generator is not None:
+            out = out.shuffle_orders_(generator)
         return out, g["cluster_of_point"], g["overflow"]
 
 
@@ -198,8 +247,8 @@ class SerializedUnpooling(nn.Module):
 
     def forward(self, pb: PointBatch, skip_pb: PointBatch, cluster: torch.Tensor):
         m = pb.capacity
-        x = gelu(self.proj[1](self.proj[0](pb.feat)))
-        skip = gelu(self.proj_skip[1](self.proj_skip[0](skip_pb.feat)))
+        x = gelu(self.proj[1](self.proj[0](pb.feat), pb.mask))
+        skip = gelu(self.proj_skip[1](self.proj_skip[0](skip_pb.feat), skip_pb.mask))
         up = x[torch.clamp(cluster, max=m - 1).long()]
         up = torch.where((cluster < m)[:, None], up, torch.zeros((), dtype=up.dtype, device=up.device))
         # the second output, the skip branch alone, feeds the next block's cpe
@@ -216,22 +265,23 @@ class Embedding(nn.Module):
         self.stem.norm = MaskedBatchNorm(embed_channels)
 
     def forward(self, pb: PointBatch, nbr5) -> PointBatch:
-        return pb.replace(feat=gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5))))
+        return pb.replace(feat=gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5), pb.mask)))
 
 
 _UNSUPPORTED = dict(
     enc_mode=False, pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
-    sorted_layout=True, embed_mode="conv", mask_token=False, layer_scale=None, rope_base=None,
-    lora_rank=0,
+    embed_mode="conv", mask_token=False, layer_scale=None, rope_base=None, lora_rank=0,
+    attn_drop=0.0, proj_drop=0.0,
 )
 
 
 @MODELS.register_module("PT-v3m1")
 class PointTransformerV3(nn.Module):
-    """PT-v3m1 backbone; `forward(pb)` returns (decoded PointBatch in the
-    caller's point order, diagnostics). The diagnostics count the points
-    dropped by static capacities: ``block_overflow`` (one per block-table
-    build) and ``pool_overflow`` (one per pooling)."""
+    """PT-v3m1 backbone; `forward(pb, generator)` returns (decoded PointBatch
+    in the caller's point order, diagnostics). The diagnostics count the
+    points dropped by static capacities: ``block_overflow`` (one per
+    block-table build) and ``pool_overflow`` (one per pooling). In train mode
+    the order shuffles and drop-path masks are drawn from `generator`."""
 
     def __init__(
         self,
@@ -249,20 +299,20 @@ class PointTransformerV3(nn.Module):
         mlp_ratio: float = 4.0,
         qkv_bias: bool = True,
         qk_scale: Optional[float] = None,
+        drop_path: float = 0.3,
         pre_norm: bool = True,
+        shuffle_orders: bool = True,
         serialize_depth: int = 12,
         pool_capacity_factors: Sequence[float] = (0.5, 0.5, 0.5, 0.5),
         conv_engine: str = "gather",
         block_capacity_factor=1.0 / 16.0,
         block_bits: int = 3,
+        sorted_layout: bool = True,
         block_engine_min_points: int = 8192,
         grid_size: float = 0.02,
         amp: bool = False,
-        # eval no-ops (training-time or config-parity options)
-        attn_drop: float = 0.0,
-        proj_drop: float = 0.0,
-        drop_path: float = 0.3,
-        shuffle_orders: bool = True,
+        # config-parity options without effect (attention is always fused,
+        # its softmax always f32; PDNorm is not ported)
         enable_flash: bool = True,
         upcast_attention: bool = False,
         upcast_softmax: bool = False,
@@ -287,16 +337,23 @@ class PointTransformerV3(nn.Module):
         self.dec_depths = tuple(dec_depths)
         self.enc_patch_size = tuple(enc_patch_size)
         self.dec_patch_size = tuple(dec_patch_size)
+        self.drop_path = drop_path
+        self.shuffle_orders = shuffle_orders
         self.serialize_depth = serialize_depth
         self.pool_capacity_factors = tuple(pool_capacity_factors)
         self.conv_engine = conv_engine
         self.block_capacity_factor = block_capacity_factor
         self.block_bits = block_bits
+        self.sorted_layout = sorted_layout
         self.block_engine_min_points = block_engine_min_points
         self.grid_size = grid_size
         self.amp = amp
         dt = torch.bfloat16 if amp else None
         n = len(enc_depths)
+        # drop-path schedule (reference): a linspace over the encoder depths;
+        # each decoder stage takes its slice of a linspace, reversed
+        enc_dp = np.linspace(0, drop_path, sum(enc_depths)).tolist()
+        dec_dp = np.linspace(0, drop_path, sum(dec_depths)).tolist()
 
         self.embedding = Embedding(in_channels, enc_channels[0])
         self.enc = nn.Module()
@@ -308,7 +365,7 @@ class PointTransformerV3(nn.Module):
             for i in range(enc_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
-                    qk_scale, pre_norm, dt,
+                    qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i],
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
@@ -316,64 +373,89 @@ class PointTransformerV3(nn.Module):
         for s in reversed(range(n - 1)):
             stage = nn.Module()
             stage.up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], compute_dtype=dt)
+            dp_slice = dec_dp[sum(dec_depths[:s]) : sum(dec_depths[: s + 1])][::-1]
             for i in range(dec_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
-                    qk_scale, pre_norm, dt,
+                    qk_scale, pre_norm, dt, drop_path=dp_slice[i],
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = dec_ch[0]
 
-    def _used_orders(self, stage: int):
+    def _used_orders(self, stage: int, shuffled: bool):
+        """Orders the blocks of a stage read (with shuffled orders: all)."""
         s_orders = len(self.order)
+        if shuffled:
+            return tuple(range(s_orders))
         used = {0} | {i % s_orders for i in range(self.enc_depths[stage])}
         if stage < len(self.enc_depths) - 1:
             used |= {i % s_orders for i in range(self.dec_depths[stage])}
         return tuple(sorted(used))
 
-    def _block_tables(self, pb: PointBatch, stage: int, diag: dict) -> dict:
+    def _block_tables(self, pb: PointBatch, stage: int, diag: dict, shuffled: bool,
+                      ident0: bool) -> dict:
         f = self.block_capacity_factor
         if isinstance(f, (tuple, list)):
             f = f[min(stage, len(f) - 1)]
-        curve_is_z = self.order[0] == "z"
+        # with shuffled orders order 0 may be any curve: the tables re-sort by z
+        curve_is_z = not shuffled and self.order[0] == "z"
         t = build_block_tables(
             pb.serialized_keys[0], pb.serialized_order[0], pb.grid_coord, pb.mask,
             pb.serialized_depth, default_block_capacity(pb.capacity, f),
             block_bits=self.block_bits, inverse0=pb.serialized_inverse[0],
-            curve_is_z=curve_is_z, identity_order0=curve_is_z,
+            curve_is_z=curve_is_z, identity_order0=curve_is_z and ident0,
         )
         diag["block_overflow"].append(t["overflow"])
         return t
 
-    def _stage_ctx(self, pb: PointBatch, stage: int, patch_size: int, nbr5, stage0_tables, diag):
+    def _stage_ctx(self, pb: PointBatch, stage: int, patch_size: int, nbr5, stage0_tables, diag,
+                   shuffled: bool, ident0: bool):
         if self.conv_engine == "block" and pb.capacity >= self.block_engine_min_points:
-            nbr3 = stage0_tables if stage == 0 else self._block_tables(pb, stage, diag)
+            nbr3 = (stage0_tables if stage == 0
+                    else self._block_tables(pb, stage, diag, shuffled, ident0))
         elif stage == 0 and not isinstance(nbr5, dict):
             # the stage-0 k3 map is a column subset of the stem's k5 map
             nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=pb.device).long()]
         else:
             nbr3 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
                                            self.serialize_depth - stage, 3)
-        parts = {oi: pb.patch_partition(oi, patch_size) for oi in self._used_orders(stage)}
+        parts = {oi: pb.patch_partition(oi, patch_size)
+                 for oi in self._used_orders(stage, shuffled)}
         return dict(nbr3=nbr3, parts=parts)
 
-    def forward(self, pb: PointBatch):
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None):
         s_orders = len(self.order)
         num_stages = len(self.enc_depths)
+        shuffled = self.training and self.shuffle_orders
+        if generator is None and self.training and (shuffled or self.drop_path > 0):
+            raise ValueError("PT-v3m1: train mode draws its order shuffles and drop-path masks "
+                             "from an explicit generator")
         if self.amp:
             pb = pb.replace(feat=pb.feat.to(torch.bfloat16))
         diag = {"block_overflow": [], "pool_overflow": []}
         pb = pb.with_grid_coord(self.grid_size)
-        used0 = self._used_orders(0)
-        pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
-                          sort_indices=used0, key_orders=used0)
-        # sorted layout: pin the batch to order 0, which then is the identity
-        perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
-        pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
+        if shuffled:
+            pb = pb.serialize(orders=self.order, depth=self.serialize_depth, generator=generator)
+        else:
+            used0 = self._used_orders(0, False)
+            pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
+                              sort_indices=used0, key_orders=used0)
+        sorted_ok = self.sorted_layout and not shuffled
+        unsort = None
+        if sorted_ok:
+            # sorted layout: pin the batch to order 0, which then is the identity
+            perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
+            pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
+            unsort = (inv0, perm0)
+
+        def ident0(stage):
+            # order 0 is the identity: at stage 0 after the pin, at pooled
+            # stages whenever the orders are unshuffled (pooling's output order)
+            return not shuffled and (stage > 0 or sorted_ok)
 
         stage0_tables = None
         if self.conv_engine == "block":
-            stage0_tables = nbr5 = self._block_tables(pb, 0, diag)
+            stage0_tables = nbr5 = self._block_tables(pb, 0, diag, shuffled, ident0(0))
         else:
             nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
                                            self.serialize_depth, 5)
@@ -387,12 +469,17 @@ class PointTransformerV3(nn.Module):
             if s > 0:
                 cap = _round_up(max(int(math.ceil(cap * self.pool_capacity_factors[s - 1])), 128), 128)
                 skip_pb = pb
-                pb, cluster, overflow = stage.down(pb, cap, self.order, self._used_orders(s))
+                pb, cluster, overflow = stage.down(
+                    pb, cap, self.order, None if shuffled else self._used_orders(s, False),
+                    ident0(s - 1), generator if shuffled else None,
+                )
                 diag["pool_overflow"].append(overflow)
                 skips.append((skip_pb, cluster, ctx))
-            ctx = self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag)
+            ctx = self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag,
+                                  shuffled, ident0(s))
             for i in range(self.enc_depths[s]):
-                pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders])
+                pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders],
+                                                 generator=generator)
 
         for s in reversed(range(num_stages - 1)):
             stage = getattr(self.dec, f"dec{s}")
@@ -401,9 +488,10 @@ class PointTransformerV3(nn.Module):
             for i in range(self.dec_depths[s]):
                 pb = getattr(stage, f"block{i}")(
                     pb, skip_ctx["nbr3"], skip_ctx["parts"][i % s_orders],
-                    cpe_feat=stale_cpe_feat if i == 0 else None,
+                    cpe_feat=stale_cpe_feat if i == 0 else None, generator=generator,
                 )
-        # restore the caller's point order
-        pb = pb.reorder(inv0, perm0, rebase_orders=(), rebase_keys=False)
+        if unsort is not None:
+            # restore the caller's point order
+            pb = pb.reorder(unsort[0], unsort[1], rebase_orders=(), rebase_keys=False)
         pb = pb.replace(serialized_keys=None, serialized_order=None, serialized_inverse=None)
         return pb, diag

@@ -16,6 +16,12 @@ import torch
 from ...ops import serialization as ser
 
 
+def order_permutation(num_orders: int, generator: torch.Generator) -> torch.Tensor:
+    """A random permutation of the serialization orders (the train-time order
+    shuffle), on the generator's device."""
+    return torch.randperm(num_orders, generator=generator, device=generator.device)
+
+
 @dataclasses.dataclass
 class PointBatch:
     coord: torch.Tensor  # [N, 3] float32
@@ -76,13 +82,18 @@ class PointBatch:
         depth: int = 12,
         sort_indices: Optional[Sequence[int]] = None,
         key_orders: Optional[Sequence[int]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> "PointBatch":
         """Per-order curve keys, orders and inverses.
 
         `sort_indices` restricts which orders are sorted (the others keep
         identity permutations); `key_orders` which are encoded (the others
-        alias keys[0] and must not be read)."""
+        alias keys[0] and must not be read). With a `generator`, every order
+        is encoded and sorted and the orders are then shuffled
+        (`order_permutation`); it excludes the two restrictions."""
         assert depth <= 16
+        if generator is not None:
+            assert sort_indices is None and key_orders is None, "a shuffle needs every order"
         gc = torch.clamp(self.grid_coord, 0, (1 << depth) - 1)
         kb = self.key_batch()
         if key_orders is None:
@@ -103,11 +114,22 @@ class PointBatch:
             else:
                 order.append(iota)
                 inverse.append(iota)
-        return self.replace(
+        out = self.replace(
             serialized_keys=keys,
             serialized_order=torch.stack(order),
             serialized_inverse=torch.stack(inverse),
             serialized_depth=depth,
+        )
+        return out if generator is None else out.shuffle_orders_(generator)
+
+    def shuffle_orders_(self, generator: torch.Generator) -> "PointBatch":
+        """The serialized keys, orders and inverses in a random order of the
+        curves (drawn by `order_permutation`)."""
+        perm = order_permutation(self.serialized_order.shape[0], generator).to(self.device)
+        return self.replace(
+            serialized_keys=self.serialized_keys[perm],
+            serialized_order=self.serialized_order[perm],
+            serialized_inverse=self.serialized_inverse[perm],
         )
 
     def reorder(self, perm: torch.Tensor, inv: torch.Tensor, rebase_orders=None,

@@ -3,7 +3,10 @@
 The static patch layout of `PointBatch.patch_partition` makes attention a
 dense [num_patches, K, K] problem per head. The port gathers the packed qkv
 rows of every slot once (``qkv[slot_to_point]``, bf16) and hands them to the
-patch-attention kernel; each point then reads its own slot's output row.
+patch-attention kernels (`PatchAttention`: the forward kernel, and the
+backward kernel as its VJP); each point then reads its own slot's output row.
+Both index ops are `TakeRows` gathers: their VJP sums the cotangents of the
+slots that duplicate a point (scene tails), as JAX's `take` VJP does.
 
 Not carried over from the JAX package, all TPU workarounds: the
 identity-layout window splice (it avoided slot gathers on the TPU and gives
@@ -17,7 +20,8 @@ from typing import Optional
 
 import torch
 
-from .kernels.patch_attention import patch_attention_fwd
+from .kernels.patch_attention import PatchAttention
+from .segment_ops import TakeRows
 
 
 def patch_attention(
@@ -45,13 +49,13 @@ def patch_attention(
     np_ = p // k
     if scale is None:
         scale = d**-0.5
-    qkv_p = qkv.to(compute_dtype)[slot_to_point.long()].reshape(np_, k, c3)
+    qkv_p = TakeRows.apply(qkv.to(compute_dtype), slot_to_point.long()).reshape(np_, k, c3)
     if bias is None:
-        out = patch_attention_fwd(qkv_p, h, scale)
+        out = PatchAttention.apply(qkv_p.contiguous(), h, scale)
     else:
         x = qkv_p.reshape(np_, k, 3, h, d)
         q, kk, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # [nP, H, K, D]
         s = torch.einsum("phkd,phmd->phkm", (q * scale).float(), kk.float()) + bias
         a = torch.softmax(s.float(), dim=-1).to(compute_dtype)
         out = torch.einsum("phkm,phmd->phkd", a.float(), v.float()).transpose(1, 2)
-    return out.reshape(p, c)[point_to_slot.long()].to(qkv.dtype)
+    return TakeRows.apply(out.reshape(p, c), point_to_slot.long()).to(qkv.dtype)

@@ -15,6 +15,11 @@ members are contiguous in the sorted order. A conv then runs as:
 Unoccupied voxels hold zeros, so submanifold semantics are exact. Every
 array is of static size: ``block_capacity`` bounds the occupied blocks, and
 points of blocks beyond it get zero output and are counted in ``overflow``.
+
+The fill and the take-back are each other's VJP (`BlockFill`, `TakeBack`),
+as `_block_fill` and `_take_back` are in the JAX package; the conv's own
+gradients come from autograd through `conv3d` (cuDNN on the card). Padding
+and overflow points, whose slot is the zero tile, get zero gradient.
 """
 
 from __future__ import annotations
@@ -148,6 +153,48 @@ def build_block_tables(
     )
 
 
+class BlockFill(torch.autograd.Function):
+    """feat [N, Cin] in the caller's point order -> dense tiles
+    [(m+1)*b3, Cin] in `compute_dtype` (z-sorted through `order0` unless the
+    batch is already in z order). VJP: the cotangent gathered at each point's
+    slot by the take-back kernel, zero where the slot is the zero tile
+    (`_block_fill_bwd`, pointcept_tpu/ops/block_conv.py)."""
+
+    @staticmethod
+    def forward(ctx, feat, tables, compute_dtype):
+        b3 = 1 << (3 * tables["block_bits"])
+        f = feat.to(compute_dtype)
+        if not tables["identity_order0"]:
+            f = f[tables["order0"].long()]
+        ctx.slot, ctx.bound, ctx.dtype = tables["slot"], tables["nbr"].shape[0] * b3, feat.dtype
+        return block_fill(f.contiguous(), tables["rc_sorted"], tables["fill_start"], b3)
+
+    @staticmethod
+    def backward(ctx, g):
+        gf = take_back_rows(g.contiguous(), ctx.slot, bound=ctx.bound)
+        return gf.to(ctx.dtype), None, None
+
+
+class TakeBack(torch.autograd.Function):
+    """Dense conv output [(m+1)*b3, C] -> per-point rows at ``slot``. VJP:
+    the cotangent, put in z order through `order0`, block-filled
+    (`_take_back_bwd`, pointcept_tpu/ops/block_conv.py): each valid point's
+    row lands in its own slot, the zero tile and empty voxels get zero."""
+
+    @staticmethod
+    def forward(ctx, out, tables):
+        ctx.tables = tables
+        return take_back_rows(out, tables["slot"])
+
+    @staticmethod
+    def backward(ctx, g):
+        t = ctx.tables
+        if not t["identity_order0"]:
+            g = g[t["order0"].long()]
+        b3 = 1 << (3 * t["block_bits"])
+        return block_fill(g.contiguous(), t["rc_sorted"], t["fill_start"], b3), None
+
+
 def raster_of_morton(v: torch.Tensor, block_bits: int) -> torch.Tensor:
     """Raster-local offset (x-major) of Morton-local offsets `v` within one block."""
     bb = block_bits
@@ -168,6 +215,21 @@ def _slab(a: int, bsz: int, halo: int):
     return 0, halo
 
 
+def _regions(bsz: int, halo: int):
+    """The 26 neighbour regions of a halo tile: (OFFS27 column of the
+    offset, column of the opposite offset, source slices within the
+    neighbour block, destination slices within the tile)."""
+    out = []
+    for off in OFFS27:
+        if off == (0, 0, 0):
+            continue
+        src = (slice(None),) + tuple(slice(*_slab(o, bsz, halo)) for o in off)
+        dst = (slice(None),) + tuple(slice(0, halo) if o < 0 else slice(halo, halo + bsz) if o == 0
+                                     else slice(halo + bsz, bsz + 2 * halo) for o in off)
+        out.append((OFFS27.index(off), OFFS27.index(tuple(-o for o in off)), src, dst))
+    return out
+
+
 def _halo_expand(dense: torch.Tensor, nbr: torch.Tensor, halo: int) -> torch.Tensor:
     """[R, B, B, B, C] (trailing rows all-zero) -> [R, B+2h, B+2h, B+2h, C].
 
@@ -176,24 +238,75 @@ def _halo_expand(dense: torch.Tensor, nbr: torch.Tensor, halo: int) -> torch.Ten
     count even where face neighbours are empty."""
     if halo == 0:
         return dense
-    bsz = dense.shape[1]
-    pieces_x = []
-    for a in (-1, 0, 1):
-        x0, x1 = _slab(a, bsz, halo)
-        pieces_y = []
-        for b in (-1, 0, 1):
-            y0, y1 = _slab(b, bsz, halo)
-            pieces_z = []
-            for c in (-1, 0, 1):
-                z0, z1 = _slab(c, bsz, halo)
-                if (a, b, c) == (0, 0, 0):
-                    pieces_z.append(dense)
-                    continue
-                k = OFFS27.index((a, b, c))
-                pieces_z.append(dense[nbr[:, k].long(), x0:x1, y0:y1, z0:z1, :])
-            pieces_y.append(torch.cat(pieces_z, dim=3))
-        pieces_x.append(torch.cat(pieces_y, dim=2))
-    return torch.cat(pieces_x, dim=1)
+    r, bsz, c = dense.shape[0], dense.shape[1], dense.shape[-1]
+    hsz = bsz + 2 * halo
+    out = dense.new_empty((r, hsz, hsz, hsz, c))
+    mid = slice(halo, halo + bsz)
+    out[:, mid, mid, mid] = dense
+    for k, _, src, dst in _regions(bsz, halo):
+        out[dst] = dense[(nbr[:, k].long(),) + src[1:]]
+    return out
+
+
+class HaloExpand(torch.autograd.Function):
+    """`_halo_expand` with a VJP that pulls instead of scattering.
+
+    Block j reads block r at offset k exactly when r reads j at the opposite
+    offset (the ``nbr`` lookups are symmetric; missing and overflowed blocks
+    are missing both ways). So each block's cotangent is its own tile's
+    centre plus, per region, the region's cotangent gathered from the block
+    at the opposite offset: gathers and adds in a fixed order, no atomics.
+    The autograd VJP of the 26 gathers (`index_put_` with accumulation)
+    instead serialises the thousands of duplicate reads of the zero tile.
+    The zero tile's own cotangent, which nothing reads (the fill's VJP stops
+    at the zero tile), is left at its centre."""
+
+    @staticmethod
+    def forward(ctx, dense: torch.Tensor, nbr: torch.Tensor, halo: int) -> torch.Tensor:
+        ctx.save_for_backward(nbr)
+        ctx.halo = halo
+        return _halo_expand(dense, nbr, halo)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (nbr,) = ctx.saved_tensors
+        h = ctx.halo
+        zero_tile = g.shape[0] - 1
+        bsz = g.shape[1] - 2 * h
+        gd = g[:, h : h + bsz, h : h + bsz, h : h + bsz].contiguous()
+        for _, opp, src, dst in _regions(bsz, h):
+            j = nbr[:, opp]
+            pulled = g[(j.long(),) + dst[1:]]
+            gd[src] += torch.where((j < zero_tile)[:, None, None, None, None], pulled,
+                                   torch.zeros((), dtype=g.dtype, device=g.device))
+        return gd, None, None
+
+
+class ConvValid(torch.autograd.Function):
+    """`F.conv3d` without padding whose input gradient is the forward conv
+    of the cotangent, padded by k - 1, with the flipped and transposed
+    kernel; the weight gradient is cuDNN's. On the H100 cuDNN picks, for
+    the 32-channel data gradient of the stage-0 convs, a direct kernel ~180x
+    slower than its forward kernel (PERF.md); as a forward conv the same
+    product takes the fast implicit-GEMM kernels."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x, w)
+        return F.conv3d(x, w)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        x, w = ctx.saved_tensors
+        gx = gw = None
+        if ctx.needs_input_grad[0]:
+            gp = F.pad(g, (w.shape[2] - 1,) * 6).contiguous(memory_format=torch.channels_last_3d)
+            gx = F.conv3d(gp, w.flip(2, 3, 4).transpose(0, 1))
+        if ctx.needs_input_grad[1]:
+            gw = torch.ops.aten.convolution_backward(
+                g, x, w, None, (1, 1, 1), (0, 0, 0), (1, 1, 1), False, (0, 0, 0), 1,
+                (False, True, False))[1]
+        return gx, gw
 
 
 def block_subm_conv(
@@ -220,24 +333,20 @@ def block_subm_conv(
     cin = feat.shape[1]
     cout = weight.shape[-1]
 
-    f = feat.to(compute_dtype)
-    if not tables["identity_order0"]:
-        f = f[tables["order0"].long()]
-    dense = block_fill(f.contiguous(), tables["rc_sorted"], tables["fill_start"], b3)
+    dense = BlockFill.apply(feat, tables, compute_dtype)
     nrows = nb + 1
     dense = dense.view(nrows, bsz, bsz, bsz, cin)
     # the zero tile is block nb: missing neighbours and its own halo read it
     nbr_ext = torch.cat([nbr, torch.full((1, nbr.shape[1]), nb, dtype=nbr.dtype, device=nbr.device)])
-    hal = _halo_expand(dense, nbr_ext, halo)  # [R, H, H, H, Cin]
+    hal = HaloExpand.apply(dense, nbr_ext, halo) if halo else dense  # [R, H, H, H, Cin]
     w = weight.reshape(kernel_size, kernel_size, kernel_size, cin, cout).permute(4, 3, 0, 1, 2)
     x = hal.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC tiles
     if feat.device.type == "cpu":
         out = F.conv3d(x.float(), w.to(compute_dtype).float()).to(compute_dtype)
     else:
-        out = F.conv3d(x, w.to(compute_dtype))
+        out = ConvValid.apply(x, w.to(compute_dtype))
     out = out.permute(0, 2, 3, 4, 1).reshape(nrows * b3, cout).contiguous()
-    res = take_back_rows(out, tables["slot"])
-    res = res.to(feat.dtype)
+    res = TakeBack.apply(out, tables).to(feat.dtype)
     if bias is not None:
         res = res + bias
     return res

@@ -3,26 +3,34 @@
 | wrapper | source | replaces (TPU kernel) |
 |---|---|---|
 | `patch_attention_fwd` | csrc/patch_attention.cu | `_fwd_kernel_kmajor`, `_fwd_kernel` (ops/pallas/flash_attention.py) |
-| `block_fill` | csrc/block_fill.cu | `_fill_kernel` (ops/pallas/block_fill.py) |
-| `take_back_rows` | csrc/take_back.cu | `_copy_kernel` (ops/pallas/layout_pin.py), fused with its gather |
+| `patch_attention_bwd` | csrc/patch_attention_bwd.cu | `_bwd_kernel_kmajor`, `_bwd_kernel_kmajor_chunked`, `_bwd_kernel`, `_bwd_kernel_chunked` (same file) |
+| `block_fill` | csrc/block_fill.cu | `_fill_kernel` (ops/pallas/block_fill.py), also as the take-back's VJP |
+| `take_back_rows` | csrc/take_back.cu | `_copy_kernel` (ops/pallas/layout_pin.py), fused with its gather; also the fill's VJP |
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
 
 from .block_fill import block_fill, block_fill_plain
-from .patch_attention import patch_attention_fwd, patch_attention_fwd_plain
+from .patch_attention import (
+    PatchAttention, patch_attention_bwd, patch_attention_bwd_plain, patch_attention_fwd,
+    patch_attention_fwd_plain,
+)
 from .take_back import take_back_rows, take_back_rows_plain
 
 KERNELS = {
     "patch_attention": patch_attention_fwd,
+    "patch_attention_bwd": patch_attention_bwd,
     "block_fill": block_fill,
     "take_back": take_back_rows,
 }
 
 __all__ = [
     "KERNELS",
+    "PatchAttention",
     "block_fill",
     "block_fill_plain",
+    "patch_attention_bwd",
+    "patch_attention_bwd_plain",
     "patch_attention_fwd",
     "patch_attention_fwd_plain",
     "take_back_rows",

@@ -1,7 +1,9 @@
 """Block fill: the CUDA kernel `csrc/block_fill.cu` and its plain PyTorch version.
 
-Replaces `_fill_kernel` (pointcept_tpu/ops/pallas/block_fill.py). A tensor on
-the CPU takes the plain version; a CUDA tensor launches the kernel or raises.
+Replaces `_fill_kernel` (pointcept_tpu/ops/pallas/block_fill.py), in both of
+its uses: the forward fill of a block conv, and the take-back's VJP
+(`_take_back_bwd`, pointcept_tpu/ops/block_conv.py). A tensor on the CPU
+takes the plain version; a CUDA tensor launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -49,7 +51,7 @@ def block_fill(feat_sorted: torch.Tensor, rc_sorted: torch.Tensor, starts: torch
     if feat_sorted.data_ptr() % 16 != 0:
         raise ValueError("block_fill: feat_sorted must be 16-byte aligned")
     if feat_sorted.requires_grad and torch.is_grad_enabled():
-        raise NotImplementedError("block_fill: its use as the take-back's VJP is not ported yet")
+        raise RuntimeError("block_fill: the raw kernel records no gradient; use BlockFill")
     n, c = feat_sorted.shape
     m = starts.shape[0]
     out = torch.empty(((m + 1) * b3, c), dtype=feat_sorted.dtype, device=feat_sorted.device)

@@ -5,6 +5,33 @@ from __future__ import annotations
 import torch
 
 
+class TakeRows(torch.autograd.Function):
+    """``x[idx]`` along rows; VJP: the cotangent rows added into an f32
+    buffer with `index_add_` (native f32 atomics on the card), cast to x's
+    dtype.
+
+    The static layouts repeat rows by the thousand: every dead attention
+    slot reads point 0, every padding point reads slot 0, every missing
+    neighbour of the gather conv reads row 0. The autograd VJP
+    (`index_put_` with accumulation) serialises such duplicates, and took
+    most of the train step on the card. On the card a row repeated more
+    than twice with nonzero cotangents (a point that is the neighbour of
+    several others, a scene smaller than one patch) sums in the order the
+    atomics take; the f32 sum is rounded once."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows, ctx.dtype = x.shape[0], x.dtype
+        return x[idx]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (idx,) = ctx.saved_tensors
+        gx = torch.zeros((ctx.rows,) + tuple(g.shape[1:]), dtype=torch.float32, device=g.device)
+        return gx.index_add_(0, idx, g.float()).to(ctx.dtype), None
+
+
 def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int,
                    reduce: str = "sum") -> torch.Tensor:
     """Reduce rows of `data` by segment id; ids >= num_segments are dropped.

@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from . import serialization as ser
+from .segment_ops import TakeRows
 
 # Batch id used for *queries* from padding points: never matches any stored key
 # (stored padding uses BATCH_SENTINEL).
@@ -91,7 +92,7 @@ def gather_conv(
     f = feat if compute_dtype is None else feat.to(compute_dtype)
     w = weight if compute_dtype is None else weight.to(compute_dtype)
     idx = torch.clamp(nbr.long(), min=0)
-    g = f[idx.reshape(-1)].reshape(n, k, cin)
+    g = TakeRows.apply(f, idx.reshape(-1)).reshape(n, k, cin)
     g = torch.where((nbr >= 0)[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
     out = g.reshape(n, k * cin).float() @ w.reshape(k * cin, cout).float()
     out = out.to(feat.dtype)

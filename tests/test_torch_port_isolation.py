@@ -25,7 +25,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch, pointcept_tpu_torch.models, pointcept_tpu_torch.engines\n"
         "import pointcept_tpu_torch.datasets, pointcept_tpu_torch.ops.kernels\n"
         "import pointcept_tpu_torch.models.point_transformer_v3.point_transformer_v3\n"
-        "import pointcept_tpu_torch.models.utils.convert\n"
+        "import pointcept_tpu_torch.models.utils.convert, pointcept_tpu_torch.models.losses\n"
+        "import pointcept_tpu_torch.utils.optimizer, pointcept_tpu_torch.utils.scheduler\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -35,7 +36,8 @@ def test_import_loads_no_jax():
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in PACKAGE.rglob("*.py"))
-                         + ["chip_smoke.py"])
+                         + ["chip_smoke.py"]
+                         + sorted(str(p.relative_to(ROOT)) for p in (ROOT / "tools").glob("torch_port_*.py")))
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((ROOT / path).read_text())
     names = []
@@ -63,7 +65,7 @@ def test_entry_points_raise_without_a_gpu():
 
 
 @pytest.mark.parametrize("option", [dict(scene_blocked=True), dict(enable_rpe=True),
-                                    dict(sorted_layout=False), dict(enc_mode=True)])
+                                    dict(proj_drop=0.1), dict(enc_mode=True)])
 def test_unported_options_raise(option):
     from pointcept_tpu_torch.models import MODELS
 

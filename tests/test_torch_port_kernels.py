@@ -48,6 +48,53 @@ def test_attention_plain_matches_flash_kernel(c, h, kmajor):
     np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
 
 
+# (row of PERF.md's kernel table, JAX function, nP, K, C, H): the whole-K
+# kernels at the tests' patch 128, the K-chunked ones at the main path's 1024
+BWD_CASES = [
+    ("5 _bwd_kernel_kmajor", "kmajor", 3, 128, 32, 2),
+    ("6 _bwd_kernel_kmajor_chunked", "kmajor", 2, 1024, 32, 2),
+    ("2 _bwd_kernel", "split", 2, 128, 256, 16),
+    ("3 _bwd_kernel_chunked", "split", 1, 1024, 256, 16),
+]
+
+
+@pytest.mark.parametrize("row,layout,np_,k,c,h", BWD_CASES, ids=[c[0].split()[1] for c in BWD_CASES])
+def test_attention_plain_backward_matches_jax_vjp(row, layout, np_, k, c, h):
+    """The plain backward (the CUDA kernel's arithmetic) against `jax.vjp`
+    of the Pallas flash attention, interpret mode, on the same bf16 qkv and
+    cotangent. The TPU kernels take the row term as rowsum(dP o p) or from
+    an o rebuilt of bf16 p, the port from the stored bf16 output, and the
+    port rounds p and dS to bf16 as tensor-core operands; measured max error
+    0.29% (row 5), 0.70% (row 6), 0.41% (row 2), 0.29% (row 3) of the
+    largest gradient."""
+    import jax
+    import jax.numpy as jnp
+
+    from pointcept_tpu.ops.pallas.flash_attention import flash_patch_attention, flash_patch_attention_kmajor
+
+    rng = np.random.RandomState(k + c)
+    d = c // h
+    scale = d**-0.5
+    qkv, tq = _bf16(rng.randn(np_, k, 3 * c).astype(np.float32))
+    dout, tdo = _bf16(rng.randn(np_, k, c).astype(np.float32))
+
+    def fwd(x):
+        x5 = x.reshape(np_, k, 3, h, d)
+        if layout == "kmajor":
+            return flash_patch_attention_kmajor(x5, scale=scale).reshape(np_, k, c)
+        q, kk, v = (x5[:, :, i].transpose(0, 2, 1, 3) for i in range(3))
+        return flash_patch_attention(q, kk, v, scale=scale).transpose(0, 2, 1, 3).reshape(np_, k, c)
+
+    _, vjp = jax.vjp(fwd, jnp.asarray(qkv, jnp.bfloat16))
+    (want,) = vjp(jnp.asarray(dout, jnp.bfloat16))
+    want = np.asarray(want, np.float32)
+    out, m, l = kernels.patch_attention_fwd(tq, h, scale, stats=True)
+    got = kernels.patch_attention_bwd(tq, out, tdo, m, l, h, scale).float().numpy()
+    assert np.abs(want).max() > 0
+    assert (np.abs(got - want) <= 2e-2 * np.abs(want).max() + 2e-2 * np.abs(want)).all(), (
+        row, float(np.abs(got - want).max() / np.abs(want).max()))
+
+
 def _fill_inputs(bb, cin, seed=0):
     """Stage tables of a scene with a dense slab (the port's tables, which
     tests/test_torch_port_ops.py holds bit-identical to the JAX package's)
@@ -108,6 +155,9 @@ def test_wrappers_refuse_other_devices():
     x = torch.empty((2, 128, 96), dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         kernels.patch_attention_fwd(x, 2, 0.25)
+    stats = torch.empty((2, 2, 128), device="meta")
+    with pytest.raises(ValueError):
+        kernels.patch_attention_bwd(x, x[..., :32], x[..., :32], stats, stats, 2, 0.25)
     with pytest.raises(ValueError):
         kernels.take_back_rows(x[0], torch.empty(4, dtype=torch.int32, device="meta"))
     with pytest.raises(ValueError):
@@ -135,6 +185,57 @@ def test_attention_kernel_matches_plain_on_card(cuda, c, h):
     assert kernels.patch_attention_fwd.launches == n0 + 1
     want = kernels.patch_attention_fwd_plain(qkv, h, (c // h) ** -0.5)
     torch.testing.assert_close(got.float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c,h", [(32, 2), (64, 4), (128, 8), (256, 16), (512, 32)])
+def test_attention_backward_kernel_matches_plain_on_card(cuda, c, h):
+    """K 1024, the five PTv3-base widths (head dim 16)."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    qkv = torch.randn((3, 1024, 3 * c), generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn((3, 1024, c), generator=g, device=cuda).to(torch.bfloat16)
+    scale = (c // h) ** -0.5
+    out, m, l = kernels.patch_attention_fwd(qkv, h, scale, stats=True)
+    torch.testing.assert_close(out, kernels.patch_attention_fwd(qkv, h, scale))
+    n0 = kernels.patch_attention_bwd.launches
+    got = kernels.patch_attention_bwd(qkv, out, dout, m, l, h, scale)
+    assert kernels.patch_attention_bwd.launches == n0 + 1
+    want = kernels.patch_attention_bwd_plain(qkv, out, dout, m, l, h, scale)
+    # bf16 outputs (one ulp 2^-8), p and dS rounded to bf16 at slightly
+    # different points of exp and summation order
+    scale_ = want.float().abs().max()
+    assert ((got.float() - want.float()).abs() <= 2e-2 * scale_ + 2e-2 * want.float().abs()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [6, 32, 64, 128, 256])
+@pytest.mark.parametrize("identity", [True, False])
+def test_fill_and_take_back_backward_match_plain_on_card(cuda, c, identity):
+    """`BlockFill` and `TakeBack` backward passes on the card (the take-back
+    and fill kernels) against the same functions on the CPU (plain
+    versions): exactly equal."""
+    from pointcept_tpu_torch.ops.block_conv import BlockFill, TakeBack
+
+    t, _ = _fill_inputs(2, c)
+    n = t["slot"].shape[0]
+    if not identity:
+        t = dict(t, identity_order0=False)
+    g = torch.Generator().manual_seed(c)
+    feat = torch.randn((n, c), generator=g).to(torch.bfloat16)
+    b3 = 64
+    rows = (t["nbr"].shape[0] + 1) * b3
+    g_dense = torch.randn((rows, c), generator=g).to(torch.bfloat16)
+    g_rows = torch.randn((n, c), generator=g).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        td = {k: (v.to(dev) if torch.is_tensor(v) else v) for k, v in t.items()}
+        f = feat.to(dev).requires_grad_()
+        (gf,) = torch.autograd.grad(BlockFill.apply(f, td, torch.bfloat16), f, g_dense.to(dev))
+        d = torch.zeros((rows, c), dtype=torch.bfloat16, device=dev, requires_grad=True)
+        (gd,) = torch.autograd.grad(TakeBack.apply(d, td), d, g_rows.to(dev))
+        out[str(dev)] = (gf.cpu(), gd.cpu())
+    assert torch.equal(out["cpu"][0], out[str(cuda)][0])
+    assert torch.equal(out["cpu"][1], out[str(cuda)][1])
 
 
 @pytest.mark.gpu

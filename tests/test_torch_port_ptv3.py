@@ -160,10 +160,23 @@ def test_two_scene_batch_matches_jax(ref):
 
 
 def test_labelled_batch_and_training_mode_raise(ref):
+    """A labelled batch returns a loss, train mode runs (with a generator for
+    the order shuffles), and the options that are not ported still raise."""
     model = build_model(_cfg(False), device="cpu")
-    arrays = dict(ref["arrays"], segment=np.zeros(len(ref["valid"]), np.int32))
-    with pytest.raises(NotImplementedError):
-        model(make_point_batch(arrays, 1, device="cpu"))
-    model.train()
-    with pytest.raises(NotImplementedError):
-        model(make_point_batch(ref["arrays"], 1, device="cpu"))
+    arrays = dict(ref["arrays"], segment=np.where(ref["valid"], 3, -1).astype(np.int32))
+    res = model(make_point_batch(arrays, 1, device="cpu"))
+    assert np.isfinite(float(res["loss"])) and not res["loss"].requires_grad
+    cfg = _cfg(False)
+    cfg["backbone"].update(shuffle_orders=True, drop_path=0.3)
+    model = build_model(cfg, device="cpu").train()
+    with pytest.raises(ValueError):
+        model(make_point_batch(arrays, 1, device="cpu"))  # train mode needs a generator
+    res = model(make_point_batch(arrays, 1, device="cpu"), generator=torch.Generator().manual_seed(0))
+    res["loss"].backward()
+    assert np.isfinite(res["loss"].item())
+    assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
+    for option in (dict(enable_rpe=True), dict(pdnorm_bn=True), dict(enc_mode=True),
+                   dict(proj_drop=0.1), dict(attn_drop=0.1), dict(lora_rank=4)):
+        bad = dict(_cfg(False), backbone=dict(_cfg(False)["backbone"], **option))
+        with pytest.raises(NotImplementedError):
+            build_model(bad, device="cpu")

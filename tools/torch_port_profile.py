@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
-"""Where the time of the port's main path goes, on one CUDA card.
+"""Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--requests N] [--out DIR]
+    python3 tools/torch_port_profile.py [--requests N] [--train] [--out DIR]
 
 Runs the PTv3-base eval forward of `chip_smoke.py` (102,400-point synthetic
-scenes, one per request) under `torch.profiler`, after one warm-up request,
-and prints JSON lines: the calls that make the host wait for the card in
-one request, the device's busy time per request and its idle
-share of the same requests run without the profiler, the
-device time by category (the port's kernels, convs, matmuls, sorts, gathers
-and scatters, elementwise) and the top kernels by device time. The full
-table goes to DIR/torch_port_profile.txt (default build/profile/).
+scenes, one per request), or with `--train` its train step (two labelled
+scenes per step, the config's recipe), under `torch.profiler`, after one
+warm-up, and prints JSON lines: the calls that make the host wait for the
+card in one request or step, the device's busy time per request or step and
+its idle share of the same work run without the profiler, the device time
+by category (the port's kernels, convs, matmuls, sorts, gathers and
+scatters, elementwise) and the top kernels by device time. The full table,
+and a second one of the ops by input shape, go to
+DIR/torch_port_profile[_train].txt (default build/profile/).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import warnings
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CATEGORIES = [  # first match wins
     ("patch_attention kernel", r"patch_attention_fwd_kernel"),
+    ("patch_attention_bwd kernels", r"attn_bwd_"),
     ("block_fill kernel", r"block_fill_kernel"),
     ("take_back kernel", r"take_back"),
     ("conv (cuDNN)", r"conv|cudnn|implicit|fprop|dgrad|nchw|nhwc|ndhwc"),
@@ -49,7 +52,8 @@ def main() -> int:
     from torch.profiler import ProfilerActivity, profile
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--requests", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
+    ap.add_argument("--train", action="store_true", help="profile the train step")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -62,28 +66,42 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = cs.nvidia_smi("name,power.limit")
-    model = build_model(cs.MODEL, device=device, generator=torch.Generator().manual_seed(0))
-    scenes = [cs.scene(seed) for seed in cs.SEEDS[: args.requests + 1]]
-    model(make_point_batch(scenes[0], 1, device=device))
+    if args.train:
+        # the same seed pairs again and again: a step's work hardly depends on them
+        _, step = cs._train_setup(cs.TRAIN_MODEL, device, seed=0)
+        pairs = [cs.TRAIN_SEEDS[i % len(cs.TRAIN_SEEDS)] for i in range(args.requests + 1)]
+        data = [cs.scene(seeds, labelled=True) for seeds in pairs]
+        gen = torch.Generator(device=device).manual_seed(7)
+
+        def run(arrays):
+            step(make_point_batch(arrays, 2, device=device), gen)
+    else:
+        model = build_model(cs.MODEL, device=device, generator=torch.Generator().manual_seed(0))
+        data = [cs.scene(seed) for seed in cs.SEEDS[: args.requests + 1]]
+
+        def run(arrays):
+            model(make_point_batch(arrays, 1, device=device))
+
+    run(data[0])
     torch.cuda.synchronize()
-    # calls that make the host wait for the card, in one request (the batch's
-    # host-to-device copies included)
+    # calls that make the host wait for the card, in one request or step
+    # (the batch's host-to-device copies included)
     torch.cuda.set_sync_debug_mode("warn")
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        model(make_point_batch(scenes[0], 1, device=device))
+        run(data[0])
     torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
     print(json.dumps({"phase": "host_syncs", "per_request": len(syncs), "kinds": sorted(set(syncs))}))
     t0 = time.perf_counter()
-    for arrays in scenes[1:]:
-        model(make_point_batch(arrays, 1, device=device))
+    for arrays in data[1:]:
+        run(arrays)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
-        for arrays in scenes[1:]:
-            model(make_point_batch(arrays, 1, device=device))
+        for arrays in data[1:]:
+            run(arrays)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -92,7 +110,9 @@ def main() -> int:
         dev = getattr(evt, "self_device_time_total", None)
         if dev is None:
             dev = getattr(evt, "self_cuda_time_total", 0)
-        if dev and evt.device_type == torch.autograd.DeviceType.CUDA:
+        # user annotations (the optimizer's step range) span kernels counted already
+        if (dev and evt.device_type == torch.autograd.DeviceType.CUDA
+                and not getattr(evt, "is_user_annotation", False)):
             k = kernels.setdefault(evt.key, [0.0, 0])
             k[0] += dev / 1e3
             k[1] += evt.count
@@ -103,7 +123,7 @@ def main() -> int:
     n = args.requests
     # idle share against the unprofiled wall time of the same requests: the
     # profiler's own host cost stretches the profiled window
-    print(json.dumps({"phase": "profile_window", "card": card, "requests": n,
+    print(json.dumps({"phase": "profile_window", "card": card, "train": args.train, "requests": n,
                       "wall_ms_per_request": plain_wall_ms / n,
                       "profiled_wall_ms_per_request": wall_ms / n,
                       "device_busy_ms_per_request": busy_ms / n,
@@ -115,9 +135,14 @@ def main() -> int:
         {"name": name[:120], "ms_per_request": ms / n, "launches_per_request": cnt / n}
         for name, (ms, cnt) in top[:15]]}))
     os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "torch_port_profile.txt"), "w") as f:
+    name = "torch_port_profile_train.txt" if args.train else "torch_port_profile.txt"
+    with open(os.path.join(args.out, name), "w") as f:
         f.write(f"{card}\n")
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
+        f.write("\nBy input shape:\n")
+        f.write(prof.key_averages(group_by_input_shape=True).table(
+            sort_by="self_device_time_total", row_limit=40, max_name_column_width=40,
+            max_shapes_column_width=120))
     return 0
 
 
