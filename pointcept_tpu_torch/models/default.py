@@ -14,6 +14,28 @@ from .modules import Linear
 from .utils.structure import PointBatch
 
 
+@MODELS.register_module("DefaultSegmentor")
+class DefaultSegmentor(nn.Module):
+    """Backbone that emits the per-point logits itself (SpUNet-style).
+
+    `forward(pb, generator)` returns ``{"seg_logits", "diagnostics"}`` and,
+    when the batch carries labels, the summed criteria as ``"loss"``;
+    gradients are recorded in train mode only, as `DefaultSegmentorV2`."""
+
+    def __init__(self, backbone=None, criteria=None, num_classes: int = 0):
+        super().__init__()
+        self.backbone = MODELS.build(dict(backbone))
+        self.criteria = build_criteria(criteria)
+
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None) -> dict:
+        with contextlib.nullcontext() if self.training else torch.no_grad():
+            out, diag = self.backbone(pb, generator=generator)
+            result = {"seg_logits": out.feat, "diagnostics": diag}
+            if pb.segment is not None:
+                result["loss"] = self.criteria(out.feat, pb.segment)
+        return result
+
+
 @MODELS.register_module("DefaultSegmentorV2")
 class DefaultSegmentorV2(nn.Module):
     """Backbone returning a PointBatch, then a linear seg head (in f32).

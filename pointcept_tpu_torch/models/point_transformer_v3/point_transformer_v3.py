@@ -8,6 +8,11 @@ pre-norm residuals. Every capacity is static, and the block-dense conv engine
 serves stages of at least `block_engine_min_points` points while smaller
 stages use gather-GEMM rule maps.
 
+``block_conv_fused=True`` runs the block-dense convs as the fused implicit
+GEMM (`FusedBlockConv`), the JAX package's ``BLOCK_CONV_FUSED=1``; the
+default is `F.conv3d` over materialised halos (the JAX package's default
+`lax.conv` route).
+
 Two geometry routes, as in the JAX package:
 * unshuffled (eval, or train with ``shuffle_orders=False``): only the orders
   the blocks read are sorted, and with ``sorted_layout`` the batch is pinned
@@ -57,17 +62,21 @@ def _round_up(x: int, m: int) -> int:
 
 class SubMConv(nn.Module):
     """Submanifold sparse conv: the block-dense engine when given block
-    tables, gather-GEMM over a rule map otherwise. Weight [k^3, Cin, Cout]."""
+    tables (the fused implicit GEMM with `fused`), gather-GEMM over a rule
+    map otherwise. Weight [k^3, Cin, Cout]."""
 
-    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True):
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int, bias: bool = True,
+                 fused: bool = False):
         super().__init__()
         self.kernel_size = kernel_size
+        self.fused = fused
         self.weight = nn.Parameter(torch.empty(kernel_size**3, in_channels, out_channels))
         self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
 
     def forward(self, feat: torch.Tensor, geom) -> torch.Tensor:
         if isinstance(geom, dict):
-            return block_subm_conv(feat, geom, self.weight, self.bias, kernel_size=self.kernel_size)
+            return block_subm_conv(feat, geom, self.weight, self.bias, kernel_size=self.kernel_size,
+                                   fused=self.fused)
         return gather_conv(feat, geom, self.weight, self.bias, compute_dtype=torch.bfloat16)
 
 
@@ -94,13 +103,14 @@ class Block(nn.Module):
     norm1.0, attn.{qkv,proj}, norm2.0, mlp.0.{fc1,fc2})."""
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
-                 qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0):
+                 qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
         self.drop_path = DropPath(drop_path)
         self.cpe = nn.ModuleList([
-            SubMConv(c, c, 3, bias=True), Linear(c, c, compute_dtype=compute_dtype), LayerNorm(c)
+            SubMConv(c, c, 3, bias=True, fused=fused), Linear(c, c, compute_dtype=compute_dtype),
+            LayerNorm(c),
         ])
         self.norm1 = nn.ModuleList([LayerNorm(c)])
         self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype)
@@ -258,10 +268,10 @@ class SerializedUnpooling(nn.Module):
 class Embedding(nn.Module):
     """SubM k5 stem + BN + GELU. Names: stem.conv, stem.norm."""
 
-    def __init__(self, in_channels, embed_channels):
+    def __init__(self, in_channels, embed_channels, fused=False):
         super().__init__()
         self.stem = nn.Module()
-        self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False)
+        self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False, fused=fused)
         self.stem.norm = MaskedBatchNorm(embed_channels)
 
     def forward(self, pb: PointBatch, nbr5) -> PointBatch:
@@ -309,6 +319,7 @@ class PointTransformerV3(nn.Module):
         block_bits: int = 3,
         sorted_layout: bool = True,
         block_engine_min_points: int = 8192,
+        block_conv_fused: bool = False,
         grid_size: float = 0.02,
         amp: bool = False,
         # config-parity options without effect (attention is always fused,
@@ -355,7 +366,8 @@ class PointTransformerV3(nn.Module):
         enc_dp = np.linspace(0, drop_path, sum(enc_depths)).tolist()
         dec_dp = np.linspace(0, drop_path, sum(dec_depths)).tolist()
 
-        self.embedding = Embedding(in_channels, enc_channels[0])
+        fused = block_conv_fused
+        self.embedding = Embedding(in_channels, enc_channels[0], fused)
         self.enc = nn.Module()
         for s in range(n):
             stage = nn.Module()
@@ -365,7 +377,7 @@ class PointTransformerV3(nn.Module):
             for i in range(enc_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
-                    qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i],
+                    qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
@@ -377,7 +389,7 @@ class PointTransformerV3(nn.Module):
             for i in range(dec_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
-                    qk_scale, pre_norm, dt, drop_path=dp_slice[i],
+                    qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = dec_ch[0]

@@ -3,7 +3,7 @@
 
 The port's names are the reference Pointcept state-dict names, so its state
 dict pushed through the JAX package's `convert_state_dict(sd, "PT-v3m1")`
-gives the JAX trees back:
+(or ``"SpUNet-v1m1"``, `convert_spunet`) gives the JAX trees back:
 
 * Dense ``kernel [in, out]``          -> Linear ``weight [out, in]``
 * SubMConv ``weight [k^3, in, out]``  -> the same array
@@ -73,8 +73,50 @@ def _torch_module(path: str) -> str:
     raise KeyError(f"no torch name for flax module {path}")
 
 
+# SpUNet (DefaultSegmentor): flax module or parameter path under the
+# backbone -> torch name, as `convert_spunet` maps the reference names
+_SPUNET = [
+    (r"conv_input", "conv_input.0"),
+    (r"stem_norm", "conv_input.1"),
+    (r"(down|up)(\d+)_norm", r"\1.\2.1"),
+    (r"(enc|dec)(\d+)_block(\d+)/(conv1|bn1|conv2|bn2)", r"\1.\2.block\3.\4"),
+    (r"(enc|dec)(\d+)_block(\d+)/proj_conv", r"\1.\2.block\3.proj.0"),
+    (r"(enc|dec)(\d+)_block(\d+)/proj_norm", r"\1.\2.block\3.proj.1"),
+    (r"(down|up)(\d+)_weight", r"\1.\2.0.weight"),
+    (r"final_(weight|bias)", r"final.\1"),
+]
+
+
+def _spunet_module(path: str) -> str:
+    assert path.startswith("backbone_module/"), path
+    p = path[len("backbone_module/"):]
+    for pat, rep in _SPUNET:
+        if re.fullmatch(pat, p):
+            return "backbone." + re.sub(pat, rep, p)
+    raise KeyError(f"no torch name for flax path {path}")
+
+
+def _spunet_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+    sd = {}
+    for key, value in _flat(params).items():
+        path, leaf = "/".join(key[:-1]), key[-1]
+        if leaf.startswith(("down", "up", "final")):  # parameters held by the backbone itself
+            sd[_spunet_module(f"{path}/{leaf}")] = value
+        elif leaf in ("weight", "bias", "scale"):
+            sd[f"{_spunet_module(path)}.{'weight' if leaf == 'scale' else leaf}"] = value
+        else:
+            raise KeyError(f"unknown flax leaf {'/'.join(key)}")
+    for key, value in _flat(batch_stats).items():
+        sd[f"{_spunet_module('/'.join(key[:-1]))}.running_{key[-1]}"] = value
+    return sd
+
+
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """PT-v3m1 DefaultSegmentorV2 flax trees (arrays) -> the port's state dict."""
+    """DefaultSegmentorV2 + PT-v3m1 or DefaultSegmentor + SpUNet flax trees
+    (arrays) -> the port's state dict."""
+    if "conv_input" in params.get("backbone_module", {}):
+        sd = _spunet_from_jax(params, batch_stats)
+        return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
     sd = {}
     for key, value in _flat(params).items():
         module, leaf = _torch_module("/".join(key[:-1])), key[-1]

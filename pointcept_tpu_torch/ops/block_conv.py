@@ -12,14 +12,19 @@ members are contiguous in the sorted order. A conv then runs as:
 4. take-back: each point reads its output row at ``slot`` (kernel
    `take_back_rows`).
 
+With ``fused=True`` (the JAX package's ``BLOCK_CONV_FUSED=1``) steps 2-3 are
+one kernel, `tap_conv_fwd`, that reads each tile's halo straight from its
+neighbours (`FusedBlockConv`); no halo tensor is materialised.
+
 Unoccupied voxels hold zeros, so submanifold semantics are exact. Every
 array is of static size: ``block_capacity`` bounds the occupied blocks, and
 points of blocks beyond it get zero output and are counted in ``overflow``.
 
 The fill and the take-back are each other's VJP (`BlockFill`, `TakeBack`),
 as `_block_fill` and `_take_back` are in the JAX package; the conv's own
-gradients come from autograd through `conv3d` (cuDNN on the card). Padding
-and overflow points, whose slot is the zero tile, get zero gradient.
+gradients come from `ConvValid` (cuDNN on the card) or, fused, from
+`FusedBlockConv` (`tap_conv_fwd` and `tap_conv_dw`). Padding and overflow
+points, whose slot is the zero tile, get zero gradient.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ import torch.nn.functional as F
 from . import serialization as ser
 from .kernels.block_fill import block_fill
 from .kernels.take_back import take_back_rows
+from .kernels.tap_conv import tap_conv_dw, tap_conv_fwd
 from .sparse_conv import lex_lookup
 
 # neighbour offsets in C-order over (dx, dy, dz) in {-1,0,1}^3 (center included)
@@ -309,6 +315,38 @@ class ConvValid(torch.autograd.Function):
         return gx, gw
 
 
+class FusedBlockConv(torch.autograd.Function):
+    """The fused block conv and its VJP (`_fused_conv`, pointcept_tpu/ops/block_conv.py):
+    dense [(m+1)*b^3, Cin] tiles in the compute dtype, nbr_ext [m+1, 27],
+    weight [k^3, Cin, Cout] -> [(m+1)*b^3, Cout] in the compute dtype.
+
+    Forward `tap_conv_fwd`. Backward: the tiles' cotangent is the same
+    kernel on the output cotangent with the index-reversed, channel-
+    transposed weight (correlation duality on the same neighbour table,
+    which is symmetric: the zero tile's row points at itself), and the
+    weight's is `tap_conv_dw`. It saves the dense tiles, not a halo."""
+
+    @staticmethod
+    def forward(ctx, dense: torch.Tensor, nbr_ext: torch.Tensor, weight: torch.Tensor,
+                bsz: int, ksz: int) -> torch.Tensor:
+        w = weight.to(dense.dtype)
+        ctx.save_for_backward(dense, nbr_ext, w)
+        ctx.geom, ctx.wdtype = (bsz, ksz), weight.dtype
+        return tap_conv_fwd(dense, nbr_ext, w, bsz, ksz)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        dense, nbr_ext, w = ctx.saved_tensors
+        bsz, ksz = ctx.geom
+        g = g.to(dense.dtype).contiguous()
+        d_dense = dw = None
+        if ctx.needs_input_grad[0]:
+            d_dense = tap_conv_fwd(g, nbr_ext, w.flip(0).transpose(1, 2).contiguous(), bsz, ksz)
+        if ctx.needs_input_grad[2]:
+            dw = tap_conv_dw(dense, nbr_ext, g, bsz, ksz).to(ctx.wdtype)
+        return d_dense, None, dw, None, None
+
+
 def block_subm_conv(
     feat: torch.Tensor,  # [N, Cin]
     tables: dict,
@@ -316,13 +354,16 @@ def block_subm_conv(
     bias: Optional[torch.Tensor] = None,
     kernel_size: int = 3,
     compute_dtype: torch.dtype = torch.bfloat16,
+    fused: bool = False,
 ) -> torch.Tensor:
     """Submanifold sparse conv via dense blocks; equal to `gather_conv` over
     the same inputs up to rounding in `compute_dtype`.
 
     The dense tiles and the conv output are held in `compute_dtype`; the conv
     accumulates in float32 (cuDNN on the GPU; an f32 conv of the rounded
-    operands on the CPU)."""
+    operands on the CPU). `fused`: the conv is `FusedBlockConv`, the
+    hand-written implicit GEMM over the neighbour table (its plain version
+    on the CPU)."""
     bb = tables["block_bits"]
     nbr = tables["nbr"]
     nb = nbr.shape[0]
@@ -338,6 +379,10 @@ def block_subm_conv(
     dense = dense.view(nrows, bsz, bsz, bsz, cin)
     # the zero tile is block nb: missing neighbours and its own halo read it
     nbr_ext = torch.cat([nbr, torch.full((1, nbr.shape[1]), nb, dtype=nbr.dtype, device=nbr.device)])
+    if fused:
+        out = FusedBlockConv.apply(dense.view(nrows * b3, cin), nbr_ext, weight, bsz, kernel_size)
+        res = TakeBack.apply(out, tables).to(feat.dtype)
+        return res if bias is None else res + bias
     hal = HaloExpand.apply(dense, nbr_ext, halo) if halo else dense  # [R, H, H, H, Cin]
     w = weight.reshape(kernel_size, kernel_size, kernel_size, cin, cout).permute(4, 3, 0, 1, 2)
     x = hal.permute(0, 4, 1, 2, 3)  # NCDHW view of the NDHWC tiles

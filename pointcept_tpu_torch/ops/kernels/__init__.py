@@ -6,6 +6,8 @@
 | `patch_attention_bwd` | csrc/patch_attention_bwd.cu | `_bwd_kernel_kmajor`, `_bwd_kernel_kmajor_chunked`, `_bwd_kernel`, `_bwd_kernel_chunked` (same file) |
 | `block_fill` | csrc/block_fill.cu | `_fill_kernel` (ops/pallas/block_fill.py), also as the take-back's VJP |
 | `take_back_rows` | csrc/take_back.cu | `_copy_kernel` (ops/pallas/layout_pin.py), fused with its gather; also the fill's VJP |
+| `tap_conv_fwd` | csrc/tap_conv.cu | `_conv_kernel_banded`, `_conv_kernel_sliced` (ops/pallas/tap_conv.py) with the halo assembly; also the input gradient |
+| `tap_conv_dw` | csrc/tap_conv.cu | `_dw_kernel_banded`, `_dw_kernel_sliced` (same file) |
 
 Each wrapper counts its launches in ``<wrapper>.launches``.
 """
@@ -16,12 +18,15 @@ from .patch_attention import (
     patch_attention_fwd_plain,
 )
 from .take_back import take_back_rows, take_back_rows_plain
+from .tap_conv import tap_conv_dw, tap_conv_dw_plain, tap_conv_fwd, tap_conv_fwd_plain
 
 KERNELS = {
     "patch_attention": patch_attention_fwd,
     "patch_attention_bwd": patch_attention_bwd,
     "block_fill": block_fill,
     "take_back": take_back_rows,
+    "tap_conv_fwd": tap_conv_fwd,
+    "tap_conv_dw": tap_conv_dw,
 }
 
 __all__ = [
@@ -35,4 +40,8 @@ __all__ = [
     "patch_attention_fwd_plain",
     "take_back_rows",
     "take_back_rows_plain",
+    "tap_conv_dw",
+    "tap_conv_dw_plain",
+    "tap_conv_fwd",
+    "tap_conv_fwd_plain",
 ]

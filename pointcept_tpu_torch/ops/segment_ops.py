@@ -12,12 +12,13 @@ class TakeRows(torch.autograd.Function):
 
     The static layouts repeat rows by the thousand: every dead attention
     slot reads point 0, every padding point reads slot 0, every missing
-    neighbour of the gather conv reads row 0. The autograd VJP
-    (`index_put_` with accumulation) serialises such duplicates, and took
-    most of the train step on the card. On the card a row repeated more
-    than twice with nonzero cotangents (a point that is the neighbour of
-    several others, a scene smaller than one patch) sums in the order the
-    atomics take; the f32 sum is rounded once."""
+    child of a strided conv reads row 0. The autograd VJP (`index_put_`
+    with accumulation) serialises such duplicates, and took most of the
+    train step on the card. On the card a row repeated more than twice with
+    nonzero cotangents (a scene smaller than one patch) sums in the order
+    the atomics take; the f32 sum is rounded once. The submanifold gather
+    conv, whose rows are read by many neighbours, pulls instead
+    (`sparse_conv.NeighborGather`)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

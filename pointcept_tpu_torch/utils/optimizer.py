@@ -36,16 +36,28 @@ def param_groups(model: nn.Module, base_lr: float,
 def build_optimizer(cfg: dict, model: nn.Module,
                     param_dicts: Optional[Sequence[dict]] = None) -> torch.optim.Optimizer:
     """``cfg = dict(type="AdamW", lr=..., weight_decay=..., betas=..., eps=...)``
-    -> `torch.optim.AdamW` over the keyword groups of `param_groups`. Other
-    optimizer types are not ported."""
+    -> `torch.optim.AdamW`, or ``dict(type="SGD", lr=..., momentum=...,
+    weight_decay=..., nesterov=...)`` -> `torch.optim.SGD`, over the keyword
+    groups of `param_groups`. The JAX package's SGD chains
+    ``add_decayed_weights -> trace(momentum, nesterov) -> lr``: the decay is
+    added to the gradient and the trace starts at zero, which is torch's SGD
+    with dampening 0. Other optimizer types are not ported."""
     cfg = dict(cfg)
     otype = cfg.pop("type")
-    if otype != "AdamW":
+    if otype not in ("AdamW", "SGD"):
         raise NotImplementedError(f"build_optimizer: {otype} is not ported")
     base_lr = float(cfg.pop("lr"))
     cfg.pop("params", None)
     if cfg.pop("trainable_keywords", None):
         raise NotImplementedError("build_optimizer: trainable_keywords is not ported")
+    if otype == "SGD":
+        if cfg.pop("dampening", 0.0):
+            raise NotImplementedError("build_optimizer: SGD dampening is not ported")
+        return torch.optim.SGD(
+            param_groups(model, base_lr, param_dicts), lr=base_lr,
+            momentum=cfg.pop("momentum", 0.9), weight_decay=cfg.pop("weight_decay", 0.0),
+            nesterov=cfg.pop("nesterov", False), **cfg,
+        )
     return torch.optim.AdamW(
         param_groups(model, base_lr, param_dicts), lr=base_lr,
         betas=tuple(cfg.pop("betas", (0.9, 0.999))), eps=cfg.pop("eps", 1e-8),

@@ -25,6 +25,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch, pointcept_tpu_torch.models, pointcept_tpu_torch.engines\n"
         "import pointcept_tpu_torch.datasets, pointcept_tpu_torch.ops.kernels\n"
         "import pointcept_tpu_torch.models.point_transformer_v3.point_transformer_v3\n"
+        "import pointcept_tpu_torch.models.sparse_unet.spconv_unet\n"
+        "import pointcept_tpu_torch.ops.kernels.tap_conv, pointcept_tpu_torch.ops.sparse_conv\n"
         "import pointcept_tpu_torch.models.utils.convert, pointcept_tpu_torch.models.losses\n"
         "import pointcept_tpu_torch.utils.optimizer, pointcept_tpu_torch.utils.scheduler\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"

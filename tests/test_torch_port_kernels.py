@@ -95,7 +95,7 @@ def test_attention_plain_backward_matches_jax_vjp(row, layout, np_, k, c, h):
         row, float(np.abs(got - want).max() / np.abs(want).max()))
 
 
-def _fill_inputs(bb, cin, seed=0):
+def _fill_inputs(bb, cin, seed=0, m=256):
     """Stage tables of a scene with a dense slab (the port's tables, which
     tests/test_torch_port_ops.py holds bit-identical to the JAX package's)
     and z-sorted bf16 features."""
@@ -111,7 +111,7 @@ def _fill_inputs(bb, cin, seed=0):
     kb = torch.where(mask, 0, tser.BATCH_SENTINEL).to(torch.int32)
     keys = tser.encode(torch.as_tensor(grid), kb, depth, "z")
     order = tser.argsort_keys(keys, depth)
-    t = build_block_tables(keys, order, torch.as_tensor(grid), mask, depth, 256, bb)
+    t = build_block_tables(keys, order, torch.as_tensor(grid), mask, depth, m, bb)
     _, tfeat = _bf16(rng.randn(cap, cin).astype(np.float32))
     return t, tfeat[order.long()].contiguous()
 
@@ -163,6 +163,15 @@ def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError):
         kernels.block_fill(x[0], torch.empty(128, dtype=torch.int32, device="meta"),
                            torch.empty(2, dtype=torch.int32, device="meta"), 64)
+
+
+def test_tap_conv_wrappers_refuse_other_devices():
+    dense = torch.empty((2 * 64, 8), dtype=torch.bfloat16, device="meta")
+    nbr = torch.empty((2, 27), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError):
+        kernels.tap_conv_fwd(dense, nbr, torch.empty((27, 8, 16), device="meta"), 4, 3)
+    with pytest.raises(ValueError):
+        kernels.tap_conv_dw(dense, nbr, dense, 4, 3)
 
 
 # ---------------------------------------------------------------- on the card
@@ -254,3 +263,85 @@ def test_take_back_kernel_matches_plain_on_card(cuda, c):
     dense = torch.randn((8192, c), generator=g, device=cuda).to(torch.bfloat16)
     slot = torch.randint(0, 8192, (5000,), generator=g, device=cuda, dtype=torch.int32)
     assert torch.equal(kernels.take_back_rows(dense, slot), kernels.take_back_rows_plain(dense, slot))
+
+
+def _tap_inputs(bb, cin, cout, k, seed=0):
+    """Dense tiles of a scene (the fill of bf16 features), the table with
+    its zero-tile row, a bf16 weight and a cotangent filled the same way, so
+    that both are zero outside the occupied tiles as on the model's path."""
+    t, tfeat = _fill_inputs(bb, cin, seed, m=1024)
+    b3 = 1 << (3 * bb)
+    rc, starts = t["rc_sorted"], t["fill_start"]
+    dense = kernels.block_fill_plain(tfeat, rc, starts, b3)
+    nbr = t["nbr"]
+    m = nbr.shape[0]
+    nbr_ext = torch.cat([nbr, torch.full((1, 27), m, dtype=nbr.dtype)]).contiguous()
+    g = torch.Generator().manual_seed(seed + 1)
+    w = (torch.randn((k**3, cin, cout), generator=g) * (k**3 * cin) ** -0.5).to(torch.bfloat16)
+    cot = torch.randn((tfeat.shape[0], cout), generator=g).to(torch.bfloat16)
+    gout = kernels.block_fill_plain(cot, rc, starts, b3)
+    return dense, nbr_ext, w, gout
+
+
+# (block bits, k, Cin, Cout): PTv3's 4^3 blocks (stage 0 and its stem),
+# SpUNet's 8^3 blocks (stem, level 0 decoder, level 3 decoder), odd widths
+TAP_CASES = [(2, 3, 32, 32), (2, 5, 6, 32), (3, 5, 6, 32), (3, 3, 128, 96), (3, 3, 384, 256),
+             (3, 3, 96, 96), (2, 3, 8, 20), (3, 5, 64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bb,k,cin,cout", TAP_CASES)
+def test_tap_conv_kernels_match_plain_on_card(cuda, bb, k, cin, cout):
+    """`tap_conv_fwd` (forward, and the input gradient with the flipped,
+    transposed weight) within 1e-2 of the largest value + 8e-3 relative
+    (bf16 output, f32 sums in another order); `tap_conv_dw` within 1e-3
+    relative L2 and bit-identical across two runs."""
+    b = 1 << bb
+    dense, nbr_ext, w, gout = (x.to(cuda) for x in _tap_inputs(bb, cin, cout, k))
+    n0 = kernels.tap_conv_fwd.launches
+    for x, wt in ((dense, w), (gout, w.flip(0).transpose(1, 2).contiguous())):
+        got = kernels.tap_conv_fwd(x, nbr_ext, wt, b, k).float()
+        want = kernels.tap_conv_fwd_plain(x, nbr_ext, wt, b, k).float()
+        assert float(want.abs().max()) > 0
+        assert ((got - want).abs() <= 1e-2 * want.abs().max() + 8e-3 * want.abs()).all()
+    assert kernels.tap_conv_fwd.launches == n0 + 2
+    got = kernels.tap_conv_dw(dense, nbr_ext, gout, b, k)
+    want = kernels.tap_conv_dw_plain(dense, nbr_ext, gout, b, k)
+    assert got.shape == (k**3, cin, cout) and got.dtype == torch.float32
+    assert float(torch.linalg.vector_norm(got - want) / torch.linalg.vector_norm(want)) < 1e-3
+    assert torch.equal(got, kernels.tap_conv_dw(dense, nbr_ext, gout, b, k))
+
+
+@pytest.mark.gpu
+def test_tap_conv_kernels_refuse_unsupported_shapes(cuda):
+    """Block sizes other than 4 and 8, kernel sizes other than 3 and 5,
+    float32 tiles and more than 512 channels raise instead of launching."""
+    dense, nbr_ext, w, _ = (x.to(cuda) for x in _tap_inputs(2, 8, 16, 3))
+    for args in ((dense, nbr_ext, w, 2, 3), (dense, nbr_ext, w, 4, 7), (dense.float(), nbr_ext, w, 4, 3),
+                 (dense, nbr_ext, torch.zeros((27, 8, 640), device=cuda), 4, 3)):
+        with pytest.raises((ValueError, TypeError)):
+            kernels.tap_conv_fwd(*args)
+
+
+@pytest.mark.gpu
+def test_gather_conv_vjp_is_bit_identical_on_card(cuda):
+    """The pulled VJP of the gather conv (`NeighborGather`) gives the same
+    bits on every run, where the atomics of `TakeRows` did not."""
+    from pointcept_tpu_torch.ops.sparse_conv import build_subm_neighbor_map, gather_conv
+
+    rng = np.random.RandomState(0)
+    depth, cap = 8, 1536
+    grid = torch.as_tensor(np.unique(rng.randint(0, 14, (cap, 3)), axis=0).astype(np.int32))
+    n = grid.shape[0]
+    mask = torch.ones(n, dtype=torch.bool)
+    nbr = build_subm_neighbor_map(grid.to(cuda), torch.zeros(n, dtype=torch.int32, device=cuda),
+                                  mask.to(cuda), depth, 3)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n, 64), generator=g, device=cuda).requires_grad_()
+    w = torch.randn((27, 64, 64), generator=g, device=cuda).requires_grad_()
+    cot = torch.randn((n, 64), generator=g, device=cuda)
+    runs = [torch.autograd.grad(gather_conv(x, nbr, w, compute_dtype=torch.bfloat16), (x, w), cot)
+            for _ in range(3)]
+    assert int((nbr >= 0).sum()) > 4 * n  # rows read by several neighbours
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))

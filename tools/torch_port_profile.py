@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--requests N] [--train] [--out DIR]
+    python3 tools/torch_port_profile.py [--model ptv3|spunet] [--fused] [--requests N] [--train]
+                                        [--out DIR]
 
 Runs the PTv3-base eval forward of `chip_smoke.py` (102,400-point synthetic
 scenes, one per request), or with `--train` its train step (two labelled
 scenes per step, the config's recipe), under `torch.profiler`, after one
-warm-up, and prints JSON lines: the calls that make the host wait for the
+warm-up. `--model spunet`: SpUNet-v1m1 of `chip_smoke.py` instead (the fused
+block conv); `--fused`: PTv3 with ``block_conv_fused=True`` (the fused
+implicit-GEMM conv instead of cuDNN over halos; run with and without it in
+turns for an A/B). It prints JSON lines: the calls that make the host wait for the
 card in one request or step, the device's busy time per request or step and
 its idle share of the same work run without the profiler, the device time
 by category (the port's kernels, convs, matmuls, sorts, gathers and
 scatters, elementwise) and the top kernels by device time. The full table,
 and a second one of the ops by input shape, go to
-DIR/torch_port_profile[_train].txt (default build/profile/).
+DIR/torch_port_profile[_spunet][_fused][_train].txt (default build/profile/).
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ CATEGORIES = [  # first match wins
     ("patch_attention_bwd kernels", r"attn_bwd_"),
     ("block_fill kernel", r"block_fill_kernel"),
     ("take_back kernel", r"take_back"),
+    ("tap_conv kernels", r"tap_conv|occupied_list|partial_sum"),
     ("conv (cuDNN)", r"conv|cudnn|implicit|fprop|dgrad|nchw|nhwc|ndhwc"),
     ("matmul", r"gemm|cutlass|sm90_xmma|cublas|matmul"),
     ("sort", r"sort|radix|onesweep|histogram"),
@@ -54,6 +59,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
     ap.add_argument("--train", action="store_true", help="profile the train step")
+    ap.add_argument("--model", choices=("ptv3", "spunet"), default="ptv3")
+    ap.add_argument("--fused", action="store_true", help="PTv3 with block_conv_fused=True")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -66,9 +73,18 @@ def main() -> int:
 
     device = torch.device("cuda", 0)
     card = cs.nvidia_smi("name,power.limit")
+    if args.model == "spunet":
+        if args.fused:
+            ap.error("--fused applies to PTv3: SpUNet's configuration always takes the fused conv")
+        eval_cfg, train_cfg, recipe = cs.SPUNET_MODEL, cs.SPUNET_MODEL, cs.SPUNET_RECIPE
+    else:
+        fused = dict(block_conv_fused=args.fused)
+        eval_cfg = dict(cs.MODEL, backbone=dict(cs.MODEL["backbone"], **fused))
+        train_cfg = dict(cs.TRAIN_MODEL, backbone=dict(cs.TRAIN_MODEL["backbone"], **fused))
+        recipe = cs.PTV3_RECIPE
     if args.train:
         # the same seed pairs again and again: a step's work hardly depends on them
-        _, step = cs._train_setup(cs.TRAIN_MODEL, device, seed=0)
+        _, step = cs._train_setup(train_cfg, device, seed=0, recipe=recipe)
         pairs = [cs.TRAIN_SEEDS[i % len(cs.TRAIN_SEEDS)] for i in range(args.requests + 1)]
         data = [cs.scene(seeds, labelled=True) for seeds in pairs]
         gen = torch.Generator(device=device).manual_seed(7)
@@ -76,7 +92,7 @@ def main() -> int:
         def run(arrays):
             step(make_point_batch(arrays, 2, device=device), gen)
     else:
-        model = build_model(cs.MODEL, device=device, generator=torch.Generator().manual_seed(0))
+        model = build_model(eval_cfg, device=device, generator=torch.Generator().manual_seed(0))
         data = [cs.scene(seed) for seed in cs.SEEDS[: args.requests + 1]]
 
         def run(arrays):
@@ -93,11 +109,13 @@ def main() -> int:
     torch.cuda.set_sync_debug_mode("default")
     syncs = [str(w.message).splitlines()[0] for w in caught if "synchroniz" in str(w.message)]
     print(json.dumps({"phase": "host_syncs", "per_request": len(syncs), "kinds": sorted(set(syncs))}))
+    torch.cuda.reset_peak_memory_stats(device)
     t0 = time.perf_counter()
     for arrays in data[1:]:
         run(arrays)
     torch.cuda.synchronize()
     plain_wall_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated(device)
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         t0 = time.perf_counter()
         for arrays in data[1:]:
@@ -123,11 +141,13 @@ def main() -> int:
     n = args.requests
     # idle share against the unprofiled wall time of the same requests: the
     # profiler's own host cost stretches the profiled window
-    print(json.dumps({"phase": "profile_window", "card": card, "train": args.train, "requests": n,
+    print(json.dumps({"phase": "profile_window", "card": card, "model": args.model, "fused": args.fused,
+                      "train": args.train, "requests": n,
                       "wall_ms_per_request": plain_wall_ms / n,
                       "profiled_wall_ms_per_request": wall_ms / n,
                       "device_busy_ms_per_request": busy_ms / n,
-                      "device_idle_share": 1 - busy_ms / plain_wall_ms}))
+                      "device_idle_share": 1 - busy_ms / plain_wall_ms,
+                      "peak_memory_bytes": peak}))
     print(json.dumps({"phase": "profile_categories", "ms_per_request": {
         c: ms / n for c, ms in sorted(cats.items(), key=lambda kv: -kv[1])}}))
     top = sorted(kernels.items(), key=lambda kv: -kv[1][0])
@@ -135,7 +155,8 @@ def main() -> int:
         {"name": name[:120], "ms_per_request": ms / n, "launches_per_request": cnt / n}
         for name, (ms, cnt) in top[:15]]}))
     os.makedirs(args.out, exist_ok=True)
-    name = "torch_port_profile_train.txt" if args.train else "torch_port_profile.txt"
+    name = "torch_port_profile" + "_spunet" * (args.model == "spunet") + "_fused" * args.fused
+    name += "_train.txt" if args.train else ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(f"{card}\n")
         f.write(prof.key_averages().table(sort_by="self_device_time_total", row_limit=80))
