@@ -11,8 +11,10 @@ each printing JSON lines:
 2. build: the CUDA kernels, one nvcc per source, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main paths (tables from a real synthetic scene): the attention
-   forward and backward (the backward at K 1024 and, for the TPU's
-   whole-K kernels, at K 128), the fill and the take-back at 4^3 and 8^3
+   forward at every stage's shapes of the eval forward and the train step,
+   the backward at the train step's (K 1024) and, for the TPU's whole-K
+   kernels, at K 128, both run twice at stage 0 and bit-identical; the
+   fill and the take-back at 4^3 and 8^3
    blocks, the two as each other's VJP (`BlockFill`, `TakeBack` backward
    passes) in the sorted and the shuffled route and SpUNet's, the fused
    block conv (`tap_conv_fwd` forward and as the input gradient,
@@ -20,7 +22,9 @@ each printing JSON lines:
    and stem, and the gather conv's VJP; `tap_conv_dw` and the gather conv's
    VJP run twice and must be bit-identical;
 4. times: kernel, plain version, one PyTorch library call computing the same
-   function, and the least time the card could take (bound);
+   function, and the least time the card could take (bound); the attention
+   rows with their launches per forward or step, and each path's sum of
+   launches x ms;
 5. the serving path: the PTv3-base ScanNet eval forward (`DefaultSegmentorV2`
    + `PT-v3m1`, 5 stages at full width, AMP bf16, block-dense convs with 4^3
    blocks) on distinct synthetic scenes of 102,400 points, with the launch
@@ -166,8 +170,10 @@ def scene(seed, capacity: int = CAPACITY, extent: float = 6.0, labelled: bool = 
     return arrays
 
 
-def time_ms(fn, samples: int = 7, reps: int = 5) -> float:
-    """Median over `samples` of the CUDA-event time of `reps` calls, per call."""
+def time_ms(fn, samples: int = 7, reps: int = 5, hold: int = 0) -> float:
+    """Median over `samples` of the CUDA-event time of `reps` calls, per call.
+    With `hold` the stream first spins that many clock cycles, so that the
+    host queues the `reps` calls ahead and the events time the device alone."""
     import torch
 
     for _ in range(2):
@@ -177,6 +183,8 @@ def time_ms(fn, samples: int = 7, reps: int = 5) -> float:
     for _ in range(samples):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if hold:
+            torch.cuda._sleep(hold)
         start.record()
         for _ in range(reps):
             fn()
@@ -184,6 +192,21 @@ def time_ms(fn, samples: int = 7, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end) / reps)
     return statistics.median(times)
+
+
+def paired_ms(fn, library, rounds: int = 5, hold: int = 10_000_000) -> dict:
+    """A kernel and the library call it is compared with, timed in turns:
+    `rounds` readings of each (`time_ms`), kernel then library, each behind
+    a hold of the stream (~5 ms), so that neither reading waits on the host
+    (autograd's backward takes longer to queue than SDPA's small backward
+    kernels take to run). Returns their medians (`ms`, `library_ms`) and
+    ranges over the rounds."""
+    ks, ls = [], []
+    for _ in range(rounds):
+        ks.append(time_ms(fn, hold=hold))
+        ls.append(time_ms(library, hold=hold))
+    return dict(ms=statistics.median(ks), ms_range=[min(ks), max(ks)], library_ms=statistics.median(ls),
+                library_ms_range=[min(ls), max(ls)])
 
 
 def stage0_tables(arrays, device):
@@ -228,12 +251,8 @@ def kernel_cases(device, arrays):
     """Phase 3 and 4: every kernel against its plain version, then timed.
     Returns {kernel: dict of the numbers of its main-path case}."""
     import torch
-    import torch.nn.functional as F
 
-    from pointcept_tpu_torch.ops.kernels import (
-        block_fill, block_fill_plain, patch_attention_bwd, patch_attention_bwd_plain,
-        patch_attention_fwd, patch_attention_fwd_plain, take_back_rows, take_back_rows_plain,
-    )
+    from pointcept_tpu_torch.ops.kernels import block_fill, block_fill_plain, take_back_rows, take_back_rows_plain
 
     gen = torch.Generator(device=device).manual_seed(0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
@@ -241,34 +260,9 @@ def kernel_cases(device, arrays):
     exp_rate = EXP_PER_CLOCK_PER_SM * sms * clock_hz
     results = {}
 
-    # A. attention: stage 0 (C=32, H=2), stage 2 (C=128, H=8), stage 4 (C=512, H=32)
+    # A. attention, forward and backward (D in the function below)
+    results.update(attention_cases(device, gen, exp_rate))
     pb, t = stage0_tables(arrays, device)
-    k = 1024
-    for stage, (c, h) in ((0, (32, 2)), (2, (128, 8)), (4, (512, 32))):
-        np_ = _patches(CAPACITY, stage, 1)  # one scene per request
-        qkv = torch.randn((np_, k, 3 * c), generator=gen, device=device).to(torch.bfloat16)
-        d = c // h
-        scale = d**-0.5
-        got = patch_attention_fwd(qkv, h, scale)
-        want = patch_attention_fwd_plain(qkv, h, scale)
-        torch.cuda.synchronize()
-        # bf16 output rounding (one ulp is 2^-8 relative) plus exp and summation order
-        err = check_close(f"patch_attention[C={c}]", got, want, atol=2e-2, rtol=2e-2)
-        q, kk, v = (qkv.view(np_, k, 3, h, d)[:, :, i].transpose(1, 2).contiguous() for i in range(3))
-        row = dict(
-            shape=dict(nP=np_, K=k, C=c, H=h), max_abs_err=err,
-            ms=time_ms(lambda: patch_attention_fwd(qkv, h, scale)),
-            plain_ms=time_ms(lambda: patch_attention_fwd_plain(qkv, h, scale), samples=3, reps=1),
-            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, kk, v, scale=scale)),
-        )
-        bytes_ = np_ * k * 4 * c * 2
-        exps = np_ * h * k * k
-        flops = 4 * np_ * h * k * k * d
-        row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
-        row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
-        emit("time", kernel="patch_attention", library="F.scaled_dot_product_attention", **_named(row))
-        if stage == 0:
-            results["patch_attention"] = row
 
     # B. block fill at the stem (Cin=6) and the first convs (Cin=32), and
     # C. the take-back of a conv output (Cout=32): PTv3's stage-0 tables (4^3
@@ -322,48 +316,6 @@ def kernel_cases(device, arrays):
         if model == "PTv3":
             results["take_back"] = row
 
-    # D. attention backward at the training path's shapes (two scenes per
-    # step, K 1024: the TPU's K-chunked kernels), then at patch 128 over the
-    # same points (the TPU's whole-K kernels, which only K <= 512 reaches)
-    cases = [(stage, _patches(2 * CAPACITY, stage, 2), 1024, c, h)
-             for stage, (c, h) in ((0, (32, 2)), (2, (128, 8)), (4, (512, 32)))]
-    cases += [(None, 2 * CAPACITY // 128 + 2, 128, c, h) for c, h in ((32, 2), (256, 16))]
-    for stage, np_, k, c, h in cases:
-        d = c // h
-        scale = d**-0.5
-        qkv = torch.randn((np_, k, 3 * c), generator=gen, device=device).to(torch.bfloat16)
-        dout = torch.randn((np_, k, c), generator=gen, device=device).to(torch.bfloat16)
-        out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
-        got = patch_attention_bwd(qkv, out, dout, m_, l_, h, scale)
-        want = patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale)
-        torch.cuda.synchronize()
-        # bf16 outputs (one ulp 2^-8 relative), p and dS rounded to bf16 after
-        # exps and sums taken in another order: bounded against the largest
-        # gradient, as tests/test_torch_port_kernels.py
-        err = check_close(f"patch_attention_bwd[C={c},K={k}]", got, want,
-                          atol=2e-2 * float(want.float().abs().max()), rtol=2e-2)
-        q, kk, v = (qkv.view(np_, k, 3, h, d)[:, :, i].transpose(1, 2).contiguous().requires_grad_()
-                    for i in range(3))
-        sdpa = F.scaled_dot_product_attention(q, kk, v, scale=scale)
-        do4 = dout.view(np_, k, h, d).transpose(1, 2).contiguous()
-        row = dict(
-            shape=dict(nP=np_, K=k, C=c, H=h), max_abs_err=err,
-            ms=time_ms(lambda: patch_attention_bwd(qkv, out, dout, m_, l_, h, scale)),
-            plain_ms=time_ms(lambda: patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale),
-                             samples=3, reps=1),
-            library_ms=time_ms(lambda: torch.autograd.grad(sdpa, (q, kk, v), do4, retain_graph=True)),
-        )
-        # qkv, out, dout, m and l read once, dqkv written once
-        bytes_ = np_ * k * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * k * 8
-        exps = np_ * h * k * k
-        flops = 10 * np_ * h * k * k * d  # 5 products of 2*D flops per score
-        row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
-        row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
-        emit("time", kernel="patch_attention_bwd", library="backward of F.scaled_dot_product_attention",
-             **_named(row))
-        if stage == 0:
-            results["patch_attention_bwd"] = row
-
     # E. the fill and the take-back as each other's VJP, in the sorted route
     # (the eval forward's tables), the shuffled one (tables re-sorted by z)
     # and SpUNet's (8^3 blocks)
@@ -374,6 +326,139 @@ def kernel_cases(device, arrays):
     gather_vjp_case(device, spunet_geometry(arrays, device, backbone=dict(SPUNET, conv_engine="gather"))[1]["nbr"],
                     gen)
     return results
+
+
+def attention_shapes():
+    """The attention calls of one PTv3-base forward: per stage, each (C, H)
+    of its encoder and decoder blocks with its launches (every block
+    attends once; the train step's backward launches as many)."""
+    b = BACKBONE
+    rows = []
+    for stage in range(5):
+        shapes = {}
+        widths = [(b["enc_channels"][stage], b["enc_num_head"][stage], b["enc_depths"][stage])]
+        if stage < len(b["dec_depths"]):
+            widths.append((b["dec_channels"][stage], b["dec_num_head"][stage], b["dec_depths"][stage]))
+        for c, h, n in widths:
+            shapes[(c, h)] = shapes.get((c, h), 0) + n
+        rows += [(stage, c, h, n) for (c, h), n in shapes.items()]
+    return rows
+
+
+def attention_cases(device, gen, exp_rate):
+    """The attention kernels against their plain versions and timed at every
+    shape of the two main paths: the eval forward (one scene, `stats` off)
+    and the train step (two scenes: the forward with its row statistics and
+    the backward), each timed in turns with SDPA (its forward with no
+    autograd graph, as the kernel runs, or the backward of its graph) and
+    beside its bound, with its launches per forward or step (from the
+    config's depths);
+    then the backward at patch 128 (the TPU's whole-K kernels, which only
+    K <= 512 reaches; no main-path launch). The forward (output and
+    statistics) and the backward must give the same bits twice at the
+    stage-0 train shape. Returns the rows of the kernels line: the eval
+    forward and the train backward at stage 0's encoder width."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointcept_tpu_torch.ops.kernels import (
+        patch_attention_bwd, patch_attention_bwd_plain, patch_attention_fwd, patch_attention_fwd_plain,
+    )
+
+    k = 1024
+    results, sums = {}, {}
+    cases = [("eval", 1, stage, c, h, n) for stage, c, h, n in attention_shapes()]
+    cases += [("train", 2, stage, c, h, n) for stage, c, h, n in attention_shapes()]
+    cases += [("patch 128", 2, None, c, h, 0) for c, h in ((32, 2), (256, 16))]
+    for path, scenes, stage, c, h, launches in cases:
+        kk_ = k if stage is not None else 128
+        np_ = _patches(scenes * CAPACITY, stage, scenes) if stage is not None else scenes * CAPACITY // 128 + 2
+        d = c // h
+        scale = d**-0.5
+        shape = dict(path=path, stage=stage, nP=np_, K=kk_, C=c, H=h, pairs=np_ * h)
+        label = f"{path},stage={stage},C={c},K={kk_}"
+        qkv = torch.randn((np_, kk_, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+        q, kk, v = (qkv.view(np_, kk_, 3, h, d)[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        per = "launches_per_forward" if path == "eval" else "launches_per_step"
+        kernels = ("fwd",) if path == "eval" else ("fwd", "bwd") if stage is not None else ("bwd",)
+        stats = path != "eval"
+        out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
+        for kern in kernels:
+            if kern == "fwd":
+                got = patch_attention_fwd(qkv, h, scale, stats=stats)
+                want = patch_attention_fwd_plain(qkv, h, scale, stats=stats)
+                torch.cuda.synchronize()
+                # bf16 output rounding (one ulp is 2^-8 relative) plus exp and summation order
+                err = check_close(f"patch_attention[{label}]", got[0] if stats else got,
+                                  want[0] if stats else want, atol=2e-2, rtol=2e-2)
+                # SDPA's forward as the kernel runs: no autograd graph recorded
+                with torch.no_grad():
+                    row = paired_ms(lambda: patch_attention_fwd(qkv, h, scale, stats=stats),
+                                    lambda: F.scaled_dot_product_attention(q, kk, v, scale=scale))
+                row.update(shape=shape, max_abs_err=err,
+                           plain_ms=time_ms(lambda: patch_attention_fwd_plain(qkv, h, scale, stats=stats),
+                                            samples=3, reps=1))
+                bytes_ = np_ * kk_ * 4 * c * 2 + (np_ * h * kk_ * 8 if stats else 0)
+                flops = 4 * np_ * h * kk_ * kk_ * d
+                name, library = "patch_attention", "F.scaled_dot_product_attention"
+            else:
+                dout = torch.randn((np_, kk_, c), generator=gen, device=device).to(torch.bfloat16)
+                got = patch_attention_bwd(qkv, out, dout, m_, l_, h, scale)
+                want = patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale)
+                torch.cuda.synchronize()
+                # bf16 outputs (one ulp 2^-8 relative), p and dS rounded to bf16 after
+                # exps and sums taken in another order: bounded against the largest
+                # gradient, as tests/test_torch_port_kernels.py
+                err = check_close(f"patch_attention_bwd[{label}]", got, want,
+                                  atol=2e-2 * float(want.float().abs().max()), rtol=2e-2)
+                leaves = [x.detach().requires_grad_() for x in (q, kk, v)]
+                sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+                do4 = dout.view(np_, kk_, h, d).transpose(1, 2).contiguous()
+                row = paired_ms(lambda: patch_attention_bwd(qkv, out, dout, m_, l_, h, scale),
+                                lambda: torch.autograd.grad(sdpa, leaves, do4, retain_graph=True))
+                row.update(shape=shape, max_abs_err=err,
+                           plain_ms=time_ms(lambda: patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale),
+                                            samples=3, reps=1))
+                # qkv, out, dout, m and l read once, dqkv written once
+                bytes_ = np_ * kk_ * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * kk_ * 8
+                flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
+                name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
+                if path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]:
+                    identical_checks(qkv, out, dout, m_, l_, h, scale, got)
+            exps = np_ * h * kk_ * kk_
+            row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
+            row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            row[per] = launches
+            emit("time", kernel=name, library=library, **_named(row))
+            if launches:
+                sums[(path, name)] = sums.get((path, name), 0.0) + launches * row["ms"]
+            if stage == 0 and c == BACKBONE["enc_channels"][0] and (path, kern) in (("eval", "fwd"),
+                                                                                   ("train", "bwd")):
+                results[name] = row
+            del got, want
+    for (path, name), ms in sums.items():
+        emit("attention_sum", path=path, kernel=name, ms_per_forward_or_step=ms,
+             note="sum of launches (from the config) x kernel ms over the shapes above (L2-warm, back to back)")
+    return results
+
+
+def identical_checks(qkv, out, dout, m, l, h, scale, first_dqkv):
+    """The forward (output, m and l) and the backward run again on the same
+    inputs must give the same bits: no atomics, fixed summation orders."""
+    import torch
+
+    from pointcept_tpu_torch.ops.kernels import patch_attention_bwd, patch_attention_fwd
+
+    again = patch_attention_fwd(qkv, h, scale, stats=True)
+    fwd_same = all(torch.equal(a, b) for a, b in zip((out, m, l), again))
+    bwd_same = torch.equal(first_dqkv, patch_attention_bwd(qkv, out, dout, m, l, h, scale))
+    torch.cuda.synchronize()
+    for name, same in (("patch_attention (out, m, l)", fwd_same), ("patch_attention_bwd", bwd_same)):
+        emit("check", kernel=f"{name} twice", shape=list(qkv.shape), bit_identical=same, ok=same)
+        if not same:
+            raise AssertionError(f"{name}: two runs on the same inputs differ")
 
 
 def spunet_geometry(arrays, device, num_scenes: int = 1, backbone: dict = SPUNET):

@@ -3,7 +3,8 @@
 Each source is compiled by its own `nvcc` into a shared library with a plain C
 interface (no PyTorch headers: a build takes seconds) and loaded with
 `ctypes`. Libraries land in ``build/kernels/`` at the repository root, named
-by a hash of their source and flags, so an unchanged source is not rebuilt.
+by a hash of their source, the shared headers (`csrc/*.cuh`) and the flags,
+so an unchanged source is not rebuilt.
 `build_all` starts one `nvcc` per source, all at once.
 
 Nothing here runs at import: a library is built the first time a wrapper
@@ -38,8 +39,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes() + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
+    """The library's path, named by a hash of its source, the headers of
+    `csrc/` (any of which it may include) and the flags."""
+    data = (CSRC / f"{name}.cu").read_bytes()
+    data += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    h = hashlib.sha256(data + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"
 
 

@@ -16,8 +16,9 @@ import torch
 
 from . import build
 
-_SMEM_LIMIT = 227 * 1024  # dynamic shared memory a block may use on Hopper
-_PAD = 8  # elements of padding per shared-memory row (both sources)
+SMEM_LIMIT = 232448  # dynamic shared memory a block may use on Hopper (227 KB)
+_BWD_STEP = 64  # queries a warp of the backward handles in one step
+_BWD_MAX_CLUSTER = 8  # the portable cluster size
 
 
 def patch_attention_fwd_plain(qkv_p: torch.Tensor, num_heads: int, scale: float,
@@ -80,7 +81,7 @@ def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats
     d = _check(qkv_p, num_heads, "patch_attention_fwd")
     np_, k, c3 = qkv_p.shape
     c = c3 // 3
-    if (k * (d + _PAD) + d * (k + _PAD)) * 2 > _SMEM_LIMIT:
+    if fwd_shared_memory(k, d) > SMEM_LIMIT:
         raise ValueError(f"patch_attention_fwd: patch size {k} exceeds shared memory at D={d}")
     out = torch.empty((np_, k, c), dtype=qkv_p.dtype, device=qkv_p.device)
     m = l = None
@@ -137,11 +138,30 @@ def patch_attention_bwd_plain(qkv_p: torch.Tensor, out: torch.Tensor, dout: torc
     return dqkv
 
 
-def bwd_shared_memory(k: int, d: int) -> int:
-    """Bytes of shared memory the larger of the two backward kernels takes."""
-    dq = (2 * k * (d + _PAD) + d * (k + _PAD)) * 2
-    dkv = (2 * k * (d + _PAD) + 2 * d * (k + _PAD)) * 2 + 3 * k * 4
-    return max(dq, dkv)
+def fwd_shared_memory(k: int, d: int) -> int:
+    """Bytes of shared memory a forward block takes: K and V of one
+    (patch, head), bf16, unpadded."""
+    return 2 * k * d * 2
+
+
+def bwd_plan(k: int, d: int):
+    """(S, W, T, shared memory bytes) of the backward kernel at patch size k
+    and head dim d: S blocks (one cluster) split the k keys of a (patch,
+    head), W warps a block own T key tiles of 16 each: four at D = 16 where
+    k is a multiple of 64 (each Q and dO fragment read from shared memory,
+    and each dQ update, then serves 64 keys; at most 8 warps, for the
+    registers), else one. A block holds Q and dO of the whole patch (bf16),
+    each query's lse2 and row term (an f32 pair) and an f32 dQ tile, over k
+    rounded up to whole 64-query tiles. W is at most 16 (D = 16) or 8
+    (D = 32: more registers a warp) and at most the number of query tiles,
+    since warp w handles tile (i + w) mod tiles at its i-th step."""
+    kp = -(-k // _BWD_STEP) * _BWD_STEP
+    t = 4 if d == 16 and k % 64 == 0 else 1
+    tiles = k // (16 * t)
+    w = min(8 if t == 4 or d == 32 else 16, kp // _BWD_STEP)
+    s = -(-tiles // w)
+    w = -(-tiles // s)
+    return s, w, t, kp * (2 * d * 2 + 8 + d * 4)
 
 
 def patch_attention_bwd(qkv_p: torch.Tensor, out: torch.Tensor, dout: torch.Tensor,
@@ -165,18 +185,20 @@ def patch_attention_bwd(qkv_p: torch.Tensor, out: torch.Tensor, dout: torch.Tens
                              f"{qkv_p.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16 != 0:
             raise ValueError(f"patch_attention_bwd: {name} must be contiguous and 16-byte aligned")
-    if bwd_shared_memory(k, d) > _SMEM_LIMIT:
+    split, warps, key_tiles, smem = bwd_plan(k, d)
+    if smem > SMEM_LIMIT or split > _BWD_MAX_CLUSTER:
         raise ValueError(f"patch_attention_bwd: patch size {k} exceeds shared memory at D={d}")
     dqkv = torch.empty_like(qkv_p)
     if np_ > 0:
+        stats = torch.empty((np_, num_heads, k, 2), dtype=torch.float32, device=qkv_p.device)
         fn = build.cfunc(
             "patch_attention_bwd", "patch_attention_bwd",
-            [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int, c_int, c_int,
-             c_int, c_float, c_void_p],
+            [c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_void_p, c_int, c_int,
+             c_int, c_int, c_int, c_int, c_int, c_int, c_float, c_void_p],
         )
         status = fn(qkv_p.data_ptr(), out.data_ptr(), dout.data_ptr(), m.data_ptr(), l.data_ptr(),
-                    dqkv.data_ptr(), np_, k, c, num_heads, d, float(scale),
-                    build.stream_handle(qkv_p.device))
+                    stats.data_ptr(), dqkv.data_ptr(), np_, k, c, num_heads, d, split, warps,
+                    key_tiles, float(scale), build.stream_handle(qkv_p.device))
         build.check(status, "patch_attention_bwd")
         patch_attention_bwd.launches += 1
     return dqkv

@@ -174,6 +174,68 @@ def test_tap_conv_wrappers_refuse_other_devices():
         kernels.tap_conv_dw(dense, nbr, dense, 4, 3)
 
 
+def _old_fwd_accepts(k, d):
+    """The patch sizes the forward took before its redesign: K and a
+    transposed V, rows padded by 8 elements, within 227 KB."""
+    return (k * (d + 8) + d * (k + 8)) * 2 <= 227 * 1024
+
+
+def _old_bwd_accepts(k, d):
+    """The same for the two backward kernels of before (dq, dk/dv)."""
+    dq = (2 * k * (d + 8) + d * (k + 8)) * 2
+    dkv = (2 * k * (d + 8) + 2 * d * (k + 8)) * 2 + 3 * k * 4
+    return max(dq, dkv) <= 227 * 1024
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_attention_forward_takes_every_old_patch_size(d):
+    from pointcept_tpu_torch.ops.kernels.patch_attention import SMEM_LIMIT, fwd_shared_memory
+
+    old = [k for k in range(16, 4096, 16) if _old_fwd_accepts(k, d)]
+    assert old and all(fwd_shared_memory(k, d) <= SMEM_LIMIT for k in old)
+
+
+@pytest.mark.parametrize("d", [16, 32])
+def test_attention_backward_plans_every_old_patch_size(d):
+    """Every (K, D) the old backward took plans a cluster of at most 8
+    blocks within 227 KB, with blocks that cover the keys exactly: W warps
+    of T key tiles of 16, at most one query tile a warp a step, no empty
+    block."""
+    from pointcept_tpu_torch.ops.kernels.patch_attention import SMEM_LIMIT, bwd_plan
+
+    old = [k for k in range(16, 4096, 16) if _old_bwd_accepts(k, d)]
+    assert old
+    for k in old:
+        s, w, t, smem = bwd_plan(k, d)
+        assert smem <= SMEM_LIMIT and 1 <= s <= 8, (k, s, smem)
+        assert 1 <= w <= (16 if d == 16 else 8) and w <= -(-k // 64), (k, w)
+        assert t in ((1, 4) if d == 16 else (1,)) and k % (16 * t) == 0 and (t == 1 or w <= 8), (k, t, w)
+        assert (s - 1) * w * 16 * t < k <= s * w * 16 * t, (k, s, w, t)
+
+
+# (path, stage, pairs = patches x heads) of PTv3-base's attention calls at
+# K 1024, D 16: the eval forward (one 102,400-point scene) and the train
+# step (two), encoder and decoder widths (chip_smoke.attention_shapes)
+MAIN_PATH_PAIRS = [("eval", 0, 202), ("eval", 0, 404), ("eval", 1, 144), ("eval", 2, 80),
+                   ("eval", 3, 64), ("eval", 4, 64), ("train", 0, 404), ("train", 0, 808),
+                   ("train", 1, 288), ("train", 2, 160), ("train", 3, 112), ("train", 4, 128)]
+
+
+@pytest.mark.parametrize("path,stage,pairs", MAIN_PATH_PAIRS)
+def test_attention_plans_fill_the_card_on_the_main_paths(path, stage, pairs):
+    """At every main-path shape both kernels fit in shared memory and put at
+    least 132 blocks (the H100's SMs) in flight: the forward at least one
+    per 256 query rows of a (patch, head); in the train step the backward
+    too, S per (patch, head), its warps owning four key tiles each."""
+    from pointcept_tpu_torch.ops.kernels.patch_attention import SMEM_LIMIT, bwd_plan, fwd_shared_memory
+
+    k, d = 1024, 16
+    assert fwd_shared_memory(k, d) <= SMEM_LIMIT and pairs * (k // 256) >= 132
+    s, _, t, smem = bwd_plan(k, d)
+    assert smem <= SMEM_LIMIT and t == 4
+    assert path == "eval" or pairs * s >= 132  # the eval forward runs no backward
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -184,11 +246,20 @@ def cuda():
     return torch.device("cuda")
 
 
+# (nP, K, C, H) on the card: K 1024 at the five PTv3-base widths (head dim
+# 16), fewer (patch, head) pairs than the card's 132 SMs, one patch, a patch
+# size that is not a multiple of 64, the whole-K kernels' patch 128, head
+# dim 32 (the backward takes K <= 768 there)
+ATTN_CARD_CASES = [(4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
+                   (4, 1024, 512, 32), (2, 1024, 512, 32), (1, 1024, 32, 2), (3, 48, 32, 2),
+                   (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2)]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,h", [(32, 2), (64, 4), (128, 8), (256, 16), (512, 32)])
-def test_attention_kernel_matches_plain_on_card(cuda, c, h):
-    g = torch.Generator(device=cuda).manual_seed(c)
-    qkv = torch.randn((4, 1024, 3 * c), generator=g, device=cuda).to(torch.bfloat16)
+@pytest.mark.parametrize("np_,k,c,h", ATTN_CARD_CASES)
+def test_attention_kernel_matches_plain_on_card(cuda, np_, k, c, h):
+    g = torch.Generator(device=cuda).manual_seed(c + k)
+    qkv = torch.randn((np_, k, 3 * c), generator=g, device=cuda).to(torch.bfloat16)
     n0 = kernels.patch_attention_fwd.launches
     got = kernels.patch_attention_fwd(qkv, h, (c // h) ** -0.5)
     assert kernels.patch_attention_fwd.launches == n0 + 1
@@ -197,15 +268,16 @@ def test_attention_kernel_matches_plain_on_card(cuda, c, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("c,h", [(32, 2), (64, 4), (128, 8), (256, 16), (512, 32)])
-def test_attention_backward_kernel_matches_plain_on_card(cuda, c, h):
-    """K 1024, the five PTv3-base widths (head dim 16)."""
-    g = torch.Generator(device=cuda).manual_seed(c)
-    qkv = torch.randn((3, 1024, 3 * c), generator=g, device=cuda).to(torch.bfloat16)
-    dout = torch.randn((3, 1024, c), generator=g, device=cuda).to(torch.bfloat16)
+@pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES if cs[2] // cs[3] == 16 or cs[1] <= 768])
+def test_attention_backward_kernel_matches_plain_on_card(cuda, np_, k, c, h):
+    """The forward with and without statistics gives the same bits, the
+    backward matches its plain version and gives the same bits twice."""
+    g = torch.Generator(device=cuda).manual_seed(c + k)
+    qkv = torch.randn((np_, k, 3 * c), generator=g, device=cuda).to(torch.bfloat16)
+    dout = torch.randn((np_, k, c), generator=g, device=cuda).to(torch.bfloat16)
     scale = (c // h) ** -0.5
     out, m, l = kernels.patch_attention_fwd(qkv, h, scale, stats=True)
-    torch.testing.assert_close(out, kernels.patch_attention_fwd(qkv, h, scale))
+    assert torch.equal(out, kernels.patch_attention_fwd(qkv, h, scale))
     n0 = kernels.patch_attention_bwd.launches
     got = kernels.patch_attention_bwd(qkv, out, dout, m, l, h, scale)
     assert kernels.patch_attention_bwd.launches == n0 + 1
@@ -214,6 +286,7 @@ def test_attention_backward_kernel_matches_plain_on_card(cuda, c, h):
     # different points of exp and summation order
     scale_ = want.float().abs().max()
     assert ((got.float() - want.float()).abs() <= 2e-2 * scale_ + 2e-2 * want.float().abs()).all()
+    assert torch.equal(got, kernels.patch_attention_bwd(qkv, out, dout, m, l, h, scale))
 
 
 @pytest.mark.gpu
