@@ -11,7 +11,8 @@ each printing JSON lines:
 2. build: the CUDA kernels, one nvcc per source, in parallel;
 3. each kernel against its plain PyTorch version on the card, at the shapes
    of the main paths (tables from a real synthetic scene): the attention
-   forward at every stage's shapes of the eval forward and the train step,
+   forward at every stage's shapes of the eval forward and the train step
+   (and at head dim 8, the overfit config's stage 0, zero-padded to 16),
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -46,7 +47,22 @@ each printing JSON lines:
    momentum, OneCycle; two scenes per step as phase 7) and card against
    CPU for one train step, each path with its launch counters set to 0
    just before it and read just after;
-10. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+10. the config-driven trainer: `configs/scannet/semseg-pt-v3m1-0-base.py`
+   unchanged in model, optimizer, scheduler and transforms, through
+   `main_worker` (what `tools/torch_port_train.py` runs), on six synthetic
+   scenes written in ScanNet's layout (train seeds 0-3, val seeds 5 and 6,
+   ~409,600 raw points each): batch 2, capacity 262,144 (val too), 2
+   epochs of 2 steps with Mix3D, an evaluation after each, 4 data workers,
+   checkpoints every epoch, launch counters set to 0 just before and read
+   just after; then the second epoch again through the CLI as a
+   subprocess, resumed from `epoch_1.pth`: its losses against the first
+   run's, bit for bit; then its steady state: one epoch of 16 steps (loop
+   8), every step's batch and data time, and the trainer's own train step
+   alone on batches of its loader, beside phase 7's bare step;
+11. the two overfit configs of `configs/synthetic/` (PTv3 with head dim 8,
+   AMP, its second pooling's factor raised to 0.75; SpUNet) through the
+   trainer: train loss < 0.05, val mIoU > 0.80, no point dropped;
+12. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -55,9 +71,11 @@ nonzero; nothing falls back to the CPU. It imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -136,6 +154,31 @@ SPUNET_RECIPE = dict(
                    div_factor=10.0, final_div_factor=10000.0))
 SPUNET_EVAL_KERNELS = ("block_fill", "take_back", "tap_conv_fwd")
 SPUNET_TRAIN_KERNELS = ("block_fill", "take_back", "tap_conv_fwd", "tap_conv_dw")
+# the config-driven trainer's phase: the ScanNet config's own path, six
+# synthetic scenes in ScanNet's layout (seeds 4 and 9 overflow), and the
+# options that cut it to size (PERF.md §4)
+SCANNET_CONFIG = "configs/scannet/semseg-pt-v3m1-0-base.py"
+SCANNET_SEEDS = {"train": (0, 1, 2, 3), "val": (5, 6)}
+RAW_POINTS = 409600
+TRAINER_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_val=262144, epoch=2, eval_epoch=2,
+                       num_worker=4, seed=0, **{"hooks.4.save_freq": 1})
+# a longer epoch of the same run for the trainer's steady state: loop 8
+# (epoch // eval_epoch), 16 steps, one evaluation
+STEADY_OPTIONS = dict(epoch=8, eval_epoch=1)
+BARE_STEPS = 6
+# the overfit configs and their options: their point_capacity (4,096) is per
+# chip, where the JAX package spreads the batch of 8 scenes over 8 chips, so
+# one card holds the batch at 8 x 4,096; PTv3's second pooling keeps ~11,300
+# of its 16,384 rows, above the config's factor 0.5, and would drop ~3,000
+# points a step
+OVERFIT_CONFIGS = {
+    "configs/synthetic/semseg-pt-v3m1-1-overfit.py":
+        {"point_capacity": 32768, "model.backbone.pool_capacity_factors": (0.5, 0.75)},
+    "configs/synthetic/semseg-spunet-v1m1-1-overfit.py": {"point_capacity": 32768},
+}
+# the overfit config's stage-0 attention (head dim 8): that batch in patches
+# of 128, its encoder and decoder block a step
+OVERFIT_ATTENTION = dict(capacity=32768, scenes=8, k=128, c=16, h=2, launches=2)
 # small depth for the card-vs-CPU phases: one block a stage, the block engine
 # from 4,096 points (levels 0-2 of a 16,384-point scene)
 SPUNET_SMALL = dict(SPUNET, layers=(1,) * 8, block_engine_min_points=4096)
@@ -370,9 +413,12 @@ def attention_cases(device, gen, exp_rate):
     cases = [("eval", 1, stage, c, h, n) for stage, c, h, n in attention_shapes()]
     cases += [("train", 2, stage, c, h, n) for stage, c, h, n in attention_shapes()]
     cases += [("patch 128", 2, None, c, h, 0) for c, h in ((32, 2), (256, 16))]
+    o = OVERFIT_ATTENTION
+    cases += [("overfit train", o["scenes"], "D=8", o["c"], o["h"], o["launches"])]
     for path, scenes, stage, c, h, launches in cases:
-        kk_ = k if stage is not None else 128
-        np_ = _patches(scenes * CAPACITY, stage, scenes) if stage is not None else scenes * CAPACITY // 128 + 2
+        kk_ = k if isinstance(stage, int) else 128
+        np_ = (_patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
+               else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
         scale = d**-0.5
         shape = dict(path=path, stage=stage, nP=np_, K=kk_, C=c, H=h, pairs=np_ * h)
@@ -423,7 +469,7 @@ def attention_cases(device, gen, exp_rate):
                 bytes_ = np_ * kk_ * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * kk_ * 8
                 flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
                 name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
-                if path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]:
+                if (path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8":
                     identical_checks(qkv, out, dout, m_, l_, h, scale, got)
             exps = np_ * h * kk_ * kk_
             row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
@@ -835,7 +881,7 @@ def train_path(device, card, cfg=TRAIN_MODEL, recipe=PTV3_RECIPE, kernels=TRAIN_
             raise AssertionError(f"kernel {name} was not launched on the training path ({phase})")
     if changed != len(before):
         raise AssertionError(f"only {changed} of {len(before)} parameters changed")
-    return launches
+    return launches, statistics.median(r["ms"] for r in rows)
 
 
 def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
@@ -912,6 +958,223 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
             raise AssertionError(f"card and CPU train steps disagree ({phase}, amp={amp})")
 
 
+def write_scannet_scenes(root: str) -> dict:
+    """Synthetic scenes in ScanNet's preprocessed layout, one directory of
+    .npy files a scene (`coord`, `color` as uint8, `normal`, `segment20`,
+    `instance`): a 6 m room of RAW_POINTS points, the benchmark's scene
+    before its voxelisation. Returns the points a split."""
+    from pointcept_tpu_torch.datasets import synthesize_scene
+
+    import numpy as np
+
+    sizes = {}
+    for split, seeds in SCANNET_SEEDS.items():
+        for seed in seeds:
+            d = os.path.join(root, split, f"scene{seed:04d}_00")
+            os.makedirs(d)
+            sc = synthesize_scene(seed, num_points=RAW_POINTS, num_classes=NUM_CLASSES, extent=6.0)
+            np.save(os.path.join(d, "coord.npy"), sc["coord"])
+            np.save(os.path.join(d, "color.npy"), sc["color"].astype(np.uint8))
+            np.save(os.path.join(d, "normal.npy"), sc["normal"])
+            np.save(os.path.join(d, "segment20.npy"), sc["segment"].astype(np.int16))
+            np.save(os.path.join(d, "instance.npy"), sc["instance"].astype(np.int16))
+            sizes.setdefault(split, []).append(len(sc["coord"]))
+    return sizes
+
+
+def _quiet(fn, log_path: str):
+    """`fn()` with the trainer's log lines (its console handler writes to
+    stdout) sent to `log_path`, so that this script's own lines stay
+    readable; the log's tail goes to stderr if `fn` raises."""
+    with open(log_path, "a") as log:
+        try:
+            with contextlib.redirect_stdout(log):
+                return fn()
+        except BaseException:
+            log.flush()
+            with open(log_path) as f:
+                print(f.read()[-4000:], file=sys.stderr)
+            raise
+
+
+def _metrics(save_path: str) -> list:
+    with open(os.path.join(save_path, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def trainer_path(device, card, work: str, bare_step_ms: float):
+    """Phase 10: the ScanNet config through the port's trainer at full
+    width, then its second epoch resumed through the CLI."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser, main_worker
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    data_root = os.path.join(work, "scannet")
+    sizes = write_scannet_scenes(data_root)
+    options = dict(TRAINER_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    first = os.path.join(work, "run")
+    cfg = default_config_parser(os.path.join(ROOT, SCANNET_CONFIG), dict(options, save_path=first))
+    emit("trainer_setup", config=SCANNET_CONFIG, options=options, raw_points=sizes)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = _quiet(lambda: main_worker(cfg), os.path.join(work, "trainer.log"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    rows = _metrics(first)
+    evals = trainer.comm_info["eval_result"]
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device=device,
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    unchanged = [n for (n, a), b in zip(initial.named_parameters(), trainer.model.parameters())
+                 if torch.equal(a, b.detach())]
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    del initial
+    files = sorted(os.listdir(os.path.join(first, "model")))
+    steps = [dict(epoch=r["epoch"], iter=r["iter"], loss=r["loss"], batch_time_ms=r["batch_time"] * 1e3,
+                  data_time_ms=r["data_time"] * 1e3, pool_overflow=r["pool_overflow"],
+                  block_overflow=r["block_overflow"]) for r in rows]
+    for st in steps:
+        emit("trainer_step", **st)
+    emit("trainer", card=card, seconds=seconds, parameters=n_params, steps=len(steps),
+         **_step_times(steps), bare_step_median_ms=bare_step_ms, eval_ms_per_scene=evals["batch_ms"],
+         val_mIoU=evals["mIoU"], val_overflow=evals["overflow"], best_metric_value=trainer.best_metric_value,
+         peak_memory_bytes=peak, launches=launches, unchanged_parameters=len(unchanged), checkpoints=files)
+    if len(steps) != 4 or not all(math.isfinite(st["loss"]) for st in steps):
+        raise AssertionError(f"trainer: expected 4 finite losses, got {[st['loss'] for st in steps]}")
+    if any(st["pool_overflow"] or st["block_overflow"] for st in steps) or evals["overflow"]:
+        raise AssertionError("trainer: points overflowed static capacities")
+    if not math.isfinite(evals["mIoU"]):
+        raise AssertionError(f"trainer: val mIoU {evals['mIoU']}")
+    if unchanged:
+        raise AssertionError(f"trainer: {len(unchanged)} parameters not updated, e.g. {unchanged[:3]}")
+    if not {"model_last.pth", "model_best.pth", "epoch_1.pth"} <= set(files):
+        raise AssertionError(f"trainer: checkpoints missing, found {files}")
+    for name in TRAIN_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the trainer")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the second epoch again, through the CLI, resumed from epoch 1
+    resumed = os.path.join(work, "resumed")
+    argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
+            os.path.join(ROOT, SCANNET_CONFIG), "--options"]
+    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
+                                          weight=os.path.join(first, "model", "epoch_1.pth")).items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], file=sys.stderr)
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the training CLI exited with {proc.returncode}")
+    want = [r["loss"] for r in rows if r["epoch"] == 2]
+    got = [r["loss"] for r in _metrics(resumed)]
+    identical = got == want
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want)) if len(got) == len(want) else float("inf")
+    emit("trainer_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=identical,
+         max_rel_diff=rel)
+    if not (identical or rel < 1e-3):
+        raise AssertionError(f"resumed epoch 2 losses {got} differ from the first run's {want}")
+    steady_state(device, card, work, dict(options, **STEADY_OPTIONS), bare_step_ms)
+
+
+def _step_times(steps: list) -> dict:
+    """The window's mean batch_time over every step, and the medians of the
+    steps that are not the first of their epoch (the first waits for the
+    loader's workers to start)."""
+    later = [st for prev, st in zip(steps, steps[1:]) if st["epoch"] == prev["epoch"]]
+    return dict(window_ms_per_step=statistics.fmean(st["batch_time_ms"] for st in steps),
+                median_batch_time_ms=statistics.median(st["batch_time_ms"] for st in steps),
+                median_data_time_ms=statistics.median(st["data_time_ms"] for st in steps),
+                later_steps=len(later),
+                later_median_batch_time_ms=statistics.median(st["batch_time_ms"] for st in later),
+                later_median_data_time_ms=statistics.median(st["data_time_ms"] for st in later),
+                later_median_step_ms=statistics.median(st["batch_time_ms"] - st["data_time_ms"] for st in later))
+
+
+def steady_state(device, card, work: str, options: dict, bare_step_ms: float):
+    """Phase 10's steady state: the same config and scenes through the
+    trainer for one epoch of 16 steps, then the trainer's own train step
+    alone on batches of its loader (no hooks, no loader), which the
+    trainer's steps are held against beside phase 7's bare step."""
+    import torch
+
+    from pointcept_tpu_torch.engines import build_train_step, default_config_parser, main_worker, make_point_batch
+
+    save = os.path.join(work, "steady")
+    cfg = default_config_parser(os.path.join(ROOT, SCANNET_CONFIG), dict(options, save_path=save))
+
+    def run():
+        trainer = main_worker(cfg)
+        trainer.train_loader.set_epoch(0)
+        batches = []
+        for batch in trainer.train_loader:
+            batches.append(make_point_batch(batch, batch["num_scenes"], device=device))
+            if len(batches) == BARE_STEPS // 2:
+                break
+        step = build_train_step(trainer.model, trainer.optimizer, trainer.build_scheduler(), cfg.get("clip_grad"))
+        return trainer, batches, step
+
+    trainer, batches, step = _quiet(run, os.path.join(work, "trainer.log"))
+    steps = [dict(epoch=r["epoch"], batch_time_ms=r["batch_time"] * 1e3, data_time_ms=r["data_time"] * 1e3,
+                  overflow=r["pool_overflow"] + r["block_overflow"]) for r in _metrics(save)]
+    generator = torch.Generator(device=device)
+    bare = []
+    for i in range(BARE_STEPS):
+        generator.manual_seed(i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = step(batches[i % len(batches)], generator)
+        torch.stack([res["loss"].float(), res["pool_overflow"].float(), res["block_overflow"].float()]).tolist()
+        bare.append((time.perf_counter() - t0) * 1e3)
+    emit("trainer_steady", card=card, options=STEADY_OPTIONS, steps=len(steps),
+         batch_time_ms=[st["batch_time_ms"] for st in steps], data_time_ms=[st["data_time_ms"] for st in steps],
+         **_step_times(steps), config_bare_step_ms=bare, config_bare_step_median_ms=statistics.median(bare),
+         bare_step_median_ms=bare_step_ms)
+    if len(steps) != 16 or any(st["overflow"] for st in steps):
+        raise AssertionError(f"trainer steady state: {len(steps)} steps, overflow {[st['overflow'] for st in steps]}")
+    del trainer, batches, step
+    torch.cuda.empty_cache()
+
+
+def overfit_runs(device, card, work: str):
+    """Phase 11: the overfit configs through the trainer (the thresholds of
+    tests/test_overfit.py)."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser, main_worker
+
+    for path, options in OVERFIT_CONFIGS.items():
+        save = os.path.join(work, os.path.basename(path)[: -len(".py")])
+        t0 = time.perf_counter()
+        cfg = default_config_parser(os.path.join(ROOT, path), dict(options, save_path=save))
+        trainer = _quiet(lambda: main_worker(cfg), os.path.join(work, "trainer.log"))
+        seconds = time.perf_counter() - t0
+        rows = _metrics(save)
+        loss = trainer.comm_info["metrics"]["loss"]
+        miou = trainer.comm_info["current_metric_value"]
+        overflow = max(r["pool_overflow"] + r["block_overflow"] for r in rows)
+        val_overflow = trainer.comm_info["eval_result"]["overflow"]
+        emit("overfit", config=path, options=options, card=card, seconds=seconds, steps=len(rows),
+             loss_at_step={i: rows[i - 1]["loss"] for i in (1, 50, 100, 150) if i <= len(rows)},
+             final_loss=loss, val_mIoU=miou,
+             median_batch_time_ms=statistics.median(r["batch_time"] for r in rows) * 1e3,
+             max_overflow_per_step=overflow, val_overflow=val_overflow)
+        if not (loss < 0.05 and miou > 0.80):
+            raise AssertionError(f"{path}: final train loss {loss}, val mIoU {miou}")
+        if overflow or val_overflow:
+            raise AssertionError(f"{path}: points overflowed static capacities ({overflow} in a step, "
+                                 f"{val_overflow} in eval)")
+        del trainer
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -937,16 +1200,24 @@ def main() -> int:
     kernels = kernel_cases(device, scene(1000))
     main_path(device, card)
     card_vs_cpu(device)
-    launches = train_path(device, card)
+    launches, bare_step_ms = train_path(device, card)
     card_vs_cpu_train(device)
 
     main_path(device, card, SPUNET_MODEL, SPUNET_EVAL_KERNELS, phase="spunet_serving")
     card_vs_cpu(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
-    spunet = train_path(device, card, SPUNET_MODEL, SPUNET_RECIPE, SPUNET_TRAIN_KERNELS,
-                        phase="spunet_train_path")
+    spunet, _ = train_path(device, card, SPUNET_MODEL, SPUNET_RECIPE, SPUNET_TRAIN_KERNELS,
+                           phase="spunet_train_path")
     card_vs_cpu_train(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL), SPUNET_RECIPE)],
                       phase="spunet_card_vs_cpu_train")
     launches.update({name: spunet[name] for name in ("tap_conv_fwd", "tap_conv_dw")})
+
+    work = os.path.join(ROOT, "build", "chip_smoke_trainer")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        trainer_path(device, card, work, bare_step_ms)
+        overfit_runs(device, card, work)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
     sources = {"patch_attention": "pointcept_tpu_torch/csrc/patch_attention.cu",
                "patch_attention_bwd": "pointcept_tpu_torch/csrc/patch_attention_bwd.cu",

@@ -1,0 +1,9 @@
+"""DATASETS registry (counterpart of `pointcept_tpu/datasets/builder.py`)."""
+
+from ..utils.registry import Registry
+
+DATASETS = Registry("datasets")
+
+
+def build_dataset(cfg):
+    return DATASETS.build(cfg)

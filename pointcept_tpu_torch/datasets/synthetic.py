@@ -1,10 +1,14 @@
-"""Synthetic ScanNet-like scenes (counterpart of `synthesize_scene` in
-`pointcept_tpu/datasets/synthetic.py`): floor and wall planes plus furniture
-surface shells, deterministic per seed. numpy only."""
+"""Synthetic ScanNet-like scenes (counterparts of `synthesize_scene` and
+`SyntheticSemSegDataset` in `pointcept_tpu/datasets/synthetic.py`): floor and
+wall planes plus furniture surface shells, deterministic per seed. numpy
+only."""
 
 from __future__ import annotations
 
 import numpy as np
+
+from .builder import DATASETS
+from .defaults import DefaultDataset
 
 
 def synthesize_scene(seed: int, num_points: int = 120000, num_classes: int = 20, extent: float = 8.0):
@@ -50,6 +54,41 @@ def synthesize_scene(seed: int, num_points: int = 120000, num_classes: int = 20,
     return dict(coord=coord[perm], color=color[perm], normal=normal[perm], segment=seg[perm], instance=inst[perm])
 
 
+@DATASETS.register_module()
+class SyntheticSemSegDataset(DefaultDataset):
+    """`num_scenes` scenes of `synthesize_scene`, scene i from seed
+    `seed_offset + i`, through the transform pipeline."""
+
+    def __init__(self, num_scenes=8, num_points=120000, num_classes=20, seed_offset=0, extent=8.0,
+                 **kwargs):
+        self.num_scenes = num_scenes
+        self.num_points = num_points
+        self.num_classes = num_classes
+        self.seed_offset = seed_offset
+        self.extent = extent
+        kwargs.setdefault("data_root", "")
+        super().__init__(**kwargs)
+
+    def get_data_list(self):
+        return [f"synthetic_{self.split}_{i}" for i in range(self.num_scenes)]
+
+    def get_data(self, idx):
+        i = idx % len(self.data_list)
+        data = synthesize_scene(self.seed_offset + i, self.num_points, self.num_classes, extent=self.extent)
+        data["name"] = self.data_list[i]
+        data["split"] = self.split
+        return data
+
+    def get_data_name(self, idx):
+        return self.data_list[idx % len(self.data_list)]
+
+
+def _collate(samples, capacity):
+    from .utils import collate_fn, pad_to_point_batch
+
+    return pad_to_point_batch(collate_fn(samples), capacity, drop_overflow=False)
+
+
 def _pipeline(grid_size, crop_points, rng):
     """The synthetic benchmark batch's transforms: CenterShift, GridSample in
     train mode (drawing from `rng`), optional center SphereCrop, CenterShift,
@@ -75,15 +114,13 @@ def synthetic_arrays(capacity, num_scenes, seed=0, num_classes=13, grid_size=0.0
     """One collated fixed-capacity batch of synthetic scenes (seeds `seed`,
     `seed + 1`, ...) through `_pipeline`, labels kept. GridSample draws from
     `rng` (the global numpy state when None)."""
-    from .utils import point_collate_fn
-
     pipeline = _pipeline(grid_size, capacity // max(num_scenes, 1) if crop else 0, rng)
     per_scene = max(256, int(capacity * oversample) // max(num_scenes, 1))
     samples = []
     for i in range(num_scenes):
         data = synthesize_scene(seed + i, num_points=per_scene, num_classes=num_classes, extent=extent)
         samples.append(pipeline(data))
-    return point_collate_fn(samples, capacity=capacity)
+    return _collate(samples, capacity)
 
 
 def scene_batch(seeds, points_per_scene=102400, num_classes=20, grid_size=0.02, oversample=4.0,
@@ -93,12 +130,10 @@ def scene_batch(seeds, points_per_scene=102400, num_classes=20, grid_size=0.02, 
     raw points in an `extent` m room, GridSample drawing from
     `RandomState(seed)`, center-cropped to `points_per_scene`. Capacity
     len(seeds) * points_per_scene; padding rows carry batch and label -1."""
-    from .utils import point_collate_fn
-
     samples = []
     for seed in seeds:
         pipeline = _pipeline(grid_size, points_per_scene, np.random.RandomState(seed))
         data = synthesize_scene(seed, num_points=int(points_per_scene * oversample),
                                 num_classes=num_classes, extent=extent)
         samples.append(pipeline(data))
-    return point_collate_fn(samples, capacity=points_per_scene * len(seeds))
+    return _collate(samples, points_per_scene * len(seeds))

@@ -1,9 +1,18 @@
-"""Host-side numpy transforms of the serving path (counterparts in
-`pointcept_tpu/datasets/transform.py`): CenterShift, GridSample (train mode),
-SphereCrop (center mode), NormalizeColor and Collect."""
+"""Host-side numpy transforms (counterparts in `pointcept_tpu/datasets/transform.py`).
+
+The transforms of the ScanNet PTv3-base config and the synthetic configs:
+CenterShift, the augmentations (RandomDropout, RandomRotate, RandomScale,
+RandomFlip, RandomJitter, ElasticDistortion, ChromaticAutoContrast,
+ChromaticTranslation, ChromaticJitter), GridSample (train mode), SphereCrop
+(random and center mode), NormalizeColor, ToTensor (a no-op: arrays
+stay numpy until the collate) and Collect. Each draws from `np.random` and
+`random` in the JAX version's order, so one seed gives the same arrays bit
+for bit. GridSample's test mode (the tester's) is not ported.
+"""
 
 from __future__ import annotations
 
+import random
 from collections.abc import Sequence
 
 import numpy as np
@@ -60,6 +69,15 @@ class Collect:
 
 
 @TRANSFORMS.register_module()
+class ToTensor:
+    """A no-op, as in the JAX package: arrays stay numpy until the collate,
+    and the loader moves the collated batch to the card."""
+
+    def __call__(self, data):
+        return data
+
+
+@TRANSFORMS.register_module()
 class NormalizeColor:
     def __call__(self, data_dict):
         if "color" in data_dict:
@@ -82,6 +100,177 @@ class CenterShift:
 
 
 @TRANSFORMS.register_module()
+class RandomDropout:
+    def __init__(self, dropout_ratio=0.2, dropout_application_ratio=0.5):
+        self.dropout_ratio = dropout_ratio
+        self.dropout_application_ratio = dropout_application_ratio
+
+    def __call__(self, data_dict):
+        if "sampled_index" in data_dict:
+            raise NotImplementedError("RandomDropout: sampled_index (ScanNet la/lr) is not ported")
+        if random.random() < self.dropout_application_ratio:
+            n = len(data_dict["coord"])
+            idx = np.random.choice(n, int(n * (1 - self.dropout_ratio)), replace=False)
+            data_dict = index_operator(data_dict, idx)
+        return data_dict
+
+
+def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
+    c, s = np.cos(angle), np.sin(angle)
+    if axis == "x":
+        return np.array([[1, 0, 0], [0, c, -s], [0, s, c]])
+    if axis == "y":
+        return np.array([[c, 0, s], [0, 1, 0], [-s, 0, c]])
+    if axis == "z":
+        return np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]])
+    raise NotImplementedError(axis)
+
+
+@TRANSFORMS.register_module()
+class RandomRotate:
+    def __init__(self, angle=None, center=None, axis="z", always_apply=False, p=0.5):
+        self.angle = [-1, 1] if angle is None else angle
+        self.axis = axis
+        self.center = center
+        self.p = 1 if always_apply else p
+
+    def __call__(self, data_dict):
+        if random.random() > self.p:
+            return data_dict
+        angle = np.random.uniform(self.angle[0], self.angle[1]) * np.pi
+        rot_t = _rotation_matrix(self.axis, angle)
+        if "coord" in data_dict:
+            if self.center is None:
+                center = (data_dict["coord"].min(axis=0) + data_dict["coord"].max(axis=0)) / 2
+            else:
+                center = np.asarray(self.center)
+            data_dict["coord"] = (data_dict["coord"] - center) @ rot_t.T + center
+        if "normal" in data_dict:
+            data_dict["normal"] = data_dict["normal"] @ rot_t.T
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomScale:
+    def __init__(self, scale=None, anisotropic=False):
+        self.scale = scale if scale is not None else [0.95, 1.05]
+        self.anisotropic = anisotropic
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            scale = np.random.uniform(self.scale[0], self.scale[1], 3 if self.anisotropic else 1)
+            data_dict["coord"] = data_dict["coord"] * scale
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomFlip:
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, data_dict):
+        for dim in (0, 1):
+            if np.random.rand() < self.p:
+                if "coord" in data_dict:
+                    data_dict["coord"][:, dim] = -data_dict["coord"][:, dim]
+                if "normal" in data_dict:
+                    data_dict["normal"][:, dim] = -data_dict["normal"][:, dim]
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomJitter:
+    def __init__(self, sigma=0.01, clip=0.05):
+        assert clip > 0
+        self.sigma = sigma
+        self.clip = clip
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            jitter = np.clip(self.sigma * np.random.randn(data_dict["coord"].shape[0], 3), -self.clip, self.clip)
+            data_dict["coord"] = data_dict["coord"] + jitter
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticAutoContrast:
+    def __init__(self, p=0.2, blend_factor=None):
+        self.p = p
+        self.blend_factor = blend_factor
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            color = data_dict["color"]
+            lo = np.min(color, 0, keepdims=True)
+            hi = np.max(color, 0, keepdims=True)
+            diff = hi - lo
+            if not np.any(diff > 0):
+                return data_dict
+            scale = np.divide(255, diff, out=np.ones_like(diff, dtype=color.dtype), where=diff > 0)
+            contrast_feat = (color[:, :3] - lo) * scale
+            blend = np.random.rand() if self.blend_factor is None else self.blend_factor
+            data_dict["color"][:, :3] = (1 - blend) * color[:, :3] + blend * contrast_feat
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticTranslation:
+    def __init__(self, p=0.95, ratio=0.05):
+        self.p = p
+        self.ratio = ratio
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            tr = (np.random.rand(1, 3) - 0.5) * 255 * 2 * self.ratio
+            data_dict["color"][:, :3] = np.clip(tr + data_dict["color"][:, :3], 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ChromaticJitter:
+    def __init__(self, p=0.95, std=0.005):
+        self.p = p
+        self.std = std
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            noise = np.random.randn(data_dict["color"].shape[0], 3) * self.std * 255
+            data_dict["color"][:, :3] = np.clip(noise + data_dict["color"][:, :3], 0, 255)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class ElasticDistortion:
+    """A smooth random displacement field on the coords: box-blurred white
+    noise on a lattice of cell `granularity` (one-cell apron), sampled
+    trilinearly at each point, times `magnitude`; applied with probability
+    0.95 for each (granularity, magnitude) pair."""
+
+    def __init__(self, distortion_params=None):
+        self.distortion_params = [[0.2, 0.4], [0.8, 1.6]] if distortion_params is None else distortion_params
+
+    @staticmethod
+    def elastic_distortion(coords, granularity, magnitude):
+        from scipy.ndimage import map_coordinates, uniform_filter
+
+        cmin = coords.min(0)
+        dims = ((coords.max(0) - cmin) // granularity).astype(int) + 3
+        lattice = np.random.randn(*dims, 3).astype(np.float32)
+        for _ in range(2):
+            lattice = uniform_filter(lattice, size=(3, 3, 3, 1), mode="constant")
+        u = ((coords - cmin) / granularity + 1.0).T.astype(np.float32)
+        disp = np.stack([map_coordinates(lattice[..., a], u, order=1) for a in range(3)], axis=1)
+        return coords + disp * magnitude
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict and self.distortion_params is not None:
+            if random.random() < 0.95:
+                for granularity, magnitude in self.distortion_params:
+                    data_dict["coord"] = self.elastic_distortion(data_dict["coord"], granularity, magnitude)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
 class GridSample:
     """Hash-based voxel sampling, train mode: one random point per voxel.
     Draws from `rng` (a numpy RandomState; the global numpy state when None)."""
@@ -95,6 +284,8 @@ class GridSample:
         self.rng = rng
 
     def __call__(self, data_dict):
+        if "sampled_index" in data_dict:
+            raise NotImplementedError("GridSample: sampled_index (ScanNet la/lr) is not ported")
         rng = self.rng if self.rng is not None else np.random
         scaled = data_dict["coord"] / self.grid_size
         grid = np.floor(scaled).astype(np.int64)
@@ -127,18 +318,21 @@ class GridSample:
 
 @TRANSFORMS.register_module()
 class SphereCrop:
-    """Keep the `point_max` points nearest to the center point (center mode)."""
+    """Keep the `point_max` points nearest to a center point: a random point
+    (random mode) or the middle row (center mode)."""
 
-    def __init__(self, point_max=80000, mode="center"):
-        if mode != "center":
-            raise NotImplementedError("SphereCrop: only center mode is ported")
+    def __init__(self, point_max=80000, sample_rate=None, mode="random"):
+        if mode not in ("random", "center"):
+            raise NotImplementedError(f"SphereCrop: mode {mode!r} is not ported")
         self.point_max = point_max
+        self.sample_rate = sample_rate
+        self.mode = mode
 
     def __call__(self, data_dict):
         n = data_dict["coord"].shape[0]
-        if n > self.point_max:
-            center = data_dict["coord"][n // 2]
-            idx_crop = np.argsort(np.sum(np.square(data_dict["coord"] - center), 1))[: self.point_max]
+        point_max = int(self.sample_rate * n) if self.sample_rate is not None else self.point_max
+        if n > point_max:
+            center = data_dict["coord"][np.random.randint(n) if self.mode == "random" else n // 2]
+            idx_crop = np.argsort(np.sum(np.square(data_dict["coord"] - center), 1))[:point_max]
             data_dict = index_operator(data_dict, idx_crop)
         return data_dict
-

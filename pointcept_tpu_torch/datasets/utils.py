@@ -1,8 +1,11 @@
 """Collation into fixed-capacity PointBatch arrays (counterparts in
-`pointcept_tpu/datasets/utils.py`). numpy only."""
+`pointcept_tpu/datasets/utils.py`): ragged concat, Mix3D scene fusion, then
+static padding. numpy only."""
 
 from __future__ import annotations
 
+import random
+from collections.abc import Mapping
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -14,49 +17,112 @@ def offset2batch_np(offset: np.ndarray) -> np.ndarray:
 
 
 def collate_fn(batch: List[dict]) -> dict:
-    """Ragged concat of the samples' arrays along the point dim; the per-sample
-    `offset` becomes cumulative."""
+    """Ragged concat along the point dim; the per-sample `offset` becomes
+    cumulative."""
+    assert isinstance(batch[0], Mapping)
     out = {}
     for key in batch[0].keys():
-        vals = [np.asarray(b[key]) for b in batch]
-        if key == "offset":
-            out[key] = np.cumsum(np.concatenate(vals))
-        else:
+        vals = [b[key] for b in batch]
+        if key == "offset" or key.endswith("_offset"):
+            acc, cum = [], 0
+            for v in vals:
+                acc.append(np.asarray(v) + cum)
+                cum += int(np.asarray(v)[-1])
+            out[key] = np.concatenate(acc)
+        elif isinstance(vals[0], np.ndarray) and vals[0].ndim >= 1:
             out[key] = np.concatenate(vals, axis=0)
+        elif isinstance(vals[0], (int, float, np.integer, np.floating)):
+            out[key] = np.asarray(vals)
+        elif isinstance(vals[0], str):
+            out[key] = vals[0]
+        else:
+            out[key] = vals
     return out
 
 
-def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = None) -> Dict[str, np.ndarray]:
+def mix3d(batch: dict) -> dict:
+    """Mix3D scene fusion: merge scene pairs by dropping every other offset
+    (reference `point_collate_fn`, `datasets/utils.py:234-239`). Instance
+    ids of the second scene of a pair are shifted past the first's."""
+    offset = batch["offset"]
+    if "instance" in batch:
+        start = 0
+        num_instance = 0
+        inst = batch["instance"]
+        for i in range(len(offset)):
+            if i % 2 == 0:
+                num_instance = max(inst[start : offset[i]].max(initial=0) + 1, 0)
+            else:
+                seg = inst[start : offset[i]]
+                batch["instance"][start : offset[i]] = np.where(seg != -1, seg + num_instance, seg)
+            start = offset[i]
+    for key in [k for k in batch if k == "offset" or k.endswith("_offset")]:
+        o = batch[key]
+        batch[key] = np.concatenate([o[1:-1:2], o[-1:]])
+    if "grid_coord" in batch and "grid_size" in batch:
+        b = offset2batch_np(batch["offset"])
+        gs = np.asarray(batch["grid_size"]).reshape(-1)[0]
+        grid = np.floor(batch["coord"] / gs).astype(np.int64)
+        mins = np.full((batch["offset"].shape[0], 3), np.iinfo(np.int64).max)
+        np.minimum.at(mins, b, grid)
+        batch["grid_coord"] = grid - mins[b]
+    return batch
+
+
+def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = None,
+                       drop_overflow: bool = True) -> Dict[str, np.ndarray]:
     """Pad a collated ragged batch into fixed-capacity PointBatch arrays
-    (coord/feat/grid_coord/batch/segment; padding has batch -1, label -1).
-    Raises when the batch holds more points than `capacity`."""
+    (coord/feat/grid_coord/batch/segment, and instance where present;
+    padding has batch -1, label -1). A batch of more points than `capacity`
+    is subsampled uniformly at random (`np.random.choice`, as the JAX
+    package's training collate), or raises without `drop_overflow`."""
     offset = np.asarray(batch["offset"])
     n_total = int(offset[-1])
-    if n_total > capacity:
-        raise ValueError(f"batch has {n_total} points > capacity {capacity}")
+    b_ids = offset2batch_np(offset).astype(np.int32)
     if num_scenes is None:
         num_scenes = len(offset)
+    keep = None
+    if n_total > capacity:
+        if not drop_overflow:
+            raise ValueError(f"batch has {n_total} points > capacity {capacity}")
+        keep = np.sort(np.random.choice(n_total, capacity, replace=False))
+
+    def _sel(a):
+        return a if keep is None else a[keep]
+
     n = capacity
+    eff = min(n_total, capacity)
     out: Dict[str, np.ndarray] = {}
     out["coord"] = np.zeros((n, 3), np.float32)
-    out["coord"][:n_total] = np.asarray(batch["coord"], np.float32)
+    out["coord"][:eff] = _sel(np.asarray(batch["coord"], np.float32))
     if "feat" in batch:
-        feat = np.asarray(batch["feat"], np.float32)
+        feat = _sel(np.asarray(batch["feat"], np.float32))
         out["feat"] = np.zeros((n, feat.shape[1]), np.float32)
-        out["feat"][:n_total] = feat
+        out["feat"][:eff] = feat
     if "grid_coord" in batch:
         out["grid_coord"] = np.zeros((n, 3), np.int32)
-        out["grid_coord"][:n_total] = np.asarray(batch["grid_coord"], np.int64).astype(np.int32)
+        out["grid_coord"][:eff] = _sel(np.asarray(batch["grid_coord"], np.int64)).astype(np.int32)
     out["batch"] = np.full((n,), -1, np.int32)
-    out["batch"][:n_total] = offset2batch_np(offset).astype(np.int32)
-    if "segment" in batch:
-        out["segment"] = np.full((n,), -1, np.int32)
-        out["segment"][:n_total] = np.asarray(batch["segment"]).reshape(-1).astype(np.int32)
+    out["batch"][:eff] = _sel(b_ids)
+    for key in ("segment", "instance"):
+        if key in batch:
+            out[key] = np.full((n,), -1, np.int32)
+            out[key][:eff] = _sel(np.asarray(batch[key]).reshape(-1).astype(np.int32))
     out["num_scenes"] = num_scenes
     return out
 
 
-def point_collate_fn(batch: List[dict], capacity: int):
-    """Ragged concat, then static padding to `capacity` rows (Mix3D, a
-    training option, is not ported)."""
-    return pad_to_point_batch(collate_fn(batch), capacity, num_scenes=len(batch))
+def point_collate_fn(batch: List[dict], capacity: int, mix_prob: float = 0.0, drop_overflow: bool = True):
+    """The collate of the trainer's loaders: ragged concat, Mix3D with
+    probability `mix_prob` (drawn with python's `random.random()`, as the
+    JAX package), then static padding to `capacity` rows. A batch of more
+    points than `capacity` is subsampled at random, or raises without
+    `drop_overflow` (the eval's loaders: a metric of a subsampled scene is
+    not the scene's). Multi-view (SSL) batches are not ported."""
+    num_scenes = len(batch)
+    merged = collate_fn(batch)
+    if any(k.endswith("_offset") and k != "offset" for k in merged):
+        raise NotImplementedError("point_collate_fn: multi-view batches are not ported")
+    if mix_prob > 0 and random.random() < mix_prob:
+        merged = mix3d(merged)
+    return pad_to_point_batch(merged, capacity, num_scenes=num_scenes, drop_overflow=drop_overflow)

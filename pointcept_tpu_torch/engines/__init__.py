@@ -1,3 +1,5 @@
-from .train import build_train_step, make_point_batch
+from .defaults import default_argument_parser, default_config_parser, default_setup
+from .train import TRAINERS, Trainer, TrainerBase, build_train_step, main_worker, make_point_batch
 
-__all__ = ["build_train_step", "make_point_batch"]
+__all__ = ["TRAINERS", "Trainer", "TrainerBase", "build_train_step", "default_argument_parser",
+           "default_config_parser", "default_setup", "main_worker", "make_point_batch"]

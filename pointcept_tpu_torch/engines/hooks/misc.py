@@ -1,0 +1,198 @@
+"""Core hooks: timing, logging, checkpoints (counterparts of
+`pointcept_tpu/engines/hooks/misc.py`; parity targets: reference
+`pointcept/engines/hooks/misc.py` IterationTimer `:34`, InformationWriter
+`:81`, CheckpointSaver `:169`, CheckpointLoader `:230`).
+
+Checkpoints are the reference Pointcept format, not the JAX package's Orbax
+directories: ``save_path/model/model_last.pth`` is a `torch.save` of
+``epoch``, ``state_dict`` (the reference parameter names), ``optimizer``,
+``scheduler`` and ``best_metric_value``; ``model_best.pth`` is its copy at the
+best metric, ``epoch_{n}.pth`` its copy every `save_freq` epochs.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import time
+from collections import OrderedDict
+
+import torch
+
+from ...utils import comm
+from ...utils.timer import Timer
+from .builder import HOOKS
+from .default import HookBase
+
+
+@HOOKS.register_module()
+class IterationTimer(HookBase):
+    """``data_time`` (the wait for the loader) before each step and
+    ``batch_time`` (the loader's wait and the step) after it, into the
+    trainer's storage. The step reads its loss on the host, so batch_time
+    includes the card's work."""
+
+    def __init__(self, warmup_iter=2):
+        self._warmup_iter = warmup_iter
+        self._start_time = time.perf_counter()
+        self._iter_timer = Timer()
+        self._remain_iter = 0
+
+    def before_train(self):
+        self._start_time = time.perf_counter()
+        self._remain_iter = (self.trainer.max_epoch - self.trainer.start_epoch) * len(self.trainer.train_loader)
+
+    def before_epoch(self):
+        self._iter_timer.reset()
+
+    def before_step(self):
+        self.trainer.storage.put_scalar("data_time", self._iter_timer.seconds())
+
+    def after_step(self):
+        batch_time = self._iter_timer.seconds()
+        self._iter_timer.reset()
+        storage = self.trainer.storage
+        storage.put_scalar("batch_time", batch_time)
+        self._remain_iter -= 1
+        remain_time = self._remain_iter * storage.history("batch_time").avg(50)
+        t_m, t_s = divmod(remain_time, 60)
+        t_h, t_m = divmod(t_m, 60)
+        if "iter_info" in self.trainer.comm_info:
+            self.trainer.comm_info["iter_info"] += (
+                "Data {:.3f} ({:.3f}) Batch {:.3f} ({:.3f}) Remain {:02d}:{:02d}:{:02d} ".format(
+                    storage.history("data_time").latest(), storage.history("data_time").avg(50),
+                    storage.history("batch_time").latest(), storage.history("batch_time").avg(50),
+                    int(t_h), int(t_m), int(t_s)))
+
+
+@HOOKS.register_module()
+class InformationWriter(HookBase):
+    """The per-step log line, and every scalar of the step (loss, lr, the
+    overflow counters, data_time, batch_time) as one JSON line of
+    ``save_path/metrics.jsonl``, floats at full precision. It takes the
+    place of the JAX package's TensorBoard writer; wandb is not ported."""
+
+    def __init__(self):
+        self.curr_iter = 0
+        self._file = None
+
+    def before_train(self):
+        self.curr_iter = self.trainer.start_epoch * len(self.trainer.train_loader)
+        if comm.is_main_process():
+            self._file = open(os.path.join(self.trainer.cfg.save_path, "metrics.jsonl"), "a")
+
+    def before_step(self):
+        self.curr_iter += 1
+        self.trainer.comm_info["iter_info"] = "Train: [{}/{}][{}/{}] ".format(
+            self.trainer.epoch + 1, self.trainer.max_epoch, self.trainer.comm_info["iter"] + 1,
+            len(self.trainer.train_loader))
+
+    def after_step(self):
+        metrics = self.trainer.comm_info.get("metrics", {})
+        info = "".join("{} {:.4f} ".format(k.capitalize(), float(v)) for k, v in metrics.items())
+        lr = self.trainer.comm_info.get("lr", 0.0)
+        self.trainer.comm_info["iter_info"] += info + "Lr: {:.5f}".format(lr)
+        self.trainer.logger.info(self.trainer.comm_info["iter_info"])
+        self.trainer.comm_info["iter_info"] = ""
+        storage = self.trainer.storage
+        if self._file is not None:
+            row = {k: v for k, (v, itr) in storage.latest().items() if itr == storage.iter}
+            row.update(iter=self.curr_iter, epoch=self.trainer.epoch + 1)
+            self._file.write(json.dumps(row, sort_keys=True) + "\n")
+            self._file.flush()
+        storage.step()
+
+    def after_train(self):
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+
+
+def _atomic_save(obj, path: str) -> None:
+    tmp = path + ".tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+@HOOKS.register_module()
+class CheckpointSaver(HookBase):
+    """After each epoch (after the evaluator): `model_last.pth`, its copy as
+    `model_best.pth` when the metric improved, and as `epoch_{n}.pth` every
+    `save_freq` epochs."""
+
+    def __init__(self, save_freq=None):
+        self.save_freq = save_freq
+
+    def after_epoch(self):
+        if not comm.is_main_process():
+            return
+        trainer = self.trainer
+        is_best = False
+        value = trainer.comm_info.get("current_metric_value", 0)
+        name = trainer.comm_info.get("current_metric_name", "n/a")
+        if value > trainer.best_metric_value:
+            trainer.best_metric_value = value
+            is_best = True
+            trainer.logger.info(f"Best validation {name} updated to: {value:.4f}")
+        trainer.logger.info(f"Currently Best {name}: {trainer.best_metric_value:.4f}")
+        model_dir = os.path.join(trainer.cfg.save_path, "model")
+        os.makedirs(model_dir, exist_ok=True)
+        last = os.path.join(model_dir, "model_last.pth")
+        trainer.logger.info(f"Saving checkpoint to: {last}")
+        _atomic_save(dict(epoch=trainer.epoch + 1, state_dict=trainer.model.state_dict(),
+                          optimizer=trainer.optimizer.state_dict(), scheduler=trainer.scheduler.state_dict(),
+                          best_metric_value=trainer.best_metric_value), last)
+        if is_best:
+            shutil.copyfile(last, os.path.join(model_dir, "model_best.pth"))
+        if self.save_freq and (trainer.epoch + 1) % self.save_freq == 0:
+            shutil.copyfile(last, os.path.join(model_dir, f"epoch_{trainer.epoch + 1}.pth"))
+
+
+def remap_state_dict(state_dict, keywords: str = "", replacement=None) -> "OrderedDict":
+    """A checkpoint's state dict under the model's names, as the reference
+    loader maps them: a ``module.`` prefix (a DDP checkpoint) is stripped and
+    `keywords` in a name becomes `replacement`."""
+    replacement = keywords if replacement is None else replacement
+    out = OrderedDict()
+    for key, value in state_dict.items():
+        if not key.startswith("module."):
+            key = "module." + key
+        if keywords in key:
+            key = key.replace(keywords, replacement)
+        out[key[len("module."):]] = value
+    return out
+
+
+@HOOKS.register_module()
+class CheckpointLoader(HookBase):
+    """Before training, from ``cfg.weight``: the weights (a checkpoint's
+    ``state_dict``, or a bare state dict) through `remap_state_dict`, loaded
+    with `strict`; with ``cfg.resume`` also the optimizer, the scheduler, the
+    start epoch and the best metric."""
+
+    def __init__(self, keywords="", replacement=None, strict=False):
+        self.keywords = keywords
+        self.replacement = replacement if replacement is not None else keywords
+        self.strict = strict
+
+    def before_train(self):
+        trainer, cfg = self.trainer, self.trainer.cfg
+        trainer.logger.info("=> Loading checkpoint & weight ...")
+        if not (cfg.get("weight") and os.path.isfile(cfg.weight)):
+            trainer.logger.info(f"No weight found at: {cfg.get('weight')}")
+            return
+        trainer.logger.info(f"Loading weight at: {cfg.weight}")
+        # the trainer's own checkpoints: tensors, numbers and the optimizer's
+        # and scheduler's state dicts
+        checkpoint = torch.load(cfg.weight, map_location=trainer.device, weights_only=False)
+        state = checkpoint.get("state_dict", checkpoint)
+        info = trainer.model.load_state_dict(remap_state_dict(state, self.keywords, self.replacement),
+                                             strict=self.strict)
+        trainer.logger.info(f"Missing keys: {info.missing_keys}")
+        if cfg.get("resume"):
+            trainer.start_epoch = int(checkpoint["epoch"])
+            trainer.best_metric_value = float(checkpoint["best_metric_value"])
+            trainer.optimizer.load_state_dict(checkpoint["optimizer"])
+            trainer.scheduler.load_state_dict(checkpoint["scheduler"])
+            trainer.logger.info(f"Resuming train at eval epoch: {trainer.start_epoch}")

@@ -1,30 +1,53 @@
-"""Batch assembly and the train step (counterparts of `make_point_batch` and
-`build_train_step` in `pointcept_tpu/engines/train.py`). The hook-driven
-trainer, checkpoints, logging and evaluation are not ported yet."""
+"""Batch assembly, the train step and the hook-driven trainer (counterparts of
+`make_point_batch`, `build_train_step`, `TrainerBase` and `Trainer` in
+`pointcept_tpu/engines/train.py`; parity target: reference
+`pointcept/engines/train.py:38-357`).
+
+The trainer runs in one process on one device: no mesh, no DDP. Its
+structure is the JAX trainer's (hooks, `comm_info`, `EventStorage`, the
+epoch loop compressed by `eval_epoch`), so the hooks port one to one. The
+JAX trainer's host geometry (`host_geometry`, `geometry_plan`) is not
+ported: the port builds the geometry on the device and ignores the key.
+"""
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional
+import math
+import os
+from functools import partial
+from typing import Any, Callable, Dict, Optional
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..datasets import DataLoader, build_dataset, point_collate_fn
+from ..models import apply_amp_policy, build_model
 from ..models.utils.structure import PointBatch
+from ..utils.config import Config
 from ..utils.device import resolve_device
+from ..utils.events import EventStorage, ExceptionWriter
+from ..utils.logger import get_root_logger
+from ..utils.optimizer import build_optimizer
+from ..utils.registry import Registry
+from ..utils.scheduler import build_scheduler
+from .hooks import build_hooks
+
+TRAINERS = Registry("trainers")
 
 
 def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None) -> PointBatch:
     """Collated arrays (numpy or tensors) -> PointBatch on `device` (the GPU
     unless the caller names another; raises when no GPU is present and none
-    is named)."""
+    is named). Copies from pinned host tensors do not wait for the card."""
     device = resolve_device(device)
 
     def put(key, dtype):
         a = arrays.get(key)
         if a is None:
             return None
-        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device, dtype)
+        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device, dtype,
+                                                                                  non_blocking=True)
 
     return PointBatch(
         coord=put("coord", torch.float32),
@@ -36,8 +59,8 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
     )
 
 
-def _total(values) -> torch.Tensor:
-    return torch.stack(list(values)).sum() if values else torch.zeros((), dtype=torch.int32)
+def _total(values, device) -> torch.Tensor:
+    return torch.stack(list(values)).sum() if values else torch.zeros((), dtype=torch.int32, device=device)
 
 
 def build_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
@@ -62,7 +85,224 @@ def build_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, schedul
         optimizer.step()
         scheduler.step()
         diag = res["diagnostics"]
-        return {"loss": res["loss"].detach(), "pool_overflow": _total(diag["pool_overflow"]),
-                "block_overflow": _total(diag["block_overflow"])}
+        return {"loss": res["loss"].detach(), "pool_overflow": _total(diag["pool_overflow"], pb.device),
+                "block_overflow": _total(diag["block_overflow"], pb.device)}
 
     return step
+
+
+def step_seed(shared_seed: int, global_step: int) -> int:
+    """The seed of the generator of one train step: the run's shared seed
+    and the global step (as the JAX trainer folds the step into its key),
+    so a resumed run draws the same order shuffles and drop-path masks
+    without any saved generator state."""
+    return (int(shared_seed) * 1_000_003 + int(global_step)) % (2**63)
+
+
+class TrainerBase:
+    def __init__(self):
+        self.hooks = []
+        self.epoch = 0
+        self.start_epoch = 0
+        self.max_epoch = 0
+        self.comm_info: Dict[str, Any] = dict()
+        self.storage: Optional[EventStorage] = None
+
+    def register_hooks(self, hooks_cfg) -> None:
+        hooks = build_hooks(hooks_cfg) if hooks_cfg else []
+        for h in hooks:
+            h.trainer = self
+        self.hooks = hooks
+
+    def _call_hooks(self, name):
+        for h in self.hooks:
+            getattr(h, name)()
+
+    def before_train(self):
+        self._call_hooks("before_train")
+
+    def before_epoch(self):
+        self._call_hooks("before_epoch")
+
+    def before_step(self):
+        self._call_hooks("before_step")
+
+    def run_step(self):
+        raise NotImplementedError
+
+    def after_step(self):
+        self._call_hooks("after_step")
+
+    def after_epoch(self):
+        self._call_hooks("after_epoch")
+        self.storage.reset_histories()
+
+    def after_train(self):
+        if self.comm_info.get("terminate", False):
+            return
+        self._call_hooks("after_train")
+
+    def train(self):
+        with EventStorage() as self.storage, ExceptionWriter():
+            self.before_train()
+            self.logger.info(">>>>>>>>>>>>>>>> Start Training >>>>>>>>>>>>>>>>")
+            for self.epoch in range(self.start_epoch, self.max_epoch):
+                self.before_epoch()
+                self.train_loader.set_epoch(self.epoch)
+                for i, input_dict in enumerate(self.iter_loader()):
+                    self.comm_info["iter"] = i
+                    self.comm_info["input_dict"] = input_dict
+                    self.before_step()
+                    self.run_step()
+                    self.after_step()
+                self.after_epoch()
+            self.after_train()
+
+    def iter_loader(self):
+        return iter(self.train_loader)
+
+
+@TRAINERS.register_module("DefaultTrainer")
+class Trainer(TrainerBase):
+    """The config-driven trainer on one device (the GPU unless `device`
+    names another; raises when no GPU is present and none is named)."""
+
+    def __init__(self, cfg: Config, device=None):
+        super().__init__()
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        for key, off in (("enable_wandb", False), ("grad_accum_steps", 1)):
+            if cfg.get(key, off) not in (off, None):
+                raise NotImplementedError(f"Trainer: {key}={cfg.get(key)!r} is not ported")
+        self.max_epoch = cfg.eval_epoch
+        self.best_metric_value = -float("inf")
+        self.logger = get_root_logger(log_file=os.path.join(cfg.save_path, "train.log"),
+                                      file_mode="a" if cfg.get("resume") else "w")
+        self.logger.info(f"Save path: {cfg.save_path}")
+        self.logger.info("=> Building model ...")
+        self.model = self.build_model()
+        self.logger.info(f"Num params: {sum(p.numel() for p in self.model.parameters())}")
+        self.logger.info("=> Building train dataset & dataloader ...")
+        self.train_loader = self.build_train_loader()
+        self.logger.info("=> Building val dataset & dataloader ...")
+        self.val_loader = self.build_val_loader()
+        self.logger.info("=> Building optimizer, scheduler ...")
+        self.optimizer = build_optimizer(dict(cfg.optimizer), self.model, cfg.get("param_dicts"))
+        self.scheduler = self.build_scheduler()
+        self.train_step = build_train_step(self.model, self.optimizer, self.scheduler, cfg.get("clip_grad"))
+        self.generator = torch.Generator(device=self.device)
+        self.logger.info("=> Building hooks ...")
+        self.register_hooks(cfg.hooks)
+
+    # ------------------------------------------------------------------ builders
+    def build_model(self):
+        """The model on the device, its weights drawn from the shared seed."""
+        cfg = apply_amp_policy(dict(self.cfg.model), self.cfg.get("enable_amp", False))
+        seed = int(self.cfg.get("shared_seed", self.cfg.seed))
+        return build_model(cfg, device=self.device, generator=torch.Generator().manual_seed(seed))
+
+    def _loader(self, data_cfg, capacity: int, batch_size: int, train: bool) -> DataLoader:
+        return DataLoader(
+            build_dataset(dict(data_cfg)), batch_size=batch_size, shuffle=train,
+            num_workers=self.cfg.get("num_worker", 0),
+            collate_fn=partial(point_collate_fn, capacity=capacity,
+                               mix_prob=self.cfg.get("mix_prob", 0.0) if train else 0.0, drop_overflow=train),
+            drop_last=train, seed=int(self.cfg.get("shared_seed", self.cfg.seed)),
+            pin_memory=self.device.type == "cuda")
+
+    @property
+    def capacity(self) -> int:
+        return int(self.cfg.get("point_capacity", 131072))
+
+    def build_train_loader(self):
+        return self._loader(self.cfg.data.train, self.capacity, self.cfg.batch_size, train=True)
+
+    def build_val_loader(self):
+        if not self.cfg.get("evaluate", True) or "val" not in self.cfg.data:
+            return None
+        capacity = int(self.cfg.get("point_capacity_val") or self.capacity)
+        return self._loader(self.cfg.data.val, capacity, self.cfg.get("batch_size_val") or 1, train=False)
+
+    def build_scheduler(self):
+        total_steps = len(self.train_loader) * self.max_epoch
+        self.logger.info(f"Scheduler total steps: {total_steps}")
+        cfg = dict(self.cfg.scheduler)
+        if "max_lr" not in cfg and cfg.get("type") == "OneCycleLR":
+            cfg["max_lr"] = self.cfg.optimizer.lr
+        if cfg.get("type") != "OneCycleLR":
+            cfg["base_lr"] = self.cfg.optimizer.lr
+        return build_scheduler(cfg, self.optimizer, total_steps)
+
+    # ---------------------------------------------------------------- train step
+    def run_step(self):
+        """One step of the batch in ``comm_info["input_dict"]``. The loss and
+        the two overflow counters come to the host in one read; an overflow
+        is logged as a warning, as the JAX trainer does."""
+        batch = self.comm_info["input_dict"]
+        pb = make_point_batch(batch, batch["num_scenes"], device=self.device)
+        global_step = self.epoch * len(self.train_loader) + self.comm_info["iter"]
+        self.generator.manual_seed(step_seed(self.cfg.get("shared_seed", self.cfg.seed), global_step))
+        lr = self.optimizer.param_groups[0]["lr"]
+        res = self.train_step(pb, self.generator)
+        loss, pool, block = torch.stack([res["loss"].float(), res["pool_overflow"].float(),
+                                         res["block_overflow"].float()]).tolist()
+        if self.cfg.get("empty_cache") and self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        self.comm_info["metrics"] = {"loss": loss}
+        self.comm_info["lr"] = lr
+        self.storage.put_scalar("loss", loss)
+        self.storage.put_scalar("lr", lr, smoothing_hint=False)
+        for name, value in (("pool_overflow", pool), ("block_overflow", block)):
+            self.storage.put_scalar(name, value, smoothing_hint=False)
+            if value > 0:
+                self.logger.warning(f"{name}={int(value)} points dropped by static capacity this step "
+                                    "— increase pool_capacity_factors/block_capacity_factor")
+        if not math.isfinite(loss):
+            self.logger.warning(f"non-finite loss {loss} at step {global_step}")
+
+    # ---------------------------------------------------------------- eval step
+    @torch.no_grad()
+    def eval_step(self, batch) -> dict:
+        """The eval forward of one val batch: per-class intersection, union
+        and target over the valid points (label not ignored), the loss and
+        the overflow counters, read to the host at once."""
+        num_classes = self.cfg.data.num_classes
+        ignore_index = self.cfg.data.get("ignore_index", -1)
+        pb = make_point_batch(batch, batch["num_scenes"], device=self.device)
+        self.model.eval()
+        res = self.model(pb)
+        pred = res["seg_logits"].argmax(dim=-1)
+        seg = pb.segment.long()
+        valid = (seg != ignore_index) & pb.mask
+        pred = torch.where(valid, pred, num_classes)
+        seg = torch.where(valid, seg, num_classes)
+        inter = torch.bincount(torch.where(pred == seg, pred, num_classes), minlength=num_classes + 1)
+        target = torch.bincount(seg, minlength=num_classes + 1)
+        output = torch.bincount(pred, minlength=num_classes + 1)
+        union = output + target - inter
+        loss = res.get("loss", torch.zeros((), device=self.device))
+        diag = res["diagnostics"]
+        host = torch.cat([inter[:num_classes].double(), union[:num_classes].double(),
+                          target[:num_classes].double(), loss.double().view(1),
+                          _total(diag["pool_overflow"], self.device).double().view(1),
+                          _total(diag["block_overflow"], self.device).double().view(1)]).cpu().numpy()
+        c = num_classes
+        out = dict(intersection=host[:c], union=host[c : 2 * c], target=host[2 * c : 3 * c],
+                   loss=float(host[3 * c]), pool_overflow=int(host[3 * c + 1]),
+                   block_overflow=int(host[3 * c + 2]))
+        for name in ("pool_overflow", "block_overflow"):
+            if out[name] > 0:
+                self.logger.warning(f"{name}={out[name]} points dropped by static capacity in eval")
+        return out
+
+
+def main_worker(cfg, device=None):
+    """What `tools/torch_port_train.py` runs on a parsed config: the
+    per-process setup, the trainer the config names, training. Returns the
+    trainer."""
+    from .defaults import default_setup
+
+    cfg = default_setup(cfg)
+    trainer = TRAINERS.build(dict(type=cfg.train.type, cfg=cfg, device=device))
+    trainer.train()
+    return trainer

@@ -1,6 +1,6 @@
-from .builder import MODELS, build_model
+from .builder import MODELS, apply_amp_policy, build_model
 from . import default  # noqa: F401  (registers DefaultSegmentor, DefaultSegmentorV2)
 from .point_transformer_v3 import PointTransformerV3  # noqa: F401  (registers PT-v3m1)
 from .sparse_unet import SpUNetBase  # noqa: F401  (registers SpUNet-v1m1/m2, MinkUNet*)
 
-__all__ = ["MODELS", "build_model", "PointTransformerV3", "SpUNetBase"]
+__all__ = ["MODELS", "apply_amp_policy", "build_model", "PointTransformerV3", "SpUNetBase"]

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import inspect
 from typing import Optional
 
 import torch
@@ -22,3 +23,18 @@ def build_model(cfg: dict, device=None, generator: Optional[torch.Generator] = N
     model = MODELS.build(cfg)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
     return model.to(device).eval()
+
+
+def apply_amp_policy(model_cfg: dict, enable_amp: bool) -> dict:
+    """Fold the config's `enable_amp` into a backbone that has a bf16
+    activation stream: a (shallow) copy of `model_cfg` with ``amp=True`` in
+    the backbone when its registered class takes `amp` and the config does
+    not set it (counterpart of `pointcept_tpu/models/builder.py:14`)."""
+    model_cfg = dict(model_cfg)
+    bb = model_cfg.get("backbone")
+    if not enable_amp or not isinstance(bb, dict) or "type" not in bb:
+        return model_cfg
+    cls = MODELS.get(bb["type"])
+    if cls is not None and "amp" in inspect.signature(cls.__init__).parameters and "amp" not in bb:
+        model_cfg["backbone"] = dict(bb, amp=True)
+    return model_cfg

@@ -13,6 +13,7 @@ from __future__ import annotations
 from ctypes import c_float, c_int, c_void_p
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 
@@ -64,21 +65,41 @@ def _check(qkv_p: torch.Tensor, num_heads: int, what: str) -> int:
     if qkv_p.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{what}: the raw kernel records no gradient; use PatchAttention")
     c = qkv_p.shape[2] // 3
-    if c % num_heads != 0 or (c // num_heads) not in (16, 32):
-        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 16 or 32")
+    if c % num_heads != 0 or (c // num_heads) not in (8, 16, 32):
+        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 8, 16 or 32")
     if qkv_p.shape[1] % 16 != 0:
         raise ValueError(f"{what}: patch size {qkv_p.shape[1]} must be a multiple of 16")
     return c // num_heads
 
 
+_PAD_D = 16  # head dim 8 runs the D = 16 kernels on zero-padded heads
+
+
+def _pad_heads(x: torch.Tensor, num_heads: int, parts: int) -> torch.Tensor:
+    """[nP, K, parts * H * 8] -> [nP, K, parts * H * 16], each head's 8
+    columns followed by 8 zeros."""
+    np_, k, _ = x.shape
+    x = x.reshape(np_, k, parts, num_heads, x.shape[2] // (parts * num_heads))
+    return F.pad(x, (0, _PAD_D - x.shape[-1])).reshape(np_, k, parts * num_heads * _PAD_D)
+
+
+def _unpad_heads(x: torch.Tensor, num_heads: int, parts: int, d: int) -> torch.Tensor:
+    np_, k, _ = x.shape
+    return x.reshape(np_, k, parts, num_heads, _PAD_D)[..., :d].reshape(np_, k, parts * num_heads * d)
+
+
 def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats: bool = False):
     """qkv_p [nP, K, 3C] slot-gathered rows (q | k | v, head-major within
     each) -> [nP, K, C]; with `stats` also the row statistics m, l that
-    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 16 or
-    32, K a multiple of 16."""
+    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 8, 16
+    or 32, K a multiple of 16."""
     if qkv_p.device.type == "cpu":
         return patch_attention_fwd_plain(qkv_p, num_heads, scale, stats=stats)
     d = _check(qkv_p, num_heads, "patch_attention_fwd")
+    if d == 8:
+        res = patch_attention_fwd(_pad_heads(qkv_p, num_heads, 3), num_heads, scale, stats=stats)
+        out = _unpad_heads(res[0] if stats else res, num_heads, 1, d)
+        return (out,) + tuple(res[1:]) if stats else out
     np_, k, c3 = qkv_p.shape
     c = c3 // 3
     if fwd_shared_memory(k, d) > SMEM_LIMIT:
@@ -185,6 +206,10 @@ def patch_attention_bwd(qkv_p: torch.Tensor, out: torch.Tensor, dout: torch.Tens
                              f"{qkv_p.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16 != 0:
             raise ValueError(f"patch_attention_bwd: {name} must be contiguous and 16-byte aligned")
+    if d == 8:
+        dqkv = patch_attention_bwd(_pad_heads(qkv_p, num_heads, 3), _pad_heads(out, num_heads, 1),
+                                   _pad_heads(dout, num_heads, 1), m, l, num_heads, scale)
+        return _unpad_heads(dqkv, num_heads, 3, d)
     split, warps, key_tiles, smem = bwd_plan(k, d)
     if smem > SMEM_LIMIT or split > _BWD_MAX_CLUSTER:
         raise ValueError(f"patch_attention_bwd: patch size {k} exceeds shared memory at D={d}")

@@ -29,6 +29,9 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.ops.kernels.tap_conv, pointcept_tpu_torch.ops.sparse_conv\n"
         "import pointcept_tpu_torch.models.utils.convert, pointcept_tpu_torch.models.losses\n"
         "import pointcept_tpu_torch.utils.optimizer, pointcept_tpu_torch.utils.scheduler\n"
+        "import pointcept_tpu_torch.utils.config, pointcept_tpu_torch.utils.events\n"
+        "import pointcept_tpu_torch.engines.hooks, pointcept_tpu_torch.engines.train\n"
+        "import pointcept_tpu_torch.datasets.loader, pointcept_tpu_torch.datasets.scannet\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -213,6 +213,31 @@ def test_attention_backward_plans_every_old_patch_size(d):
         assert (s - 1) * w * 16 * t < k <= s * w * 16 * t, (k, s, w, t)
 
 
+def test_head_dim_8_padding_is_exact():
+    """Head dim 8 runs the D = 16 kernels on zero-padded heads: the plain
+    versions on the padded operands, sliced back, give the D = 8 results
+    (forward output and statistics, and the backward's gradients) within
+    f32 summation order, at the same scale 8^-0.5."""
+    from pointcept_tpu_torch.ops.kernels.patch_attention import _pad_heads, _unpad_heads
+
+    g = torch.Generator().manual_seed(8)
+    np_, k, h = 3, 48, 2
+    qkv = torch.randn((np_, k, 3 * 8 * h), generator=g).to(torch.bfloat16)
+    dout = torch.randn((np_, k, 8 * h), generator=g).to(torch.bfloat16)
+    scale = 8**-0.5
+    out, m, l = kernels.patch_attention_fwd_plain(qkv, h, scale, stats=True)
+    pout, pm, pl = kernels.patch_attention_fwd_plain(_pad_heads(qkv, h, 3), h, scale, stats=True)
+    assert pout.shape == (np_, k, 16 * h)
+    assert torch.equal(pout.reshape(np_, k, h, 16)[..., 8:], torch.zeros((np_, k, h, 8), dtype=pout.dtype))
+    torch.testing.assert_close(_unpad_heads(pout, h, 1, 8).float(), out.float(), atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(pm, m, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(pl, l, atol=1e-5, rtol=1e-5)
+    want = kernels.patch_attention_bwd_plain(qkv, out, dout, m, l, h, scale)
+    got = kernels.patch_attention_bwd_plain(_pad_heads(qkv, h, 3), _pad_heads(out, h, 1), _pad_heads(dout, h, 1),
+                                            m, l, h, scale)
+    torch.testing.assert_close(_unpad_heads(got, h, 3, 8).float(), want.float(), atol=2e-2, rtol=2e-2)
+
+
 # (path, stage, pairs = patches x heads) of PTv3-base's attention calls at
 # K 1024, D 16: the eval forward (one 102,400-point scene) and the train
 # step (two), encoder and decoder widths (chip_smoke.attention_shapes)
@@ -249,10 +274,13 @@ def cuda():
 # (nP, K, C, H) on the card: K 1024 at the five PTv3-base widths (head dim
 # 16), fewer (patch, head) pairs than the card's 132 SMs, one patch, a patch
 # size that is not a multiple of 64, the whole-K kernels' patch 128, head
-# dim 32 (the backward takes K <= 768 there)
+# dim 32 (the backward takes K <= 768 there), head dim 8 (the synthetic
+# configs' widths, zero-padded to 16: the tiny configs' stages 0 and 2 at
+# patch 128, and K 1024)
 ATTN_CARD_CASES = [(4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
                    (4, 1024, 512, 32), (2, 1024, 512, 32), (1, 1024, 32, 2), (3, 48, 32, 2),
-                   (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2)]
+                   (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2), (40, 128, 16, 2),
+                   (10, 128, 64, 8), (2, 1024, 16, 2)]
 
 
 @pytest.mark.gpu
@@ -268,7 +296,7 @@ def test_attention_kernel_matches_plain_on_card(cuda, np_, k, c, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES if cs[2] // cs[3] == 16 or cs[1] <= 768])
+@pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES if cs[2] // cs[3] in (8, 16) or cs[1] <= 768])
 def test_attention_backward_kernel_matches_plain_on_card(cuda, np_, k, c, h):
     """The forward with and without statistics gives the same bits, the
     backward matches its plain version and gives the same bits twice."""
