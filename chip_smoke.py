@@ -16,7 +16,9 @@ each printing JSON lines:
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
-   blocks, the two as each other's VJP (`BlockFill`, `TakeBack` backward
+   blocks; the attention forward, the fill and the take-back at the
+   tester's stage 0 (four fragments of 262,144 rows, 8^3 tiles at 1/32); the
+   two as each other's VJP (`BlockFill`, `TakeBack` backward
    passes) in the sorted and the shuffled route and SpUNet's, the fused
    block conv (`tap_conv_fwd` forward and as the input gradient,
    `tap_conv_dw`) at PTv3's stage 0 and stem and SpUNet's levels 0 and 3
@@ -59,10 +61,22 @@ each printing JSON lines:
    run's, bit for bit; then its steady state: one epoch of 16 steps (loop
    8), every step's batch and data time, and the trainer's own train step
    alone on batches of its loader, beside phase 7's bare step;
-11. the two overfit configs of `configs/synthetic/` (PTv3 with head dim 8,
+11. the tester: the config's test section unchanged (13 views, GridSample's
+   test mode, fragments of one voxel grid sharing their geometry, four a
+   forward) through `main_worker` of `tools/torch_port_test.py`, on phase
+   10's `model_best.pth` and val scene 5, at `point_capacity_test=262144`,
+   launch counters set to 0 just before and read just after; nothing
+   dropped, the preds' mass equals the fragment points' count and every
+   point has a vote from every view;
+12. the two overfit configs of `configs/synthetic/` (PTv3 with head dim 8,
    AMP, its second pooling's factor raised to 0.75; SpUNet) through the
-   trainer: train loss < 0.05, val mIoU > 0.80, no point dropped;
-12. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+   trainer: train loss < 0.05, val mIoU > 0.80, no point dropped; then the
+   PTv3 config's own test section (Copy, GridSample `return_inverse`, the
+   full-resolution mapping) through the tester on its trained weights:
+   mIoU > 0.80, allAcc > 0.90, nothing dropped, a second `test()` from the
+   cached preds gives the same result, and the same tester on the CPU
+   agrees (summed preds, argmax, mIoU);
+13. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -179,6 +193,16 @@ OVERFIT_CONFIGS = {
 # the overfit config's stage-0 attention (head dim 8): that batch in patches
 # of 128, its encoder and decoder block a step
 OVERFIT_ATTENTION = dict(capacity=32768, scenes=8, k=128, c=16, h=2, launches=2)
+# the tester's phase: the ScanNet config's test section on phase 10's
+# weights and val scene 5 (one of the two), at a capacity that holds a
+# fragment (the config's 131,072 is per chip; a fragment of the synthetic
+# scene has ~220k points); B fragments a forward, the tester's default
+TESTER_SCENE = "scene0005_00"
+TESTER_OPTIONS = {"point_capacity_test": 262144, "seed": 0}
+TESTER_B = 4
+# card-vs-CPU bounds of the overfit tester's summed preds (AMP: the slice's
+# logit bound; argmax and mIoU as the CPU tests of the tester)
+TESTER_CPU_BOUNDS = dict(rel=5e-2, agreement=0.99, miou=0.02)
 # small depth for the card-vs-CPU phases: one block a stage, the block engine
 # from 4,096 points (levels 0-2 of a 16,384-point scene)
 SPUNET_SMALL = dict(SPUNET, layers=(1,) * 8, block_engine_min_points=4096)
@@ -295,8 +319,6 @@ def kernel_cases(device, arrays):
     Returns {kernel: dict of the numbers of its main-path case}."""
     import torch
 
-    from pointcept_tpu_torch.ops.kernels import block_fill, block_fill_plain, take_back_rows, take_back_rows_plain
-
     gen = torch.Generator(device=device).manual_seed(0)
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     clock_hz = float(nvidia_smi("clocks.max.sm").split()[0]) * 1e6
@@ -309,55 +331,14 @@ def kernel_cases(device, arrays):
 
     # B. block fill at the stem (Cin=6) and the first convs (Cin=32), and
     # C. the take-back of a conv output (Cout=32): PTv3's stage-0 tables (4^3
-    # blocks) and SpUNet's level-0 tables (8^3 blocks) of the real scene
+    # blocks) and SpUNet's level-0 tables (8^3 blocks) of the real scene;
+    # D. both at the tester's stage 0 (8^3 blocks), its encoder's and
+    # decoder's widths
     levels = spunet_geometry(arrays, device)
-    for model, tables in (("PTv3", t), ("SpUNet", levels[0]["nbr"])):
-        b3 = 1 << (3 * tables["block_bits"])
-        rc, starts = tables["rc_sorted"], tables["fill_start"]
-        ok = rc >= 0
-        nvalid = int(ok.sum())
-        m = starts.shape[0]
-        for cin in (6, 32):
-            feat = (pb.feat if cin == 6 else torch.randn((pb.capacity, cin), generator=gen, device=device))
-            feat = feat.to(torch.bfloat16).contiguous()
-            got = block_fill(feat, rc, starts, b3)
-            want = block_fill_plain(feat, rc, starts, b3)
-            torch.cuda.synchronize()
-            err = check_close(f"block_fill[{model},b3={b3},Cin={cin}]", got, want, atol=0.0, rtol=0.0)
-            idx, vals = rc[ok].long(), feat[ok]
-            row = dict(
-                shape=dict(model=model, N=pb.capacity, valid=nvalid, m=m, b3=b3, Cin=cin), max_abs_err=err,
-                ms=time_ms(lambda: block_fill(feat, rc, starts, b3)),
-                plain_ms=time_ms(lambda: block_fill_plain(feat, rc, starts, b3)),
-                library_ms=time_ms(lambda: torch.zeros(((m + 1) * b3, cin), dtype=feat.dtype,
-                                                       device=device).index_put_((idx,), vals)),
-            )
-            bytes_ = nvalid * cin * 2 + pb.capacity * 4 + m * 4 + (m + 1) * b3 * cin * 2
-            row["bound_ms"] = bytes_ / PEAK_BYTES * 1e3
-            row["bound_by"] = "bytes"
-            emit("time", kernel="block_fill", library="zeros + index_put_", **_named(row))
-            if cin == 32 and model == "PTv3":
-                results["block_fill"] = row
-
-        slot = tables["slot"]
-        dense = torch.randn(((m + 1) * b3, 32), generator=gen, device=device).to(torch.bfloat16)
-        got = take_back_rows(dense, slot)
-        want = take_back_rows_plain(dense, slot)
-        torch.cuda.synchronize()
-        err = check_close(f"take_back_rows[{model},b3={b3},C=32]", got, want, atol=0.0, rtol=0.0)
-        slot_l = slot.long()
-        row = dict(
-            shape=dict(model=model, N=slot.shape[0], R=dense.shape[0], C=32), max_abs_err=err,
-            ms=time_ms(lambda: take_back_rows(dense, slot)),
-            plain_ms=time_ms(lambda: take_back_rows_plain(dense, slot)),
-            library_ms=time_ms(lambda: torch.index_select(dense, 0, slot_l)),
-        )
-        n = slot.shape[0]
-        row["bound_ms"] = (n * 32 * 2 * 2 + n * 4) / PEAK_BYTES * 1e3
-        row["bound_by"] = "bytes"
-        emit("time", kernel="take_back", library="torch.index_select", **_named(row))
-        if model == "PTv3":
-            results["take_back"] = row
+    rows = fill_take_back_cases(device, gen, "PTv3", t, (6, 32), (32,), stem=pb.feat)
+    results["block_fill"], results["take_back"] = rows[("block_fill", 32)], rows[("take_back", 32)]
+    fill_take_back_cases(device, gen, "SpUNet", levels[0]["nbr"], (6, 32), (32,), stem=pb.feat)
+    fill_take_back_cases(device, gen, "tester", tester_stage0_tables(device)[1], (32, 64), (32, 64))
 
     # E. the fill and the take-back as each other's VJP, in the sorted route
     # (the eval forward's tables), the shuffled one (tables re-sorted by z)
@@ -369,6 +350,104 @@ def kernel_cases(device, arrays):
     gather_vjp_case(device, spunet_geometry(arrays, device, backbone=dict(SPUNET, conv_engine="gather"))[1]["nbr"],
                     gen)
     return results
+
+
+def fill_take_back_cases(device, gen, model, tables, cins, couts, stem=None):
+    """`block_fill` (at each width of `cins`; 6 fills `stem`, the scene's
+    features) and `take_back_rows` (at each width of `couts`) on `tables`
+    against their plain versions, exactly, then timed beside their library
+    calls. Returns the rows by (kernel, width)."""
+    import torch
+
+    from pointcept_tpu_torch.ops.kernels import block_fill, block_fill_plain, take_back_rows, take_back_rows_plain
+
+    b3 = 1 << (3 * tables["block_bits"])
+    rc, starts, slot = tables["rc_sorted"], tables["fill_start"], tables["slot"]
+    n, m = rc.shape[0], starts.shape[0]
+    ok = rc >= 0
+    nvalid = int(ok.sum())
+    rows = {}
+    for cin in cins:
+        feat = stem if cin == 6 else torch.randn((n, cin), generator=gen, device=device)
+        feat = feat.to(torch.bfloat16).contiguous()
+        got = block_fill(feat, rc, starts, b3)
+        want = block_fill_plain(feat, rc, starts, b3)
+        torch.cuda.synchronize()
+        err = check_close(f"block_fill[{model},b3={b3},Cin={cin}]", got, want, atol=0.0, rtol=0.0)
+        del got, want
+        idx, vals = rc[ok].long(), feat[ok]
+        row = dict(
+            shape=dict(model=model, N=n, valid=nvalid, m=m, b3=b3, Cin=cin), max_abs_err=err,
+            ms=time_ms(lambda: block_fill(feat, rc, starts, b3)),
+            plain_ms=time_ms(lambda: block_fill_plain(feat, rc, starts, b3)),
+            library_ms=time_ms(lambda: torch.zeros(((m + 1) * b3, cin), dtype=feat.dtype,
+                                                   device=device).index_put_((idx,), vals)),
+        )
+        bytes_ = nvalid * cin * 2 + n * 4 + m * 4 + (m + 1) * b3 * cin * 2
+        row["bound_ms"] = bytes_ / PEAK_BYTES * 1e3
+        row["bound_by"] = "bytes"
+        emit("time", kernel="block_fill", library="zeros + index_put_", **_named(row))
+        rows[("block_fill", cin)] = row
+    for c in couts:
+        dense = torch.randn(((m + 1) * b3, c), generator=gen, device=device).to(torch.bfloat16)
+        got = take_back_rows(dense, slot)
+        want = take_back_rows_plain(dense, slot)
+        torch.cuda.synchronize()
+        err = check_close(f"take_back_rows[{model},b3={b3},C={c}]", got, want, atol=0.0, rtol=0.0)
+        del got, want
+        slot_l = slot.long()
+        row = dict(
+            shape=dict(model=model, N=n, R=dense.shape[0], C=c), max_abs_err=err,
+            ms=time_ms(lambda: take_back_rows(dense, slot)),
+            plain_ms=time_ms(lambda: take_back_rows_plain(dense, slot)),
+            library_ms=time_ms(lambda: torch.index_select(dense, 0, slot_l)),
+        )
+        row["bound_ms"] = (n * c * 2 * 2 + n * 4) / PEAK_BYTES * 1e3
+        row["bound_by"] = "bytes"
+        emit("time", kernel="take_back", library="torch.index_select", **_named(row))
+        rows[("take_back", c)] = row
+        del dense
+    return rows
+
+
+def tester_grid():
+    """The voxel grid of val scene 5 at the config's 0.02 m: every voxel of
+    the raw scene once, as each of its test fragments holds it."""
+    import numpy as np
+
+    from pointcept_tpu_torch.datasets import synthesize_scene
+
+    coord = synthesize_scene(int(TESTER_SCENE[5:9]), num_points=RAW_POINTS, num_classes=NUM_CLASSES,
+                             extent=6.0)["coord"]
+    grid = np.floor(coord / 0.02).astype(np.int64)
+    return np.unique(grid - grid.min(0), axis=0).astype(np.int32)
+
+
+def tester_stage0_tables(device):
+    """The tester's stage 0 as the ScanNet config builds it: TESTER_B copies
+    of `tester_grid` in slots of `point_capacity_test` rows, serialized at
+    the config's depth 11, pinned to z-order, 8^3 block tables at 1/32."""
+    import torch
+
+    from pointcept_tpu_torch.models.utils.structure import PointBatch
+    from pointcept_tpu_torch.ops.block_conv import build_block_tables, default_block_capacity
+
+    grid = torch.as_tensor(tester_grid(), device=device)
+    cap, n = TESTER_OPTIONS["point_capacity_test"], grid.shape[0]
+    grid_b = torch.zeros((TESTER_B * cap, 3), dtype=torch.int32, device=device)
+    batch_b = torch.full((TESTER_B * cap,), -1, dtype=torch.int32, device=device)
+    for s in range(TESTER_B):
+        grid_b[s * cap : s * cap + n] = grid
+        batch_b[s * cap : s * cap + n] = s
+    pb = PointBatch(coord=grid_b.float() * 0.02, feat=None, grid_coord=grid_b, batch=batch_b, num_scenes=TESTER_B)
+    pb = pb.serialize(("z",), 11, sort_indices=(0,), key_orders=(0,))
+    pb = pb.reorder(pb.serialized_order[0], pb.serialized_inverse[0], rebase_orders=(0,), rebase_keys=(0,))
+    t = build_block_tables(pb.serialized_keys[0], pb.serialized_order[0], pb.grid_coord, pb.mask,
+                           pb.serialized_depth, default_block_capacity(pb.capacity, 1 / 32), block_bits=3,
+                           inverse0=pb.serialized_inverse[0], identity_order0=True)
+    if int(t["overflow"]):
+        raise AssertionError(f"the tester's stage-0 tables overflow: {int(t['overflow'])}")
+    return pb, t
 
 
 def attention_shapes():
@@ -415,9 +494,12 @@ def attention_cases(device, gen, exp_rate):
     cases += [("patch 128", 2, None, c, h, 0) for c, h in ((32, 2), (256, 16))]
     o = OVERFIT_ATTENTION
     cases += [("overfit train", o["scenes"], "D=8", o["c"], o["h"], o["launches"])]
+    # the tester's stage 0 (TESTER_B fragments a forward), encoder and decoder
+    cases += [("tester", TESTER_B, stage, c, h, n) for stage, c, h, n in attention_shapes() if stage == 0]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
-        np_ = (_patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
+        np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
+               else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
                else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
         scale = d**-0.5
@@ -425,9 +507,10 @@ def attention_cases(device, gen, exp_rate):
         label = f"{path},stage={stage},C={c},K={kk_}"
         qkv = torch.randn((np_, kk_, 3 * c), generator=gen, device=device).to(torch.bfloat16)
         q, kk, v = (qkv.view(np_, kk_, 3, h, d)[:, :, i].transpose(1, 2).contiguous() for i in range(3))
-        per = "launches_per_forward" if path == "eval" else "launches_per_step"
-        kernels = ("fwd",) if path == "eval" else ("fwd", "bwd") if stage is not None else ("bwd",)
-        stats = path != "eval"
+        serving = path in ("eval", "tester")
+        per = "launches_per_forward" if serving else "launches_per_step"
+        kernels = ("fwd",) if serving else ("fwd", "bwd") if stage is not None else ("bwd",)
+        stats = not serving
         out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
         for kern in kernels:
             if kern == "fwd":
@@ -982,19 +1065,25 @@ def write_scannet_scenes(root: str) -> dict:
     return sizes
 
 
+_LOGS = {}
+
+
 def _quiet(fn, log_path: str):
-    """`fn()` with the trainer's log lines (its console handler writes to
-    stdout) sent to `log_path`, so that this script's own lines stay
-    readable; the log's tail goes to stderr if `fn` raises."""
-    with open(log_path, "a") as log:
-        try:
-            with contextlib.redirect_stdout(log):
-                return fn()
-        except BaseException:
-            log.flush()
-            with open(log_path) as f:
-                print(f.read()[-4000:], file=sys.stderr)
-            raise
+    """`fn()` with the trainer's and tester's log lines (their console
+    handler writes to stdout) sent to `log_path`, so that this script's own
+    lines stay readable; the log's tail goes to stderr if `fn` raises. The
+    file stays open: a handler made under the redirect keeps writing to it."""
+    log = _LOGS.get(log_path)
+    if log is None:
+        log = _LOGS[log_path] = open(log_path, "a")
+    try:
+        with contextlib.redirect_stdout(log):
+            return fn()
+    except BaseException:
+        log.flush()
+        with open(log_path) as f:
+            print(f.read()[-4000:], file=sys.stderr)
+        raise
 
 
 def _metrics(save_path: str) -> list:
@@ -1143,9 +1232,144 @@ def steady_state(device, card, work: str, options: dict, bare_step_ms: float):
     torch.cuda.empty_cache()
 
 
+def _test_main_worker():
+    """`main_worker` of `tools/torch_port_test.py`, the test CLI's."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_port_test", os.path.join(ROOT, "tools", "torch_port_test.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module.main_worker
+
+
+def _median(values):
+    return statistics.median(values) if values else None
+
+
+def tester_path(device, card, work: str):
+    """Phase 11: the ScanNet config's test section through the test CLI's
+    `main_worker`, on phase 10's weights and one of its val scenes."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    main_worker = _test_main_worker()
+    # one scene of the two: a data root that holds val scene 5 alone
+    test_root = os.path.join(work, "scannet_test")
+    os.makedirs(os.path.join(test_root, "val"))
+    os.symlink(os.path.join(work, "scannet", "val", TESTER_SCENE), os.path.join(test_root, "val", TESTER_SCENE))
+    models = os.path.join(work, "run", "model")
+    weight = os.path.join(models, "model_best.pth")
+    if not os.path.isfile(weight):
+        weight = os.path.join(models, "model_last.pth")
+    save = os.path.join(work, "tester")
+    options = dict(TESTER_OPTIONS, save_path=save, weight=weight, **{"data.test.data_root": test_root})
+    cfg = default_config_parser(os.path.join(ROOT, SCANNET_CONFIG), options)
+    emit("tester_setup", config=SCANNET_CONFIG, options=dict(options, weight=os.path.relpath(weight, work)),
+         views=len(cfg.data.test.test_cfg.aug_transform), fragment_batch=cfg.get("tester_fragment_batch", TESTER_B))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tester, result = _quiet(lambda: main_worker(cfg), os.path.join(work, "tester.log"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    (st,) = tester.scene_stats
+    pred = np.load(os.path.join(save, "result", f"{TESTER_SCENE}_pred.npy"))
+    # each fragment point adds one softmax (mass 1), and every view holds
+    # every voxel, so each point has at least one vote a view
+    views = len(cfg.data.test.test_cfg.aug_transform)
+    votes = pred.sum(axis=1, dtype=np.float64)
+    mass_err = abs(float(votes.sum()) - st["points"]) / st["points"]
+    device_ms = sum(st["geometry_ms"]) + sum(st["forward_ms"])
+    emit("tester", card=card, seconds=seconds, parameters=sum(p.numel() for p in tester.model.parameters()),
+         fragments=st["fragments"], groups=st["groups"], forwards=st["forwards"], fragment_batch=st["batch"],
+         scene_ms=st["scene_ms"], fragments_per_s=st["fragments"] / (st["scene_ms"] / 1e3),
+         median_forward_ms=_median(st["forward_ms"]), forward_ms_range=[min(st["forward_ms"]), max(st["forward_ms"])],
+         median_geometry_ms=_median(st["geometry_ms"]), geometry_ms_total=sum(st["geometry_ms"]),
+         forward_ms_total=sum(st["forward_ms"]), device_ms_timed=device_ms, host_ms=st["host_ms"],
+         loader_wait_ms=st["loader_wait_ms"], peak_memory_bytes=peak, dropped=st["dropped"],
+         raw_points=int(pred.shape[0]), fragment_points=st["points"], vote_mass_rel_err=mass_err,
+         min_votes=float(votes.min()), views=views, mIoU=result["mIoU"], mAcc=result["mAcc"],
+         allAcc=result["allAcc"], launches=launches)
+    if st["dropped"]:
+        raise AssertionError(f"tester: {st['dropped']} points dropped by static capacities")
+    if pred.shape != (RAW_POINTS, NUM_CLASSES) or not np.isfinite(pred).all():
+        raise AssertionError(f"tester: pred of shape {pred.shape}, finite {np.isfinite(pred).all()}")
+    if mass_err > 1e-4 or votes.min() < views * (1 - 1e-4):
+        raise AssertionError(f"tester: votes off: mass {mass_err} relative, least {votes.min()} of {views} views")
+    for name in EVAL_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the tester")
+    del tester
+    torch.cuda.empty_cache()
+
+
+def overfit_tester(device, card, work: str, path: str, options: dict, save: str):
+    """Phase 12's tester: the overfit config's own test section on its
+    trained weights, on the card, again from the cached preds, then on the
+    CPU (plain versions)."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    main_worker = _test_main_worker()
+    weight = os.path.join(save, "model", "model_last.pth")
+    runs = {}
+    for name, dev in (("card", None), ("cpu", "cpu")):
+        out = os.path.join(save, f"tester_{name}")
+        cfg = default_config_parser(os.path.join(ROOT, path), dict(options, save_path=out, weight=weight))
+        for fn in KERNELS.values():
+            fn.launches = 0
+        t0 = time.perf_counter()
+        tester, result = _quiet(lambda: main_worker(cfg, device=dev), os.path.join(work, "tester.log"))
+        seconds = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in KERNELS.items()}
+        stats = list(tester.scene_stats)
+        again = _quiet(tester.test, os.path.join(work, "tester.log"))
+        preds = {f: np.load(os.path.join(out, "result", f)) for f in sorted(os.listdir(os.path.join(out, "result")))
+                 if f.endswith("_pred.npy")}
+        runs[name] = dict(result=result, again=again, preds=preds, seconds=seconds, launches=launches,
+                          dropped=[st["dropped"] for st in stats], forwards=sum(st["forwards"] for st in stats),
+                          fragments=sum(st["fragments"] for st in stats), reran=len(tester.scene_stats))
+        del tester
+    card_run, cpu_run = runs["card"], runs["cpu"]
+    rel = max(float(np.abs(card_run["preds"][f] - p).max() / np.abs(p).max()) for f, p in cpu_run["preds"].items())
+    agree = min(float((card_run["preds"][f].argmax(1) == p.argmax(1)).mean()) for f, p in cpu_run["preds"].items())
+    d_miou = abs(card_run["result"]["mIoU"] - cpu_run["result"]["mIoU"])
+    emit("overfit_tester", config=path, card=card, result=card_run["result"], cached_result=card_run["again"],
+         cpu_result=cpu_run["result"], scenes=len(card_run["preds"]), fragments=card_run["fragments"],
+         forwards=card_run["forwards"], seconds=card_run["seconds"], cpu_seconds=cpu_run["seconds"],
+         dropped=card_run["dropped"], cpu_dropped=cpu_run["dropped"], rel_max_err=rel, argmax_agreement=agree,
+         mIoU_diff=d_miou, bounds=TESTER_CPU_BOUNDS, launches=card_run["launches"])
+    res = card_run["result"]
+    if not (res["mIoU"] > 0.80 and res["allAcc"] > 0.90):
+        raise AssertionError(f"{path}: tester mIoU {res['mIoU']}, allAcc {res['allAcc']}")
+    if card_run["again"] != res or cpu_run["again"] != cpu_run["result"] or card_run["reran"] or cpu_run["reran"]:
+        raise AssertionError(f"{path}: the tester's second run from its cached preds differs")
+    if any(card_run["dropped"]) or any(cpu_run["dropped"]):
+        raise AssertionError(f"{path}: the tester dropped points")
+    if card_run["preds"].keys() != cpu_run["preds"].keys() or not card_run["preds"]:
+        raise AssertionError(f"{path}: the card's and the CPU's preds cover different scenes")
+    b = TESTER_CPU_BOUNDS
+    if not (rel < b["rel"] and agree > b["agreement"] and d_miou < b["miou"]):
+        raise AssertionError(f"{path}: the tester on the card and on the CPU disagree")
+    # the overfit model's convs take the gather engine: attention is its one kernel
+    if card_run["launches"]["patch_attention"] == 0:
+        raise AssertionError("kernel patch_attention was not launched by the overfit tester")
+    torch.cuda.empty_cache()
+
+
 def overfit_runs(device, card, work: str):
-    """Phase 11: the overfit configs through the trainer (the thresholds of
-    tests/test_overfit.py)."""
+    """Phase 12: the overfit configs through the trainer (the thresholds of
+    tests/test_overfit.py), then PTv3's through the tester."""
     import torch
 
     from pointcept_tpu_torch.engines import default_config_parser, main_worker
@@ -1173,6 +1397,8 @@ def overfit_runs(device, card, work: str):
                                  f"{val_overflow} in eval)")
         del trainer
         torch.cuda.empty_cache()
+        if "pt-v3" in path:
+            overfit_tester(device, card, work, path, options, save)
 
 
 def main() -> int:
@@ -1215,6 +1441,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     try:
         trainer_path(device, card, work, bare_step_ms)
+        tester_path(device, card, work)
         overfit_runs(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)

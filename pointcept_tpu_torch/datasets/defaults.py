@@ -5,8 +5,10 @@ reference `pointcept/datasets/defaults.py:34-199`).
 A scene is a directory ``data_root/split/<scene>/`` holding ``coord.npy``
 (float32 [N, 3]) and optional ``color``, ``normal``, ``strength``,
 ``segment`` and ``instance`` arrays. The train path (`test_mode=False`)
-applies the pipeline; the tester's fragment path (`test_mode=True`) is not
-ported.
+applies the pipeline; the test path (`test_mode=True`) builds the tester's
+fragment list: the pipeline, then each `aug_transform` view of a copy of the
+scene, its `voxelize` fragments (GridSample's test mode) and optional
+`crop`, each through `post_transform`.
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ import numpy as np
 
 from ..utils.logger import get_root_logger
 from .builder import DATASETS, build_dataset
-from .transform import Compose
+from .transform import TRANSFORMS, Compose
+
 
 @DATASETS.register_module()
 class DefaultDataset:
@@ -29,8 +32,6 @@ class DefaultDataset:
 
     def __init__(self, split="train", data_root="data/dataset", transform=None, test_mode=False,
                  test_cfg=None, cache=False, ignore_index=-1, loop=1, extra_transform=None):
-        if test_mode:
-            raise NotImplementedError("DefaultDataset: test_mode (the tester's fragments) is not ported")
         self.data_root = data_root
         self.split = split
         # extra_transform splices in before the terminal Collect, as the JAX package
@@ -42,9 +43,16 @@ class DefaultDataset:
         self.transform = Compose(transform)
         self.cache = cache
         self.ignore_index = ignore_index
-        self.loop = loop
+        self.loop = 1 if test_mode else loop
         self.test_mode = test_mode
         self._cache_store = {}
+        if test_mode:
+            test_cfg = dict(test_cfg or {})
+            self.test_voxelize = (TRANSFORMS.build(dict(test_cfg["voxelize"]))
+                                  if test_cfg.get("voxelize") else None)
+            self.test_crop = TRANSFORMS.build(dict(test_cfg["crop"])) if test_cfg.get("crop") else None
+            self.post_transform = Compose(list(test_cfg.get("post_transform") or []))
+            self.aug_transform = [Compose(aug) for aug in test_cfg.get("aug_transform", [[]])]
         self.data_list = self.get_data_list()
         get_root_logger().info(f"Totally {len(self.data_list)} x {self.loop} samples in {split} set.")
 
@@ -93,7 +101,35 @@ class DefaultDataset:
     def get_split_name(self, idx):
         return osp.basename(osp.dirname(self.data_list[idx % len(self.data_list)]))
 
+    def prepare_test_data(self, idx) -> dict:
+        """The scene's fragment list for the tester: ``segment``, ``name``
+        (with ``origin_segment`` and ``inverse`` where the pipeline keeps the
+        full-resolution labels) and ``fragment_list``."""
+        data_dict = self.transform(self.get_data(idx))
+        result = dict(segment=data_dict.pop("segment"), name=data_dict.pop("name"))
+        if "origin_segment" in data_dict:
+            if "inverse" not in data_dict:
+                raise KeyError("DefaultDataset: origin_segment needs the pipeline's inverse")
+            result["origin_segment"] = data_dict.pop("origin_segment")
+            result["inverse"] = data_dict.pop("inverse")
+        fragments = []
+        for aug in self.aug_transform:
+            data = aug(deepcopy(data_dict))
+            if self.test_voxelize is not None:
+                parts = self.test_voxelize(data)
+            else:
+                data["index"] = np.arange(data["coord"].shape[0])
+                parts = [data]
+            for part in parts:
+                if self.test_crop is not None:
+                    part = self.test_crop(part)
+                fragments += part if isinstance(part, list) else [part]
+        result["fragment_list"] = [self.post_transform(f) for f in fragments]
+        return result
+
     def __getitem__(self, idx):
+        if self.test_mode:
+            return self.prepare_test_data(idx)
         return self.transform(self.get_data(idx))
 
     def __len__(self):

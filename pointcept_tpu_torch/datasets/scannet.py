@@ -15,6 +15,8 @@ from .defaults import DefaultDataset
 @DATASETS.register_module()
 class ScanNetDataset(DefaultDataset):
     VALID_ASSETS = ["coord", "color", "normal", "segment20", "instance"]
+    # ScanNet's label ids of the 20 classes (the benchmark's submission format)
+    class2id = np.array([1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39])
 
     def __init__(self, lr_file=None, la_file=None, **kwargs):
         if lr_file is not None or la_file is not None:

@@ -3,15 +3,18 @@
 The transforms of the ScanNet PTv3-base config and the synthetic configs:
 CenterShift, the augmentations (RandomDropout, RandomRotate, RandomScale,
 RandomFlip, RandomJitter, ElasticDistortion, ChromaticAutoContrast,
-ChromaticTranslation, ChromaticJitter), GridSample (train mode), SphereCrop
-(random and center mode), NormalizeColor, ToTensor (a no-op: arrays
-stay numpy until the collate) and Collect. Each draws from `np.random` and
-`random` in the JAX version's order, so one seed gives the same arrays bit
-for bit. GridSample's test mode (the tester's) is not ported.
+ChromaticTranslation, ChromaticJitter), GridSample, SphereCrop (random and
+center mode), NormalizeColor, ToTensor (a no-op: arrays stay numpy until
+the collate) and Collect; for the tester, GridSample's test mode
+(`count.max()` fragments, each holding one point of every voxel, with its
+source `index`) and `return_inverse`, RandomRotateTargetAngle and Copy.
+Each draws from `np.random` and `random` in the JAX version's order, so one
+seed gives the same arrays bit for bit.
 """
 
 from __future__ import annotations
 
+import copy
 import random
 from collections.abc import Sequence
 
@@ -24,14 +27,25 @@ TRANSFORMS = Registry("transforms")
 DEFAULT_INDEX_VALID_KEYS = ["coord", "color", "normal", "superpoint", "strength", "segment", "instance"]
 
 
-def index_operator(data_dict, index):
-    """Apply an index selection to every key in index_valid_keys."""
+def index_operator(data_dict, index, duplicate=False):
+    """Apply an index selection to every key in index_valid_keys: in place,
+    or (`duplicate`) into a new dict that shares the other values."""
     if "index_valid_keys" not in data_dict:
         data_dict["index_valid_keys"] = list(DEFAULT_INDEX_VALID_KEYS)
-    for key in data_dict["index_valid_keys"]:
-        if key in data_dict:
-            data_dict[key] = data_dict[key][index]
-    return data_dict
+    if not duplicate:
+        for key in data_dict["index_valid_keys"]:
+            if key in data_dict:
+                data_dict[key] = data_dict[key][index]
+        return data_dict
+    out = {}
+    for key, value in data_dict.items():
+        if key in data_dict["index_valid_keys"]:
+            out[key] = value[index]
+        elif key == "index_valid_keys":
+            out[key] = copy.copy(value)
+        else:
+            out[key] = value
+    return out
 
 
 class Compose:
@@ -66,6 +80,21 @@ class Collect:
                 [np.asarray(data_dict[key], dtype=np.float32) for key in keys], axis=1
             )
         return data
+
+
+@TRANSFORMS.register_module()
+class Copy:
+    """Copy values to new keys (arrays by `.copy()`, others deeply)."""
+
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict if keys_dict is not None else dict(coord="origin_coord",
+                                                                       segment="origin_segment")
+
+    def __call__(self, data_dict):
+        for key, value in self.keys_dict.items():
+            v = data_dict[key]
+            data_dict[value] = v.copy() if isinstance(v, np.ndarray) else copy.deepcopy(v)
+        return data_dict
 
 
 @TRANSFORMS.register_module()
@@ -126,19 +155,23 @@ def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
     raise NotImplementedError(axis)
 
 
-@TRANSFORMS.register_module()
-class RandomRotate:
-    def __init__(self, angle=None, center=None, axis="z", always_apply=False, p=0.5):
-        self.angle = [-1, 1] if angle is None else angle
+class _RotateBase:
+    """Rotation about `axis` through `center` (the coords' box center when
+    None) with probability `p`; subclasses draw the angle (in units of pi)."""
+
+    def __init__(self, angle, center=None, axis="z", always_apply=False, p=0.5):
+        self.angle = angle
         self.axis = axis
         self.center = center
         self.p = 1 if always_apply else p
 
+    def draw_angle(self) -> float:
+        raise NotImplementedError
+
     def __call__(self, data_dict):
         if random.random() > self.p:
             return data_dict
-        angle = np.random.uniform(self.angle[0], self.angle[1]) * np.pi
-        rot_t = _rotation_matrix(self.axis, angle)
+        rot_t = _rotation_matrix(self.axis, self.draw_angle() * np.pi)
         if "coord" in data_dict:
             if self.center is None:
                 center = (data_dict["coord"].min(axis=0) + data_dict["coord"].max(axis=0)) / 2
@@ -148,6 +181,26 @@ class RandomRotate:
         if "normal" in data_dict:
             data_dict["normal"] = data_dict["normal"] @ rot_t.T
         return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomRotate(_RotateBase):
+    def __init__(self, angle=None, center=None, axis="z", always_apply=False, p=0.5):
+        super().__init__([-1, 1] if angle is None else angle, center, axis, always_apply, p)
+
+    def draw_angle(self) -> float:
+        return np.random.uniform(self.angle[0], self.angle[1])
+
+
+@TRANSFORMS.register_module()
+class RandomRotateTargetAngle(_RotateBase):
+    """A rotation by one of the listed angles (the tester's views)."""
+
+    def __init__(self, angle=(1 / 2, 1, 3 / 2), center=None, axis="z", always_apply=False, p=0.75):
+        super().__init__(angle, center, axis, always_apply, p)
+
+    def draw_angle(self) -> float:
+        return np.random.choice(self.angle)
 
 
 @TRANSFORMS.register_module()
@@ -272,23 +325,31 @@ class ElasticDistortion:
 
 @TRANSFORMS.register_module()
 class GridSample:
-    """Hash-based voxel sampling, train mode: one random point per voxel.
-    Draws from `rng` (a numpy RandomState; the global numpy state when None)."""
+    """Hash-based voxel sampling. Train mode: one random point per voxel,
+    drawn from `rng` (a numpy RandomState; the global numpy state when
+    None). Test mode: a list of `count.max()` fragments, fragment i taking
+    point ``i % count`` of every voxel's run, each with its source `index`:
+    every fragment holds each voxel once (one voxel grid), and together they
+    hold every point. `return_inverse` adds each input point's voxel id
+    (``inverse``). The other hash, the min coord and the displacement are
+    not ported."""
 
-    def __init__(self, grid_size=0.05, hash_type="fnv", mode="train", return_grid_coord=False,
-                 rng=None, keys=None):
-        if mode != "train" or hash_type != "fnv":
-            raise NotImplementedError("GridSample: only train mode with the fnv hash is ported")
+    def __init__(self, grid_size=0.05, hash_type="fnv", mode="train", return_inverse=False,
+                 return_grid_coord=False, rng=None, keys=None, **unported):
+        if mode not in ("train", "test"):
+            raise ValueError(f"GridSample: mode {mode!r}")
+        if hash_type != "fnv" or any(unported.values()):
+            raise NotImplementedError(f"GridSample: hash_type={hash_type!r}, {sorted(unported)} are not ported")
         self.grid_size = grid_size
+        self.mode = mode
+        self.return_inverse = return_inverse
         self.return_grid_coord = return_grid_coord
         self.rng = rng
 
-    def __call__(self, data_dict):
-        if "sampled_index" in data_dict:
-            raise NotImplementedError("GridSample: sampled_index (ScanNet la/lr) is not ported")
-        rng = self.rng if self.rng is not None else np.random
-        scaled = data_dict["coord"] / self.grid_size
-        grid = np.floor(scaled).astype(np.int64)
+    def _voxel_runs(self, coord):
+        """(grid_coord, order, starts, counts, voxel of each point): the
+        points of voxel v are the run ``order[starts[v] : starts[v] + counts[v]]``."""
+        grid = np.floor(coord / self.grid_size).astype(np.int64)
         grid = grid - grid.min(0)
         key = self.fnv_hash_vec(grid)
         order = np.argsort(key)
@@ -298,13 +359,34 @@ class GridSample:
         np.not_equal(sk[1:], sk[:-1], out=head[1:])
         starts = np.flatnonzero(head)
         counts = np.diff(np.append(starts, sk.shape[0]))
-        picked = order[starts + rng.randint(0, counts.max(), counts.size) % counts]
-        data_dict = index_operator(data_dict, picked)
+        voxel_of_point = np.empty_like(order)
+        voxel_of_point[order] = np.cumsum(head) - 1
+        return grid, order, starts, counts, voxel_of_point
+
+    def _attach(self, out, picked, grid, voxel_of_point):
+        if self.return_inverse:
+            out["inverse"] = voxel_of_point
         if self.return_grid_coord:
-            data_dict["grid_coord"] = grid[picked]
-            if "grid_coord" not in data_dict["index_valid_keys"]:
-                data_dict["index_valid_keys"] = list(data_dict["index_valid_keys"]) + ["grid_coord"]
-        return data_dict
+            out["grid_coord"] = grid[picked]
+            if "grid_coord" not in out["index_valid_keys"]:
+                out["index_valid_keys"] = list(out["index_valid_keys"]) + ["grid_coord"]
+        return out
+
+    def __call__(self, data_dict):
+        if "sampled_index" in data_dict:
+            raise NotImplementedError("GridSample: sampled_index (ScanNet la/lr) is not ported")
+        grid, order, starts, counts, vox = self._voxel_runs(data_dict["coord"])
+        if self.mode == "train":
+            rng = self.rng if self.rng is not None else np.random
+            picked = order[starts + rng.randint(0, counts.max(), counts.size) % counts]
+            return self._attach(index_operator(data_dict, picked), picked, grid, vox)
+        parts = []
+        for i in range(counts.max()):
+            picked = order[starts + i % counts]
+            part = index_operator(data_dict, picked, duplicate=True)
+            part["index"] = picked
+            parts.append(self._attach(part, picked, grid, vox))
+        return parts
 
     @staticmethod
     def fnv_hash_vec(arr):

@@ -1,5 +1,7 @@
 from .defaults import default_argument_parser, default_config_parser, default_setup
+from .test import TESTERS, SemSegTester, TesterBase
 from .train import TRAINERS, Trainer, TrainerBase, build_train_step, main_worker, make_point_batch
 
-__all__ = ["TRAINERS", "Trainer", "TrainerBase", "build_train_step", "default_argument_parser",
-           "default_config_parser", "default_setup", "main_worker", "make_point_batch"]
+__all__ = ["TESTERS", "TRAINERS", "SemSegTester", "TesterBase", "Trainer", "TrainerBase", "build_train_step",
+           "default_argument_parser", "default_config_parser", "default_setup", "main_worker",
+           "make_point_batch"]

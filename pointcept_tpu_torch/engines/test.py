@@ -1,0 +1,417 @@
+"""The precise-eval tester (counterparts of `TESTERS`, `TesterBase` and
+`SemSegTester` in `pointcept_tpu/engines/test.py`; parity target: reference
+`pointcept/engines/test.py:37-353`).
+
+A test scene is a list of fragments (`DefaultDataset` in test mode): every
+view of `aug_transform`, cut by GridSample's test mode into fragments that
+each hold one point of every voxel of the view (one voxel grid a view).
+Each fragment's softmax is added into the rows of its points; the argmax,
+mapped back through ``inverse`` where the pipeline keeps full-resolution
+labels, is the prediction.
+
+On the device: scenes come through a `torch.utils.data.DataLoader` (batch
+1, ``num_worker`` workers) whose collate (`SceneLoader`) also groups a
+scene's fragments by their voxel grid and packs them, so the next scene is
+built while the card runs this one. The fragments of one grid share their forward geometry
+(`PT-v3m1.build_geometry`): it is built once a group on B tiled copies of
+the grid (B = ``tester_fragment_batch``), then ceil(n / B) forwards of B
+fragments run through it. Each fragment's f32 softmax is added into a
+device-resident ``[n_vox + capacity, C]`` accumulator with `index_add_`;
+pad rows go to distinct trash rows, so no two adds of one call meet one
+row and the sums are the same bits run to run. The prediction comes to the
+host once a scene. Other backbones, or ``fragment_geometry_reuse=False``,
+run one forward a fragment.
+
+Not ported: the JAX tester's wire, host geometry and dispatch/collect split
+(TPU workarounds), the host accumulation loop (``device_accumulate=False``
+raises), the other testers, multi-process gathering.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import os
+import time
+from collections import OrderedDict
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..datasets import build_dataset
+from ..datasets.utils import collate_fn, pad_to_point_batch
+from ..models import apply_amp_policy, build_model
+from ..models.utils.structure import PointBatch
+from ..utils.device import resolve_device
+from ..utils.logger import get_root_logger
+from ..utils.misc import AverageMeter, intersection_and_union, make_dirs
+from ..utils.registry import Registry
+from .hooks.misc import remap_state_dict
+from .train import make_point_batch
+
+TESTERS = Registry("testers")
+
+
+class _Timer:
+    """Device-side intervals: CUDA events on a card (read once the scene has
+    synchronised), the host clock on the CPU."""
+
+    def __init__(self, device: torch.device):
+        self.cuda = device.type == "cuda"
+        self.spans = {}
+
+    def mark(self):
+        if self.cuda:
+            event = torch.cuda.Event(enable_timing=True)
+            event.record()
+            return event
+        return time.perf_counter()
+
+    def add(self, name: str, start, end):
+        self.spans.setdefault(name, []).append((start, end))
+
+    def ms(self) -> dict:
+        """Each span's intervals in ms (call after a synchronisation)."""
+        return {name: [s.elapsed_time(e) if self.cuda else (e - s) * 1e3 for s, e in spans]
+                for name, spans in self.spans.items()}
+
+
+class SceneLoader:
+    """The collate of the tester's loader: ``dataset[idx]`` of the batch's
+    one index, then its fragments packed for the card (in the loader's
+    workers; it holds no model, so it pickles small). With `grouped`, the
+    fragments are keyed by their voxel grid (its bytes and length); each
+    group brings its grid once, its fragments' features ``[k, n, F]`` and
+    source indices ``[k, n]``. The coords stay behind: PT-v3's logits read
+    the grid, and coords only through RPE or RoPE (not ported). Otherwise
+    each fragment comes padded to `capacity`. A scene whose pred is cached
+    in `result_dir` is not packed."""
+
+    def __init__(self, dataset, capacity: int, grouped: bool, result_dir: str):
+        self.dataset = dataset
+        self.capacity = capacity
+        self.grouped = grouped
+        self.result_dir = result_dir
+
+    def __call__(self, batch) -> dict:
+        (idx,) = batch
+        t0 = time.perf_counter()
+        data = self.dataset[idx]
+        t1 = time.perf_counter()
+        fragments = data.pop("fragment_list")
+        data["num_fragments"] = len(fragments)
+        data["num_points"] = sum(f["coord"].shape[0] for f in fragments)
+        data["groups"] = data["fragments"] = None
+        if not os.path.isfile(os.path.join(self.result_dir, f"{data['name']}_pred.npy")):
+            if self.grouped and all("grid_coord" in f for f in fragments):
+                data["groups"] = self._group(fragments)
+            else:
+                data["fragments"] = [self._pad(f) for f in fragments]
+        data["host_ms"] = dict(dataset=(t1 - t0) * 1e3, pack=(time.perf_counter() - t1) * 1e3)
+        return data
+
+    def _check_size(self, n: int):
+        if n > self.capacity:
+            raise ValueError(f"fragment has {n} points > point_capacity_test {self.capacity}")
+
+    def _group(self, fragments) -> list:
+        groups = OrderedDict()
+        for f in fragments:
+            n = f["coord"].shape[0]
+            self._check_size(n)
+            grid = np.ascontiguousarray(f["grid_coord"], np.int32)
+            key = (hashlib.blake2b(grid.tobytes(), digest_size=16).hexdigest(), n)
+            g = groups.setdefault(key, dict(grid=grid, feat=[], index=[]))
+            g["feat"].append(np.asarray(f["feat"], np.float32))
+            g["index"].append(np.asarray(f["index"]).astype(np.int32))
+        return [dict(grid=torch.from_numpy(g["grid"]), feat=torch.from_numpy(np.stack(g["feat"])),
+                     index=torch.from_numpy(np.stack(g["index"]))) for g in groups.values()]
+
+    def _pad(self, fragment) -> dict:
+        index = np.asarray(fragment.pop("index")).astype(np.int32)
+        self._check_size(fragment["coord"].shape[0])
+        arrays = pad_to_point_batch(collate_fn([fragment]), self.capacity, num_scenes=1)
+        arrays.pop("num_scenes")
+        arrays = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        arrays["index"] = torch.from_numpy(index)
+        return arrays
+
+
+class TesterBase:
+    """The model (from ``cfg.model`` through the AMP policy, weights from
+    ``cfg.weight``), the test dataset and its loader, on `device` (the GPU
+    unless the caller names another; raises when no GPU is present and none
+    is named)."""
+
+    def __init__(self, cfg, model=None, device=None, verbose: bool = False):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.verbose = verbose
+        make_dirs(cfg.save_path)
+        self.logger = get_root_logger(log_file=os.path.join(cfg.save_path, "test.log"), file_mode="a")
+        self.logger.info("=> Building model ...")
+        self.model = model if model is not None else self.build_model()
+        self.logger.info("=> Building test dataset & loader ...")
+        self.test_dataset = build_dataset(dict(cfg.data.test))
+        self._fragment_batch()  # refuse a batch below 1 before any scene is built
+
+    def build_model(self):
+        cfg = apply_amp_policy(dict(self.cfg.model), self.cfg.get("enable_amp", False))
+        seed = int(self.cfg.get("shared_seed", self.cfg.get("seed", 0)) or 0)
+        model = build_model(cfg, device=self.device, generator=torch.Generator().manual_seed(seed))
+        weight = self.cfg.get("weight")
+        if weight and os.path.isfile(weight):
+            self.logger.info(f"Loading weight at: {weight}")
+            # the trainer's checkpoints: tensors, numbers and state dicts
+            checkpoint = torch.load(weight, map_location=self.device, weights_only=False)
+            model.load_state_dict(remap_state_dict(checkpoint.get("state_dict", checkpoint)), strict=True)
+        else:
+            self.logger.info(f"No weight found at: {weight}")
+        return model.eval()
+
+    @property
+    def test_capacity(self) -> int:
+        return int(self.cfg.get("point_capacity_test", self.cfg.get("point_capacity", 131072)))
+
+    def _fragment_batch(self) -> int:
+        """Fragments per forward in the grouped path (``tester_fragment_batch``)."""
+        b = int(self.cfg.get("tester_fragment_batch", 4))
+        if b < 1:
+            raise ValueError(f"tester_fragment_batch must be at least 1, got {b}")
+        return b
+
+    def _slot_bucket(self, n: int) -> int:
+        """Slots of a group of n fragments: n at 1 or 2, else n rounded up to
+        whole forwards (at most B - 1 dummy slots)."""
+        b = self._fragment_batch()
+        if n <= 2:
+            return n
+        return ((n + b - 1) // b) * b
+
+    def _fragment_geometry_ok(self) -> bool:
+        """The grouped path: a PT-v3 backbone under `DefaultSegmentorV2`,
+        unless ``fragment_geometry_reuse`` is off."""
+        if not self.cfg.get("fragment_geometry_reuse", True):
+            return False
+        model_cfg = dict(self.cfg.model)
+        if model_cfg.get("type") != "DefaultSegmentorV2":
+            return False
+        bb = model_cfg.get("backbone")
+        return bool(bb) and str(dict(bb).get("type", "")).startswith("PT-v3")
+
+    def check_dropped(self, dropped: int, n_valid: int, context: str):
+        """Raise when the static capacities dropped more than
+        ``eval_overflow_tolerance`` (default 0.1%) of the points; log any
+        drop below it."""
+        if dropped <= 0:
+            return
+        frac = dropped / max(n_valid, 1)
+        tol = float(self.cfg.get("eval_overflow_tolerance", 1e-3))
+        if frac > tol:
+            raise RuntimeError(
+                f"{context}: static capacity dropped {dropped}/{n_valid} points ({frac:.2%} > {tol:.2%}); "
+                "raise pool_capacity_factors / block_capacity_factor (or eval_overflow_tolerance to accept)"
+            )
+        self.logger.warning(f"{context}: static capacity dropped {dropped}/{n_valid} points ({frac:.3%})")
+
+    def test(self):
+        raise NotImplementedError
+
+
+@TESTERS.register_module()
+class SemSegTester(TesterBase):
+    def __init__(self, cfg, model=None, device=None, verbose: bool = False):
+        if not cfg.get("device_accumulate", True):
+            raise NotImplementedError("SemSegTester: device_accumulate=False (the host accumulation loop) "
+                                      "is not ported")
+        if cfg.get("batch_size_test_per_gpu", 1) != 1:
+            raise ValueError("SemSegTester: one scene a batch")
+        super().__init__(cfg, model=model, device=device, verbose=verbose)
+        self.result_dir = os.path.join(cfg.save_path, "result")
+        self.scene_stats = []
+
+    def _pred_path(self, name: str) -> str:
+        return os.path.join(self.result_dir, f"{name}_pred.npy")
+
+    def build_test_loader(self):
+        """One scene a batch, built and packed by `SceneLoader` in
+        ``num_worker`` spawned workers (at most one a scene)."""
+        workers = min(int(self.cfg.get("num_worker_per_gpu", self.cfg.get("num_worker", 0)) or 0),
+                      len(self.test_dataset))
+        scenes = SceneLoader(self.test_dataset, self.test_capacity, self._fragment_geometry_ok(), self.result_dir)
+        return torch.utils.data.DataLoader(
+            range(len(self.test_dataset)), batch_size=1, shuffle=False, num_workers=workers,
+            collate_fn=scenes, pin_memory=self.device.type == "cuda",
+            multiprocessing_context="spawn" if workers else None,
+            # a scene's fragments take GBs: one scene ahead a worker
+            prefetch_factor=1 if workers else None)
+
+    # ----------------------------------------------------------- device side
+    def _accumulate_groups(self, groups, pred, n_vox: int, timer: _Timer, stats: dict):
+        """Each group: its geometry once, then its fragments B at a time;
+        returns the summed overflow (a device scalar)."""
+        cap, dev, model = self.test_capacity, self.device, self.model
+        grid_size = float(dict(dict(self.cfg.model)["backbone"]).get("grid_size", 0.02))
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        trash = n_vox + torch.arange(cap, device=dev)
+        for gi, g in enumerate(groups):
+            k, n = g["index"].shape
+            slots = self._slot_bucket(k)
+            b = min(self._fragment_batch(), slots)
+            grid, feat = g["grid"].to(dev, non_blocking=True), g["feat"].to(dev, non_blocking=True)
+            index = g["index"].to(dev, non_blocking=True).long()
+            rows = [trash] * slots  # dummy slots: every row to the trash
+            for j in range(k):
+                rows[j] = torch.cat([index[j], trash[n:]])
+            grid_b = torch.zeros((b * cap, 3), dtype=torch.int32, device=dev)
+            batch_b = torch.full((b * cap,), -1, dtype=torch.int32, device=dev)
+            for s in range(b):
+                grid_b[s * cap : s * cap + n] = grid
+                batch_b[s * cap : s * cap + n] = s
+            template = PointBatch(coord=grid_b.float() * grid_size, feat=None, grid_coord=grid_b,
+                                  batch=batch_b, num_scenes=b)
+            t0 = timer.mark()
+            with torch.no_grad():
+                geom = model.backbone.build_geometry(template)
+            timer.add("geometry", t0, timer.mark())
+            feat_b = torch.zeros((b * cap, feat.shape[2]), dtype=torch.float32, device=dev)
+            for j0 in range(0, slots, b):
+                for s in range(b):
+                    # a dummy slot runs fragment 0 again, its rows to the trash
+                    src = j0 + s if j0 + s < k else 0
+                    feat_b[s * cap : s * cap + n] = feat[src]
+                t0 = timer.mark()
+                res = model(template.replace(feat=feat_b), precomputed=geom)
+                probs = torch.softmax(res["seg_logits"].float(), dim=-1)
+                for s in range(b):
+                    pred.index_add_(0, rows[j0 + s], probs[s * cap : (s + 1) * cap])
+                timer.add("forward", t0, timer.mark())
+                dropped += sum(v for vs in res["diagnostics"].values() for v in vs)
+            stats["forwards"] += slots // b
+            stats["batch"] = max(stats.get("batch", 0), b)
+            if self.verbose:
+                self.logger.info(f"Fragment group {gi + 1}/{len(groups)}: {k} fragments, {slots // b} forwards")
+        return dropped
+
+    def _accumulate_fragments(self, fragments, pred, n_vox: int, timer: _Timer, stats: dict):
+        """One forward a fragment (no shared geometry)."""
+        cap, dev = self.test_capacity, self.device
+        dropped = torch.zeros((), dtype=torch.int64, device=dev)
+        trash = n_vox + torch.arange(cap, device=dev)
+        for f in fragments:
+            index = f.pop("index").to(dev, non_blocking=True).long()
+            t0 = timer.mark()
+            res = self.model(make_point_batch(f, 1, device=dev))
+            probs = torch.softmax(res["seg_logits"].float(), dim=-1)
+            pred.index_add_(0, torch.cat([index, trash[index.shape[0]:]]), probs)
+            timer.add("forward", t0, timer.mark())
+            dropped += sum(v for vs in res["diagnostics"].values() for v in vs)
+            stats["forwards"] += 1
+        stats["batch"] = 1
+        return dropped
+
+    def infer_scene(self, scene: dict, num_classes: int) -> np.ndarray:
+        """The scene's summed softmax at voxel resolution, [n_vox, C] f32."""
+        n_vox = scene["segment"].shape[0]
+        pred = torch.zeros((n_vox + self.test_capacity, num_classes), dtype=torch.float32, device=self.device)
+        timer = _Timer(self.device)
+        stats = dict(name=scene["name"], fragments=scene["num_fragments"], points=scene["num_points"], forwards=0,
+                     groups=len(scene["groups"]) if scene["groups"] is not None else None)
+        if scene["groups"] is not None:
+            dropped = self._accumulate_groups(scene["groups"], pred, n_vox, timer, stats)
+        else:
+            dropped = self._accumulate_fragments(scene["fragments"], pred, n_vox, timer, stats)
+        out = pred[:n_vox].cpu().numpy()
+        stats["dropped"] = int(dropped)
+        stats.update({f"{k}_ms": v for k, v in timer.ms().items()})
+        self.scene_stats.append(stats)
+        self.check_dropped(stats["dropped"], max(scene["num_points"], 1), scene["name"])
+        return out
+
+    # ------------------------------------------------------------------ test
+    def test(self):
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        self.model.eval()
+        batch_time = AverageMeter()
+        num_classes = self.cfg.data.num_classes
+        ignore_index = self.cfg.data.get("ignore_index", -1)
+        make_dirs(self.result_dir)
+        submit_dir = None
+        if self.cfg.data.test.get("submit", False):
+            submit_dir = os.path.join(self.result_dir, "submit")
+            make_dirs(submit_dir)
+        record = {}
+        n_scenes = len(self.test_dataset)
+        self.scene_stats = []
+        start = time.perf_counter()
+        for pos, scene in enumerate(self.build_test_loader()):
+            # the scene's own start: its wait for the loader, then its work
+            loaded = time.perf_counter()
+            name, segment = scene["name"], scene["segment"]
+            if scene["groups"] is None and scene["fragments"] is None:
+                logger.info(f"{pos + 1}/{n_scenes}: {name}, loaded pred and label.")
+                pred = np.load(self._pred_path(name))
+                segment = scene.get("origin_segment", segment)
+            else:
+                pred = self.infer_scene(scene, num_classes)
+                self.scene_stats[-1].update(loader_wait_ms=(loaded - start) * 1e3, host_ms=scene["host_ms"])
+                if "origin_segment" in scene:
+                    pred = pred[scene["inverse"]]
+                    segment = scene["origin_segment"]
+                np.save(self._pred_path(name), pred)
+            pred_label = np.argmax(pred, axis=-1)
+            if submit_dir is not None:
+                self.write_submission(submit_dir, name, pred_label)
+            intersection, union, target = intersection_and_union(pred_label, segment, num_classes, ignore_index)
+            record[name] = dict(intersection=intersection, union=union, target=target)
+            mask = union != 0
+            iou = np.mean((intersection / (union + 1e-10))[mask])
+            acc = sum(intersection) / (sum(target) + 1e-10)
+            end = time.perf_counter()
+            batch_time.update(end - start)
+            if scene["groups"] is not None or scene["fragments"] is not None:
+                self.scene_stats[-1]["scene_ms"] = (end - start) * 1e3
+            logger.info(f"Test: {name} [{pos + 1}/{n_scenes}]-{segment.size} "
+                        f"Batch {batch_time.val:.3f} ({batch_time.avg:.3f}) Accuracy {acc:.4f} mIoU {iou:.4f}")
+            start = end
+
+        intersection = np.sum([m["intersection"] for m in record.values()], axis=0)
+        union = np.sum([m["union"] for m in record.values()], axis=0)
+        target = np.sum([m["target"] for m in record.values()], axis=0)
+        # the record of a fold, for cross-fold evaluation
+        np.savez(os.path.join(self.result_dir, "record.npz"), intersection=intersection, union=union,
+                 target=target)
+        iou_class = intersection / (union + 1e-10)
+        accuracy_class = intersection / (target + 1e-10)
+        m_iou, m_acc = np.mean(iou_class), np.mean(accuracy_class)
+        all_acc = sum(intersection) / (sum(target) + 1e-10)
+        logger.info(f"Val result: mIoU/mAcc/allAcc {m_iou:.4f}/{m_acc:.4f}/{all_acc:.4f}")
+        names = self.cfg.data.get("names", [str(i) for i in range(num_classes)])
+        for i in range(num_classes):
+            logger.info(f"Class_{i} - {names[i]} Result: iou/accuracy {iou_class[i]:.4f}/{accuracy_class[i]:.4f}")
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return dict(mIoU=float(m_iou), mAcc=float(m_acc), allAcc=float(all_acc))
+
+    def write_submission(self, submit_dir: str, name: str, pred_label: np.ndarray):
+        """The benchmark's submission file: ScanNet's label ids as text, or
+        the labels as .npy for the other ported datasets."""
+        ds_type = self.cfg.data.test.type
+        if ds_type in ("ScanNetDataset", "ScanNet200Dataset"):
+            np.savetxt(os.path.join(submit_dir, f"{name}.txt"),
+                       type(self.test_dataset).class2id[pred_label].reshape([-1, 1]), fmt="%d")
+        elif ds_type in ("SemanticKITTIDataset", "NuScenesDataset"):
+            raise NotImplementedError(f"SemSegTester: the {ds_type} submission is not ported")
+        else:
+            np.save(os.path.join(submit_dir, f"{name}_pred.npy"), pred_label)
+
+
+def main_worker(cfg, device: Optional[str] = None):
+    """What `tools/torch_port_test.py` runs on a parsed config: the
+    per-process setup, the tester the config names, its test. Returns the
+    tester and the result."""
+    from .defaults import default_setup
+
+    cfg = default_setup(cfg)
+    tester = TESTERS.build(dict(cfg.test, cfg=cfg, device=device))
+    return tester, tester.test()

@@ -40,11 +40,13 @@ class DefaultSegmentor(nn.Module):
 class DefaultSegmentorV2(nn.Module):
     """Backbone returning a PointBatch, then a linear seg head (in f32).
 
-    `forward(pb, generator)` returns ``{"seg_logits", "feat", "diagnostics"}``
-    and, when the batch carries labels (``pb.segment``, -1 = ignore), the
-    summed criteria as ``"loss"``. Gradients are recorded in train mode only;
-    the eval forward runs under `torch.no_grad`. In train mode the backbone
-    draws its order shuffles and drop-path masks from `generator`."""
+    `forward(pb, generator, precomputed)` returns ``{"seg_logits", "feat",
+    "diagnostics"}`` and, when the batch carries labels (``pb.segment``, -1 =
+    ignore), the summed criteria as ``"loss"``. Gradients are recorded in
+    train mode only; the eval forward runs under `torch.no_grad`. In train
+    mode the backbone draws its order shuffles and drop-path masks from
+    `generator`. `precomputed`: the backbone's `build_geometry` of the
+    batch's points, shared by the batches of one voxel grid (PT-v3)."""
 
     def __init__(self, num_classes: int = 20, backbone_out_channels: int = 64, backbone=None,
                  criteria=None, freeze_backbone: bool = False, up_cast_level: int = 0):
@@ -58,9 +60,13 @@ class DefaultSegmentorV2(nn.Module):
         self.freeze_backbone = freeze_backbone
         self.seg_head = Linear(in_ch, num_classes) if num_classes > 0 else nn.Identity()
 
-    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None) -> dict:
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
+                precomputed: Optional[dict] = None) -> dict:
         with contextlib.nullcontext() if self.training else torch.no_grad():
-            out, diag = self.backbone(pb, generator=generator)
+            if precomputed is None:
+                out, diag = self.backbone(pb, generator=generator)
+            else:
+                out, diag = self.backbone(pb, generator=generator, precomputed=precomputed)
             feat = out.feat.detach() if self.freeze_backbone else out.feat
             logits = self.seg_head(feat)
             result = {"seg_logits": logits, "feat": feat, "diagnostics": diag}

@@ -31,10 +31,15 @@ Parameter names follow the reference Pointcept state dict
 the JAX package's converter read them directly. Conv weights are
 ``[k^3, Cin, Cout]`` in `kernel_offsets` order.
 
+`build_geometry(pb)` builds the feature-independent half of the eval
+forward once (serialization, the pin to order 0, block tables or rule maps,
+patch partitions, pooling clusters), and `forward(pb, precomputed=...)`
+moves a batch's features through it: the tester's fragments of one voxel
+grid share it.
+
 Not ported: PDNorm, RPE, the v3m2/v3m3 options (linear stem, LayerScale,
-RoPE), LoRA, enc_mode, attention and projection dropout, host geometry,
-`build_geometry`/`precomputed`, and the scene-blocked layout. Each raises
-when asked for.
+RoPE), LoRA, enc_mode, attention and projection dropout, host geometry and
+the scene-blocked layout. Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -219,9 +224,11 @@ class SerializedPooling(nn.Module):
         self.norm = nn.ModuleList([MaskedBatchNorm(out_channels)])
 
     def forward(self, pb: PointBatch, out_capacity: int, orders, needed, identity_order0: bool,
-                generator: Optional[torch.Generator] = None):
-        """`generator`: shuffle the pooled batch's orders (the shuffled route)."""
-        g = pooling_geometry(pb, self.stride, out_capacity, orders, needed, identity_order0)
+                generator: Optional[torch.Generator] = None, geom: Optional[dict] = None):
+        """`generator`: shuffle the pooled batch's orders (the shuffled route).
+        `geom`: the `pooling_geometry` of this batch, built beforehand."""
+        g = geom if geom is not None else pooling_geometry(pb, self.stride, out_capacity, orders, needed,
+                                                           identity_order0)
         m = out_capacity
         proj, coord = self.proj(pb.feat), pb.coord
         if not identity_order0:
@@ -435,7 +442,64 @@ class PointTransformerV3(nn.Module):
                  for oi in self._used_orders(stage, shuffled)}
         return dict(nbr3=nbr3, parts=parts)
 
-    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None):
+    def _pooled_capacity(self, cap: int, stage: int) -> int:
+        return _round_up(max(int(math.ceil(cap * self.pool_capacity_factors[stage - 1])), 128), 128)
+
+    def build_geometry(self, pb: PointBatch) -> dict:
+        """The feature-independent half of the eval forward, built once for
+        every batch of `pb`'s points (grid, batch ids; features ignored):
+        the template batch ``pb0`` (serialized, pinned to order 0), the pin
+        ``perm0`` and its ``unsort`` pair, the stem's tables ``nbr5``, each
+        stage's context (conv tables or rule map, patch partitions) and each
+        pooling's geometry, and ``overflow``: the points the static
+        capacities dropped, summed. Eval mode only (train mode shuffles the
+        orders and draws drop-path masks)."""
+        if self.training:
+            raise ValueError("PT-v3m1: build_geometry serves the eval forward; the model is in train mode")
+        num_stages = len(self.enc_depths)
+        diag = {"block_overflow": [], "pool_overflow": []}
+        pb = pb.with_grid_coord(self.grid_size).replace(feat=None)
+        used0 = self._used_orders(0, False)
+        pb = pb.serialize(orders=self.order, depth=self.serialize_depth, sort_indices=used0, key_orders=used0)
+        perm0 = unsort = None
+        if self.sorted_layout:
+            perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
+            pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
+            unsort = (inv0, perm0)
+        stage0_tables = None
+        if self.conv_engine == "block":
+            stage0_tables = nbr5 = self._block_tables(pb, 0, diag, False, self.sorted_layout)
+        else:
+            nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, self.serialize_depth, 5)
+        pb0, stages, pools = pb, [], []
+        cap = pb.capacity
+        for s in range(num_stages):
+            if s > 0:
+                cap = self._pooled_capacity(cap, s)
+                g = pooling_geometry(pb, self.stride[s - 1], cap, self.order, self._used_orders(s, False),
+                                     identity_order0=s > 1 or self.sorted_layout)
+                diag["pool_overflow"].append(g["overflow"])
+                pools.append(g)
+                pb = PointBatch(
+                    coord=torch.zeros((cap, 3), dtype=torch.float32, device=pb.device), feat=None,
+                    grid_coord=g["grid"], batch=g["batch"], segment=g["segment"], serialized_keys=g["keys"],
+                    serialized_order=g["order"], serialized_inverse=g["inverse"],
+                    serialized_depth=g["depth"], num_scenes=pb.num_scenes,
+                )
+            stages.append(self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag, False,
+                                          s > 0 or self.sorted_layout))
+        overflow = torch.zeros((), dtype=torch.int32, device=pb.device)
+        for v in (v for vs in diag.values() for v in vs):
+            overflow = overflow + v
+        return dict(pb0=pb0, perm0=perm0, unsort=unsort, nbr5=nbr5, stages=stages, pools=pools,
+                    overflow=overflow)
+
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
+                precomputed: Optional[dict] = None):
+        """`precomputed`: the `build_geometry` of a batch of the same points
+        (grid and batch ids); `pb` then brings only its features (and
+        coords), which go through the geometry's pin. Its overflow is counted
+        once, as ``geom_overflow``."""
         s_orders = len(self.order)
         num_stages = len(self.enc_depths)
         shuffled = self.training and self.shuffle_orders
@@ -445,32 +509,46 @@ class PointTransformerV3(nn.Module):
         if self.amp:
             pb = pb.replace(feat=pb.feat.to(torch.bfloat16))
         diag = {"block_overflow": [], "pool_overflow": []}
-        pb = pb.with_grid_coord(self.grid_size)
-        if shuffled:
-            pb = pb.serialize(orders=self.order, depth=self.serialize_depth, generator=generator)
+        geom = precomputed
+        if geom is not None:
+            if self.training:
+                raise ValueError("PT-v3m1: a precomputed geometry serves the eval forward only")
+            diag["geom_overflow"] = [geom["overflow"]]
+            feat, coord, segment = pb.feat, pb.coord, pb.segment
+            if geom["perm0"] is not None:
+                p = geom["perm0"].long()
+                feat, coord = feat[p], coord[p]
+                segment = None if segment is None else segment[p]
+            pb = geom["pb0"].replace(feat=feat, coord=coord, segment=segment)
+            sorted_ok, unsort, nbr5 = self.sorted_layout, geom["unsort"], geom["nbr5"]
         else:
-            used0 = self._used_orders(0, False)
-            pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
-                              sort_indices=used0, key_orders=used0)
-        sorted_ok = self.sorted_layout and not shuffled
-        unsort = None
-        if sorted_ok:
-            # sorted layout: pin the batch to order 0, which then is the identity
-            perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
-            pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
-            unsort = (inv0, perm0)
+            pb = pb.with_grid_coord(self.grid_size)
+            if shuffled:
+                pb = pb.serialize(orders=self.order, depth=self.serialize_depth, generator=generator)
+            else:
+                used0 = self._used_orders(0, False)
+                pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
+                                  sort_indices=used0, key_orders=used0)
+            sorted_ok = self.sorted_layout and not shuffled
+            unsort = None
+            if sorted_ok:
+                # sorted layout: pin the batch to order 0, which then is the identity
+                perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
+                pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
+                unsort = (inv0, perm0)
 
         def ident0(stage):
             # order 0 is the identity: at stage 0 after the pin, at pooled
             # stages whenever the orders are unshuffled (pooling's output order)
             return not shuffled and (stage > 0 or sorted_ok)
 
-        stage0_tables = None
-        if self.conv_engine == "block":
-            stage0_tables = nbr5 = self._block_tables(pb, 0, diag, shuffled, ident0(0))
-        else:
-            nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
-                                           self.serialize_depth, 5)
+        if geom is None:
+            stage0_tables = None
+            if self.conv_engine == "block":
+                stage0_tables = nbr5 = self._block_tables(pb, 0, diag, shuffled, ident0(0))
+            else:
+                nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
+                                               self.serialize_depth, 5)
         pb = self.embedding(pb, nbr5)
 
         skips = []
@@ -479,16 +557,19 @@ class PointTransformerV3(nn.Module):
         for s in range(num_stages):
             stage = getattr(self.enc, f"enc{s}")
             if s > 0:
-                cap = _round_up(max(int(math.ceil(cap * self.pool_capacity_factors[s - 1])), 128), 128)
+                cap = self._pooled_capacity(cap, s)
                 skip_pb = pb
                 pb, cluster, overflow = stage.down(
                     pb, cap, self.order, None if shuffled else self._used_orders(s, False),
                     ident0(s - 1), generator if shuffled else None,
+                    geom=None if geom is None else geom["pools"][s - 1],
                 )
-                diag["pool_overflow"].append(overflow)
+                if geom is None:
+                    diag["pool_overflow"].append(overflow)
                 skips.append((skip_pb, cluster, ctx))
-            ctx = self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag,
-                                  shuffled, ident0(s))
+            ctx = (geom["stages"][s] if geom is not None
+                   else self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag,
+                                        shuffled, ident0(s)))
             for i in range(self.enc_depths[s]):
                 pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders],
                                                  generator=generator)

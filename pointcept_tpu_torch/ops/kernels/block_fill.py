@@ -28,6 +28,12 @@ def block_fill_plain(feat_sorted: torch.Tensor, rc_sorted: torch.Tensor, starts:
     return out
 
 
+def fill_sizes(n: int, c: int, m: int, b3: int) -> None:
+    """The kernel's int range: rows, codes and elements of its input and
+    output (raises past 2^31 - 1)."""
+    build.check_int32("block_fill", feat_elements=n * c, codes=(m + 1) * b3, out_elements=(m + 1) * b3 * c)
+
+
 def block_fill(feat_sorted: torch.Tensor, rc_sorted: torch.Tensor, starts: torch.Tensor,
                b3: int) -> torch.Tensor:
     """As `block_fill_plain`; block t's members must sit at sorted rows
@@ -54,6 +60,7 @@ def block_fill(feat_sorted: torch.Tensor, rc_sorted: torch.Tensor, starts: torch
         raise RuntimeError("block_fill: the raw kernel records no gradient; use BlockFill")
     n, c = feat_sorted.shape
     m = starts.shape[0]
+    fill_sizes(n, c, m, b3)
     out = torch.empty(((m + 1) * b3, c), dtype=feat_sorted.dtype, device=feat_sorted.device)
     fn = build.cfunc(
         "block_fill", "block_fill",

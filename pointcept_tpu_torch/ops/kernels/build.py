@@ -102,3 +102,14 @@ def check(status: int, what: str) -> None:
     """Raise on a nonzero cudaError_t returned by a launch."""
     if status != 0:
         raise RuntimeError(f"{what}: CUDA launch failed with cudaError_t {status}")
+
+
+INT32_MAX = 2**31 - 1
+
+
+def check_int32(what: str, **counts: int) -> None:
+    """Raise where a count the kernel takes as an `int` (an element count,
+    a row, an int32 code) passes 2^31 - 1: the kernel would read wrong rows."""
+    for name, value in counts.items():
+        if value > INT32_MAX:
+            raise ValueError(f"{what}: {name} = {value} passes 2^31 - 1, the kernel's int range")

@@ -88,6 +88,12 @@ def _unpad_heads(x: torch.Tensor, num_heads: int, parts: int, d: int) -> torch.T
     return x.reshape(np_, k, parts, num_heads, _PAD_D)[..., :d].reshape(np_, k, parts * num_heads * d)
 
 
+def attention_sizes(np_: int, k: int, c: int, num_heads: int) -> None:
+    """The kernels' int range: elements of the packed rows and of the row
+    statistics (raises past 2^31 - 1)."""
+    build.check_int32("patch_attention", qkv_elements=np_ * k * 3 * c, stats_elements=np_ * num_heads * k * 2)
+
+
 def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats: bool = False):
     """qkv_p [nP, K, 3C] slot-gathered rows (q | k | v, head-major within
     each) -> [nP, K, C]; with `stats` also the row statistics m, l that
@@ -102,6 +108,7 @@ def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats
         return (out,) + tuple(res[1:]) if stats else out
     np_, k, c3 = qkv_p.shape
     c = c3 // 3
+    attention_sizes(np_, k, c, num_heads)
     if fwd_shared_memory(k, d) > SMEM_LIMIT:
         raise ValueError(f"patch_attention_fwd: patch size {k} exceeds shared memory at D={d}")
     out = torch.empty((np_, k, c), dtype=qkv_p.dtype, device=qkv_p.device)
@@ -210,6 +217,7 @@ def patch_attention_bwd(qkv_p: torch.Tensor, out: torch.Tensor, dout: torch.Tens
         dqkv = patch_attention_bwd(_pad_heads(qkv_p, num_heads, 3), _pad_heads(out, num_heads, 1),
                                    _pad_heads(dout, num_heads, 1), m, l, num_heads, scale)
         return _unpad_heads(dqkv, num_heads, 3, d)
+    attention_sizes(np_, k, c, num_heads)
     split, warps, key_tiles, smem = bwd_plan(k, d)
     if smem > SMEM_LIMIT or split > _BWD_MAX_CLUSTER:
         raise ValueError(f"patch_attention_bwd: patch size {k} exceeds shared memory at D={d}")

@@ -27,6 +27,12 @@ def take_back_rows_plain(dense: torch.Tensor, slot: torch.Tensor,
     return torch.where(ok[:, None], rows, torch.zeros((), dtype=dense.dtype, device=dense.device))
 
 
+def take_back_sizes(n: int, r: int, c: int) -> None:
+    """The kernel's int range: rows and elements of its input and output
+    (raises past 2^31 - 1)."""
+    build.check_int32("take_back_rows", dense_elements=r * c, out_elements=n * c)
+
+
 def take_back_rows(dense: torch.Tensor, slot: torch.Tensor,
                    bound: Optional[int] = None) -> torch.Tensor:
     """As `take_back_rows_plain`; every slot must be < R. On CUDA: bf16 dense,
@@ -48,6 +54,7 @@ def take_back_rows(dense: torch.Tensor, slot: torch.Tensor,
         raise RuntimeError("take_back_rows: the raw kernel records no gradient; use TakeBack")
     n = slot.shape[0]
     r, c = dense.shape
+    take_back_sizes(n, r, c)
     bound = r if bound is None else min(bound, r)
     out = torch.empty((n, c), dtype=dense.dtype, device=dense.device)
     fn = build.cfunc("take_back", "take_back_rows",

@@ -31,6 +31,7 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.utils.optimizer, pointcept_tpu_torch.utils.scheduler\n"
         "import pointcept_tpu_torch.utils.config, pointcept_tpu_torch.utils.events\n"
         "import pointcept_tpu_torch.engines.hooks, pointcept_tpu_torch.engines.train\n"
+        "import pointcept_tpu_torch.engines.test, pointcept_tpu_torch.utils.misc\n"
         "import pointcept_tpu_torch.datasets.loader, pointcept_tpu_torch.datasets.scannet\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
