@@ -13,6 +13,8 @@ each printing JSON lines:
    of the main paths (tables from a real synthetic scene): the attention
    forward at every stage's shapes of the eval forward and the train step
    (and at head dim 8, the overfit config's stage 0, zero-padded to 16),
+   the forward and backward at Sonata's stage 0 (C 48, H 3) and stage 3
+   (C 384, H 24) over the global views of 262,144 rows,
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -76,7 +78,21 @@ each printing JSON lines:
    mIoU > 0.80, allAcc > 0.90, nothing dropped, a second `test()` from the
    cached preds gives the same result, and the same tester on the CPU
    agrees (summed preds, argmax, mIoU);
-13. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+13. Sonata's pretraining: `configs/sonata/pretrain-sonata-v1m1-0-base.py`
+   unchanged in model (PT-v3m2 encoder 48-512, depths 3/3/3/12/3, heads of
+   4,096 x 512 x 4,096, 2 global and 4 local views, masking, AMP),
+   schedule, transforms and hooks, through `main_worker` on phase 10's train
+   scenes (batch 2, capacity 262,144, 2 epochs of 2 steps, checkpoints every
+   epoch): finite losses, nothing dropped or subsampled, the hooks' values
+   against SonataHook on the host and the cosine weight decay, every
+   student parameter updated, `epoch_1.pth` holding the teacher, 72
+   attention forwards and 48 backwards a step; then one more step, after
+   which every teacher tensor is its EMA bit for bit; the second epoch
+   resumed through the CLI (the same loss bits); a 16-step epoch; one
+   small-depth step on the card against the CPU; and the supervised PT-v3m2
+   config (`semseg-pt-v3m2-0-sonata-scratch.py`, block engine) for 4 steps
+   at phase 10's cuts;
+14. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
@@ -206,6 +222,27 @@ TESTER_CPU_BOUNDS = dict(rel=5e-2, agreement=0.99, miou=0.02)
 # small depth for the card-vs-CPU phases: one block a stage, the block engine
 # from 4,096 points (levels 0-2 of a 16,384-point scene)
 SPUNET_SMALL = dict(SPUNET, layers=(1,) * 8, block_engine_min_points=4096)
+# phase 13: Sonata's self-distillation pretraining config, unchanged in
+# model, schedule, transforms and hooks, on phase 10's train scenes, and the
+# options that cut it to one card (PERF.md §4): the config's batch of 96 and
+# its 131,072 rows are per chip over many chips; two scenes need 262,144
+# rows (two global views of up to 65,536 points each a scene); save every
+# epoch for the resume
+SONATA_CONFIG = "configs/sonata/pretrain-sonata-v1m1-0-base.py"
+SONATA_OPTIONS = dict(batch_size=2, point_capacity=262144, num_worker=4, seed=0, epoch=2, eval_epoch=2,
+                      **{"hooks.5.save_freq": 1})
+SONATA_STEADY = dict(epoch=8, eval_epoch=1)
+SONATA_POOL = (0.5, 0.5, 0.5, 0.5)  # PT-v3m2's pooling factors, which the config keeps
+SONATA_VIEWS = (2, 4)  # global and local views a scene
+# Sonata's attention at its stage 0 and its 12-block stage 3: (stage, C, H,
+# forward launches a step: the stage's blocks in three forwards)
+SONATA_ATTENTION = ((0, 48, 3, 9), (3, 384, 24, 36))
+# teacher tensors whose EMA the phase reports by name
+SONATA_EMA_NAMES = ("teacher.backbone.embedding.stem.linear.weight",
+                    "teacher.backbone.enc.enc3.block11.attn.qkv.weight", "teacher.mask_head.prototype.weight_v")
+# the supervised PT-v3m2 config (linear stem, decoder, the ScanNet base's
+# block engine) at phase 10's cuts
+SCRATCH_CONFIG = "configs/scannet/semseg-pt-v3m2-0-sonata-scratch.py"
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -306,10 +343,11 @@ def _named(row: dict) -> dict:
     return {("kernel_ms" if k == "ms" else k): v for k, v in row.items()}
 
 
-def _patches(capacity: int, stage: int, num_scenes: int, k: int = 1024) -> int:
+def _patches(capacity: int, stage: int, num_scenes: int, factors=BACKBONE["pool_capacity_factors"],
+             k: int = 1024) -> int:
     """Patches of one stage: the model's static pooled capacity, padded."""
     cap = capacity
-    for f in BACKBONE["pool_capacity_factors"][:stage]:
+    for f in factors[:stage]:
         cap = -(-max(math.ceil(cap * f), 128) // 128) * 128
     return -(-cap // k) + num_scenes  # padded_capacity / K
 
@@ -494,11 +532,16 @@ def attention_cases(device, gen, exp_rate):
     cases += [("patch 128", 2, None, c, h, 0) for c, h in ((32, 2), (256, 16))]
     o = OVERFIT_ATTENTION
     cases += [("overfit train", o["scenes"], "D=8", o["c"], o["h"], o["launches"])]
+    # Sonata's global views (two scenes, two views each): its stage 0 and
+    # its 12-block stage 3, launches of the teacher's and both student
+    # forwards, and of both student backwards
+    cases += [("sonata", 2 * SONATA_VIEWS[0], stage, c, h, n) for stage, c, h, n in SONATA_ATTENTION]
     # the tester's stage 0 (TESTER_B fragments a forward), encoder and decoder
     cases += [("tester", TESTER_B, stage, c, h, n) for stage, c, h, n in attention_shapes() if stage == 0]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
+               else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
                else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
@@ -510,6 +553,8 @@ def attention_cases(device, gen, exp_rate):
         serving = path in ("eval", "tester")
         per = "launches_per_forward" if serving else "launches_per_step"
         kernels = ("fwd",) if serving else ("fwd", "bwd") if stage is not None else ("bwd",)
+        # a Sonata step: every block attends in three forwards and two backwards
+        launches_of = {"fwd": launches, "bwd": launches * 2 // 3} if path == "sonata" else None
         stats = not serving
         out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
         for kern in kernels:
@@ -552,17 +597,18 @@ def attention_cases(device, gen, exp_rate):
                 bytes_ = np_ * kk_ * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * kk_ * 8
                 flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
                 name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
-                if (path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8":
+                if ((path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8"
+                        or (path == "sonata" and stage == 0)):
                     identical_checks(qkv, out, dout, m_, l_, h, scale, got)
             exps = np_ * h * kk_ * kk_
             row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
             row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
             row["share_of_bound"] = row["bound_ms"] / row["ms"]
             row["vs_library"] = row["ms"] / row["library_ms"]
-            row[per] = launches
+            row[per] = launches if launches_of is None else launches_of[kern]
             emit("time", kernel=name, library=library, **_named(row))
-            if launches:
-                sums[(path, name)] = sums.get((path, name), 0.0) + launches * row["ms"]
+            if row[per]:
+                sums[(path, name)] = sums.get((path, name), 0.0) + row[per] * row["ms"]
             if stage == 0 and c == BACKBONE["enc_channels"][0] and (path, kern) in (("eval", "fwd"),
                                                                                    ("train", "bwd")):
                 results[name] = row
@@ -1401,6 +1447,294 @@ def overfit_runs(device, card, work: str):
             overfit_tester(device, card, work, path, options, save)
 
 
+def _hyper_rows(model, steps_per_epoch: int, epochs: int, start_epoch: int = 0) -> list:
+    """SonataHook's values of every step of a run, on the host alone."""
+    from types import SimpleNamespace
+
+    from pointcept_tpu_torch.engines.hooks import SonataHook
+
+    hook = SonataHook()
+    hook.trainer = SimpleNamespace(model=model, train_loader=[None] * steps_per_epoch, max_epoch=epochs,
+                                   start_epoch=start_epoch, comm_info={},
+                                   storage=SimpleNamespace(put_scalar=lambda *a, **k: None))
+    hook.before_train()
+    rows = []
+    for _ in range((epochs - start_epoch) * steps_per_epoch):
+        hook.before_step()
+        rows.append(dict(hook.trainer.comm_info["model_hyper"]))
+    return rows
+
+
+def sonata_path(device, card, work: str):
+    """Phase 13: the Sonata pretraining config through the port's trainer at
+    full width on phase 10's train scenes; its hooks' values, the EMA, the
+    checkpoint and the resumed epoch; its steady state; one small-depth step
+    on the card against the CPU; then the supervised PT-v3m2 config."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser, main_worker
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    options = dict(SONATA_OPTIONS, **{"data.train.data_root": os.path.join(work, "scannet")})
+    first = os.path.join(work, "sonata")
+    cfg = default_config_parser(os.path.join(ROOT, SONATA_CONFIG), dict(options, save_path=first))
+    bb = cfg.model.backbone
+    emit("sonata_setup", config=SONATA_CONFIG, options=options, enc_channels=bb.enc_channels,
+         enc_depths=bb.enc_depths, enc_num_head=bb.enc_num_head, heads=[cfg.model.head_hidden_channels,
+         cfg.model.head_embed_channels, cfg.model.head_num_prototypes], views=SONATA_VIEWS, amp=cfg.enable_amp)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = _quiet(lambda: main_worker(cfg), os.path.join(work, "trainer.log"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
+    rows = _metrics(first)
+    losses = ("loss", "mask_loss", "roll_mask_loss", "unmask_loss")
+    steps = [dict(epoch=r["epoch"], iter=r["iter"], **{k: r[k] for k in losses}, batch_time_ms=r["batch_time"] * 1e3,
+                  data_time_ms=r["data_time"] * 1e3, pool_overflow=r["pool_overflow"],
+                  block_overflow=r["block_overflow"], collate_dropped=r["collate_dropped"],
+                  **{k[len("params/"):]: r[k] for k in r if k.startswith("params/")}) for r in rows]
+    for st in steps:
+        emit("sonata_step", **st)
+    per_epoch = len(trainer.train_loader)
+    want_hyper = _hyper_rows(trainer.model, per_epoch, trainer.max_epoch)
+    hyper_ok = len(steps) == len(want_hyper) and all(
+        st[k] == w[k] for st, w in zip(steps, want_hyper) for k in w)
+    wd_hook = next(h for h in cfg.hooks if h["type"] == "WeightDecaySchedular")
+    base, final = wd_hook["base_value"], wd_hook["final_value"]
+    want_wd = {e + 1: final + 0.5 * (base - final) * (1 + math.cos(math.pi * e / trainer.max_epoch))
+               for e in range(trainer.max_epoch)}
+    got_wd = {st["epoch"]: st["weight_decay"] for st in steps if "weight_decay" in st}
+    wd_ok = got_wd.keys() == want_wd.keys() and all(abs(got_wd[e] - want_wd[e]) < 1e-12 for e in want_wd)
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device=device,
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    unchanged = [n for (n, a), b in zip(initial.student.named_parameters(), trainer.model.student.parameters())
+                 if torch.equal(a, b.detach())]
+    del initial
+    ckpt = torch.load(os.path.join(first, "model", "epoch_1.pth"), map_location="cpu", weights_only=False)["state_dict"]
+    teacher_keys = [k for k in ckpt if k.startswith("teacher.")]
+    teacher_differs = any(not torch.equal(ckpt[k], ckpt["student." + k[len("teacher."):]]) for k in teacher_keys
+                          if k.endswith("weight"))
+    ckpt_ok = (len(teacher_keys) == sum(1 for k in trainer.model.state_dict() if k.startswith("teacher."))
+               and teacher_differs)
+    del ckpt
+    n_steps = len(steps)
+    fwd_per_step = launches["patch_attention"] / max(n_steps, 1)
+    bwd_per_step = launches["patch_attention_bwd"] / max(n_steps, 1)
+    blocks = sum(bb.enc_depths)
+    emit("sonata", card=card, seconds=seconds, parameters=sum(p.numel() for p in trainer.model.parameters()),
+         trainable=sum(p.numel() for p in trainer.model.parameters() if p.requires_grad), steps=n_steps,
+         **_step_times(steps), peak_memory_bytes=peak, launches=launches,
+         attention_fwd_per_step=fwd_per_step, attention_bwd_per_step=bwd_per_step,
+         head_in_channels=[trainer.model.head_in_channels, trainer.model.config_head_in_channels],
+         hyper_match=hyper_ok, weight_decay=got_wd, weight_decay_match=wd_ok,
+         unchanged_student_parameters=len(unchanged), checkpoint_teacher_tensors=len(teacher_keys))
+    if n_steps != 4 or not all(math.isfinite(st[k]) for st in steps for k in losses):
+        raise AssertionError(f"sonata: expected 4 steps of finite losses, got {steps}")
+    if any(st["pool_overflow"] or st["block_overflow"] or st["collate_dropped"] for st in steps):
+        raise AssertionError("sonata: points overflowed static capacities or the collate subsampled")
+    if not (hyper_ok and wd_ok):
+        raise AssertionError("sonata: scheduled values differ from SonataHook's or the cosine weight decay")
+    if unchanged:
+        raise AssertionError(f"sonata: {len(unchanged)} student parameters not updated, e.g. {unchanged[:3]}")
+    if not ckpt_ok:
+        raise AssertionError("sonata: epoch_1.pth does not hold the teacher")
+    if fwd_per_step != 3 * blocks or bwd_per_step != 2 * blocks:
+        raise AssertionError(f"sonata: {fwd_per_step} attention forwards and {bwd_per_step} backwards a step, "
+                             f"expected {3 * blocks} and {2 * blocks}")
+    sonata_ema_check(trainer, device)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the second epoch again, through the CLI, resumed from epoch 1
+    resumed = os.path.join(work, "sonata_resumed")
+    argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
+            os.path.join(ROOT, SONATA_CONFIG), "--options"]
+    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
+                                          weight=os.path.join(first, "model", "epoch_1.pth")).items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], file=sys.stderr)
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the training CLI exited with {proc.returncode}")
+    want = [[r[k] for k in losses] for r in rows if r["epoch"] == 2]
+    got = [[r[k] for k in losses] for r in _metrics(resumed)]
+    emit("sonata_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=got == want)
+    if got != want:
+        raise AssertionError(f"sonata: resumed epoch 2 losses {got} differ from the first run's {want}")
+
+    # the steady state: one epoch of 16 steps
+    save = os.path.join(work, "sonata_steady")
+    cfg = default_config_parser(os.path.join(ROOT, SONATA_CONFIG), dict(options, save_path=save, **SONATA_STEADY))
+    torch.cuda.reset_peak_memory_stats(device)
+    trainer = _quiet(lambda: main_worker(cfg), os.path.join(work, "trainer.log"))
+    peak = torch.cuda.max_memory_allocated(device)
+    steady = [dict(epoch=r["epoch"], batch_time_ms=r["batch_time"] * 1e3, data_time_ms=r["data_time"] * 1e3,
+                   overflow=r["pool_overflow"] + r["block_overflow"] + r["collate_dropped"]) for r in _metrics(save)]
+    emit("sonata_steady", card=card, options=SONATA_STEADY, steps=len(steady),
+         batch_time_ms=[st["batch_time_ms"] for st in steady], data_time_ms=[st["data_time_ms"] for st in steady],
+         **_step_times(steady), peak_memory_bytes=peak)
+    if len(steady) != 16 or any(st["overflow"] for st in steady):
+        raise AssertionError(f"sonata steady state: {len(steady)} steps, overflow {[st['overflow'] for st in steady]}")
+    del trainer
+    torch.cuda.empty_cache()
+    sonata_card_vs_cpu(device)
+    scratch_path(device, card, work)
+
+
+def sonata_ema_check(trainer, device):
+    """One more step of the trained model on a batch of its loader: every
+    teacher tensor afterwards is ``(m * t) + ((1 - m) * s)`` of its copy
+    taken before the step and the updated student, bit for bit."""
+    import torch
+
+    from pointcept_tpu_torch.engines import build_train_step, make_inputs
+
+    trainer.train_loader.num_workers = 0
+    batch = next(iter(trainer.train_loader))
+    hyper = _hyper_rows(trainer.model, len(trainer.train_loader), trainer.max_epoch)[-1]
+    teacher = dict(trainer.model.teacher.named_parameters())
+    before = {n: p.detach().clone() for n, p in teacher.items()}
+    step = build_train_step(trainer.model, trainer.optimizer, trainer.build_scheduler(), trainer.cfg.get("clip_grad"))
+    step(make_inputs(batch, device=device), torch.Generator(device=device).manual_seed(1), hyper)
+    m = hyper["momentum"]
+    student = dict(trainer.model.student.named_parameters())
+    same = {n: bool(torch.equal(p, (m * before[n]) + ((1.0 - m) * student[n].detach()))) for n, p in teacher.items()}
+    named = {n: same.get(n[len("teacher."):]) for n in SONATA_EMA_NAMES}
+    moved = sum(int(not torch.equal(before[n], p)) for n, p in teacher.items())
+    emit("sonata_ema", momentum=m, named=named, teacher_tensors=len(same), follow_the_formula=sum(same.values()),
+         moved=moved)
+    if not all(same.values()):
+        raise AssertionError(f"sonata: teacher tensors off the EMA: {[n for n, ok in same.items() if not ok][:5]}")
+
+
+def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
+    """One small-depth Sonata train step (the config's widths and heads, one
+    block a stage, pool factors 0.75, in f32: under AMP a 1e-6 nudge of the
+    input moves some gradient tensors by their own size; orders unshuffled,
+    drop path 0) on
+    the card and on the CPU, same weights, batch (the config's pipeline on a
+    small scene) and mask scores: losses and student gradients against the
+    slice's bounds, or twice the CPU's own noise floor (the step again on
+    features nudged by 1e-6)."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
+    from pointcept_tpu_torch.engines import build_train_step, make_inputs
+    from pointcept_tpu_torch.models import build_model
+    from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
+    from pointcept_tpu_torch.utils.config import Config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = Config.fromfile(os.path.join(ROOT, SONATA_CONFIG))
+    # pool factors 0.75: the views of one small scene fill its capacity
+    # closer than two full scenes fill 262,144 rows
+    model_cfg = dict(cfg.model, backbone=dict(cfg.model.backbone, enc_depths=(1,) * 5, shuffle_orders=False,
+                                              drop_path=0.0, pool_capacity_factors=(0.75,) * 4))
+    pipeline = Compose([t for t in cfg.data.train.transform])
+    np.random.seed(0)
+    # the point density of phase 10's scenes (409,600 points in a 6 m room)
+    sample = synthesize_scene(100, num_points=20000, num_classes=NUM_CLASSES, extent=1.4)
+    sample = pipeline(dict(coord=sample["coord"], color=sample["color"].astype(np.float32),
+                           normal=sample["normal"]))
+    need = max(int(sample["global_offset"][-1]), int(sample["local_offset"][-1]))
+    arrays = point_collate_fn([sample], capacity=-(-need // 1024) * 1024)
+    nudged = dict(arrays)
+    for key in ("global_feat", "local_feat"):
+        nudged[key] = arrays[key] * (1 + 1e-6 * np.random.RandomState(0).randn(*arrays[key].shape).astype(np.float32))
+    scores = torch.rand(arrays["global_coord"].shape[0], generator=torch.Generator().manual_seed(3))
+    hyper = dict(mask_size=0.4, mask_ratio=0.5, teacher_temp=0.07, momentum=0.996)
+    out = {}
+    for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays), ("cpu_nudged", "cpu", nudged)):
+        model = build_model(model_cfg, device=dev, generator=torch.Generator().manual_seed(1))
+        forward = model.forward
+        model.forward = lambda d, generator=None, hyper=None, f=forward, s=scores.to(dev): f(d, generator, hyper,
+                                                                                              mask_scores=s)
+        optimizer = build_optimizer(dict(cfg.optimizer), model, cfg.param_dicts)
+        step = build_train_step(model, optimizer, build_scheduler(dict(cfg.scheduler), optimizer, TOTAL_STEPS))
+        t0 = time.perf_counter()
+        res = step(make_inputs(data, device=dev), torch.Generator(device=dev), hyper)
+        out[name] = dict(losses={k: float(v) for k, v in res.items() if k.endswith("loss")},
+                         overflow=int(res["pool_overflow"]) + int(res["block_overflow"]),
+                         grads={n: p.grad.float().cpu().numpy() for n, p in model.student.named_parameters()},
+                         seconds=time.perf_counter() - t0)
+        del model, optimizer, step
+    card, cpu, floor_run = out["card"], out["cpu"], out["cpu_nudged"]
+    gmax = max(float(np.abs(g).max()) for g in cpu["grads"].values())
+    # biases that feed only the poolings' train-mode BatchNorms: zero
+    # gradient in exact arithmetic, rounding noise on both devices
+    vanishing = {n for n, c in cpu["grads"].items() if np.abs(c).max() < 1e-6 * gmax}
+    worst, worst_name, low_cos = _grad_distance(card["grads"], cpu["grads"], vanishing, gmax)
+    floor, floor_name, floor_cos = _grad_distance(floor_run["grads"], cpu["grads"], vanishing, gmax)
+    max_loss, max_grad, min_cos = TRAIN_BOUNDS[False]
+    max_grad = max(max_grad, 2 * floor)
+    min_cos = min(min_cos, 1 - 2 * (1 - floor_cos))
+    rel_loss = {k: abs(card["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
+    floor_loss = {k: abs(floor_run["losses"][k] - v) / abs(v) for k, v in cpu["losses"].items()}
+    loss_bound = {k: max(max_loss, 2 * floor_loss[k]) for k in rel_loss}
+    emit(phase, amp=False, points=[int((arrays[f"{p}_batch"] >= 0).sum()) for p in ("global", "local")],
+         losses=[card["losses"], cpu["losses"]], rel_loss_err=rel_loss, loss_bounds=loss_bound,
+         worst_grad_rel_l2=worst, worst_tensor=worst_name, min_cos=low_cos,
+         noise_floor=dict(loss=floor_loss, grad_rel_l2=floor, tensor=floor_name, min_cos=floor_cos),
+         vanishing_tensors=len(vanishing), bounds=[max_grad, min_cos], overflow=[card["overflow"], cpu["overflow"]],
+         cpu_seconds=cpu["seconds"])
+    if not (all(rel_loss[k] < loss_bound[k] for k in rel_loss) and worst < max_grad and low_cos > min_cos):
+        raise AssertionError(f"card and CPU Sonata train steps disagree ({phase})")
+    if card["overflow"] or cpu["overflow"]:
+        raise AssertionError(f"{phase}: overflow {card['overflow']} (card), {cpu['overflow']} (CPU)")
+
+
+def scratch_path(device, card, work: str):
+    """Phase 13's supervised PT-v3m2 run: `semseg-pt-v3m2-0-sonata-scratch.py`
+    (PT-v3m2's linear stem, Sonata's encoder widths, a decoder, the ScanNet
+    base's block engine) through `main_worker` at phase 10's cuts: 4 steps,
+    2 evaluations."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser, main_worker
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    data_root = os.path.join(work, "scannet")
+    save = os.path.join(work, "scratch")
+    options = dict(TRAINER_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    cfg = default_config_parser(os.path.join(ROOT, SCRATCH_CONFIG), dict(options, save_path=save))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(device)
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    trainer = _quiet(lambda: main_worker(cfg), os.path.join(work, "trainer.log"))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    steps = [dict(epoch=r["epoch"], loss=r["loss"], batch_time_ms=r["batch_time"] * 1e3,
+                  data_time_ms=r["data_time"] * 1e3, overflow=r["pool_overflow"] + r["block_overflow"])
+             for r in _metrics(save)]
+    evals = trainer.comm_info["eval_result"]
+    emit("scratch", config=SCRATCH_CONFIG, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+         losses=[st["loss"] for st in steps], **_step_times(steps), val_mIoU=evals["mIoU"],
+         val_overflow=evals["overflow"], peak_memory_bytes=torch.cuda.max_memory_allocated(device),
+         launches=launches)
+    if len(steps) != 4 or not all(math.isfinite(st["loss"]) for st in steps):
+        raise AssertionError(f"scratch: expected 4 finite losses, got {[st['loss'] for st in steps]}")
+    if any(st["overflow"] for st in steps) or evals["overflow"]:
+        raise AssertionError("scratch: points overflowed static capacities")
+    for name in TRAIN_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the PT-v3m2 trainer")
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     import torch
 
@@ -1443,6 +1777,7 @@ def main() -> int:
         trainer_path(device, card, work, bare_step_ms)
         tester_path(device, card, work)
         overfit_runs(device, card, work)
+        sonata_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

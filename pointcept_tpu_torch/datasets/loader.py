@@ -8,11 +8,19 @@ shuffle of an epoch is ``RandomState(seed + epoch)``'s, and before each batch
 in a worker or not, as the JAX package does: one seed gives the same batches
 there and here. With `pin_memory` the collated arrays arrive as pinned host
 tensors, so that the step's copies to the card can be ``non_blocking``.
+
+Workers are forked from a process that holds CUDA state. Python's garbage
+collector is frozen across the fork, so a worker never collects an object
+it inherited (one that holds a CUDA tensor would call into CUDA from the
+child and abort it), and a worker that dies raises in the parent rather
+than leaving it waiting for its batches.
 """
 
 from __future__ import annotations
 
+import gc
 import multiprocessing as mp
+import queue
 import random
 import traceback
 from typing import Callable, List, Optional
@@ -98,11 +106,16 @@ class DataLoader:
         task_q = ctx.Queue()
         result_q = ctx.Queue(maxsize=max(self.prefetch, self.num_workers))
         workers = []
-        for _ in range(self.num_workers):
-            p = ctx.Process(target=_worker_loop,
-                            args=(self.dataset, self.collate_fn, task_q, result_q, self.seed), daemon=True)
-            p.start()
-            workers.append(p)
+        gc.collect()
+        gc.freeze()
+        try:
+            for _ in range(self.num_workers):
+                p = ctx.Process(target=_worker_loop,
+                                args=(self.dataset, self.collate_fn, task_q, result_q, self.seed), daemon=True)
+                p.start()
+                workers.append(p)
+        finally:
+            gc.unfreeze()
         try:
             for bi, idxs in enumerate(batches):
                 task_q.put((bi, idxs, self.epoch))
@@ -110,7 +123,14 @@ class DataLoader:
                 task_q.put(None)
             buffered, next_idx = {}, 0
             for _ in range(len(batches)):
-                bi, batch, err = result_q.get()
+                while True:
+                    try:
+                        bi, batch, err = result_q.get(timeout=5)
+                        break
+                    except queue.Empty:
+                        dead = [p.exitcode for p in workers if p.exitcode not in (None, 0)]
+                        if dead:
+                            raise RuntimeError(f"DataLoader worker died (exit code {dead[0]})") from None
                 if err is not None:
                     raise RuntimeError(f"DataLoader worker failed:\n{err}")
                 buffered[bi] = batch

@@ -7,14 +7,17 @@ ChromaticTranslation, ChromaticJitter), GridSample, SphereCrop (random and
 center mode), NormalizeColor, ToTensor (a no-op: arrays stay numpy until
 the collate) and Collect; for the tester, GridSample's test mode
 (`count.max()` fragments, each holding one point of every voxel, with its
-source `index`) and `return_inverse`, RandomRotateTargetAngle and Copy.
-Each draws from `np.random` and `random` in the JAX version's order, so one
+source `index`) and `return_inverse`, RandomRotateTargetAngle and Copy;
+for Sonata's pretraining, RandomColorJitter, RandomColorGrayScale,
+RandomColorDrop and MultiViewGenerator (global and local crops, each view
+augmented on its own). Each draws from `np.random` and `random` in the JAX version's order, so one
 seed gives the same arrays bit for bit.
 """
 
 from __future__ import annotations
 
 import copy
+import numbers
 import random
 from collections.abc import Sequence
 
@@ -63,7 +66,14 @@ class Compose:
 
 @TRANSFORMS.register_module()
 class Collect:
-    """Pick keys, emit the offset, concatenate feat_keys."""
+    """Pick keys, emit the offset, concatenate feat_keys.
+
+    An offset key the pipeline already holds is kept as it is: the per-view
+    offsets of `MultiViewGenerator` (``global_offset``, ``local_offset``),
+    which Sonata's config names in `offset_keys_dict`. The JAX package
+    replaces them with the total count, so both views of a scene become one
+    scene there; the reference keeps one offset a view
+    (``[pc1, pc1', pc2, pc2']``, its Sonata `roll_point`)."""
 
     def __init__(self, keys, offset_keys_dict=None, **kwargs):
         self.keys = [keys] if isinstance(keys, str) else list(keys)
@@ -73,7 +83,7 @@ class Collect:
     def __call__(self, data_dict):
         data = {key: data_dict[key] for key in self.keys}
         for key, value in self.offset_keys.items():
-            data[key] = np.array([data_dict[value].shape[0]])
+            data[key] = data_dict[key] if key in data_dict else np.array([data_dict[value].shape[0]])
         for name, keys in self.kwargs.items():
             assert isinstance(keys, Sequence)
             data[name.replace("_keys", "")] = np.concatenate(
@@ -417,4 +427,228 @@ class SphereCrop:
             center = data_dict["coord"][np.random.randint(n) if self.mode == "random" else n // 2]
             idx_crop = np.argsort(np.sum(np.square(data_dict["coord"] - center), 1))[:point_max]
             data_dict = index_operator(data_dict, idx_crop)
+        return data_dict
+
+
+def _rgb_to_grayscale(color, num_output_channels=1):
+    if color.shape[-1] < 3:
+        raise TypeError(f"Input color should have at least 3 channels, found {color.shape[-1]}")
+    if num_output_channels not in (1, 3):
+        raise ValueError("num_output_channels should be either 1 or 3")
+    r, g, b = color[..., 0], color[..., 1], color[..., 2]
+    gray = (0.2989 * r + 0.587 * g + 0.114 * b).astype(color.dtype)[..., None]
+    if num_output_channels == 3:
+        gray = np.broadcast_to(gray, color.shape)
+    return gray
+
+
+def _rgb_to_hsv(rgb):
+    """colorsys semantics vectorised (hue in [0, 1), s and v on the raw
+    0-255 scale), by the chroma form."""
+    x = rgb[..., :3].astype(np.float64)
+    v = x.max(axis=-1)
+    chroma = v - x.min(axis=-1)
+    s = np.divide(chroma, v, out=np.zeros_like(v), where=v > 0)
+    r, g, b = x[..., 0], x[..., 1], x[..., 2]
+    safe_c = np.where(chroma > 0, chroma, 1.0)
+    sector = np.choose(x.argmax(axis=-1), [(g - b) / safe_c, 2.0 + (b - r) / safe_c, 4.0 + (r - g) / safe_c])
+    h = np.where(chroma > 0, (sector / 6.0) % 1.0, 0.0)
+    return np.stack([h, s, v], axis=-1)
+
+
+def _hsv_to_rgb(hsv):
+    """The inverse of `_rgb_to_hsv` by the piecewise-linear k formula,
+    rounded (not truncated) to uint8."""
+    h, s, v = hsv[..., 0], hsv[..., 1], hsv[..., 2]
+
+    def channel(n):
+        k = (n + h * 6.0) % 6.0
+        return v * (1.0 - s * np.clip(np.minimum(k, 4.0 - k), 0.0, 1.0))
+
+    out = np.stack([channel(5.0), channel(3.0), channel(1.0)], axis=-1)
+    return np.clip(np.rint(out), 0, 255).astype("uint8")
+
+
+@TRANSFORMS.register_module()
+class RandomColorGrayScale:
+    def __init__(self, p):
+        self.p = p
+
+    def __call__(self, data_dict):
+        if np.random.rand() < self.p:
+            data_dict["color"] = _rgb_to_grayscale(data_dict["color"], 3)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorDrop:
+    """Scale the colors by `color_augment` (0: drop them) with probability p."""
+
+    def __init__(self, p: float = 0.2, color_augment: float = 0.0):
+        self.p = p
+        self.color_augment = color_augment
+
+    def __call__(self, data_dict):
+        if "color" in data_dict and np.random.rand() < self.p:
+            data_dict["color"] = data_dict["color"] * self.color_augment
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomColorJitter:
+    """torchvision-style brightness, contrast, saturation and hue jitter in
+    a random order, each applied with probability p."""
+
+    def __init__(self, brightness=0, contrast=0, saturation=0, hue=0, p=0.95):
+        self.brightness = self._check_input(brightness, "brightness")
+        self.contrast = self._check_input(contrast, "contrast")
+        self.saturation = self._check_input(saturation, "saturation")
+        self.hue = self._check_input(hue, "hue", center=0, bound=(-0.5, 0.5), clip_first_on_zero=False)
+        self.p = p
+
+    @staticmethod
+    def _check_input(value, name, center=1, bound=(0, float("inf")), clip_first_on_zero=True):
+        if isinstance(value, numbers.Number):
+            if value < 0:
+                raise ValueError(f"If {name} is a single number, it must be non negative.")
+            value = [center - float(value), center + float(value)]
+            if clip_first_on_zero:
+                value[0] = max(value[0], 0.0)
+        elif isinstance(value, (tuple, list)) and len(value) == 2:
+            if not bound[0] <= value[0] <= value[1] <= bound[1]:
+                raise ValueError(f"{name} values should be between {bound}")
+        else:
+            raise TypeError(f"{name} should be a number or a pair")
+        if value[0] == value[1] == center:
+            value = None
+        return value
+
+    @staticmethod
+    def blend(color1, color2, ratio):
+        return (float(ratio) * color1 + (1.0 - float(ratio)) * color2).clip(0, 255.0).astype(color1.dtype)
+
+    def adjust_brightness(self, color, factor):
+        return self.blend(color, np.zeros_like(color), factor)
+
+    def adjust_contrast(self, color, factor):
+        return self.blend(color, np.mean(_rgb_to_grayscale(color)), factor)
+
+    def adjust_saturation(self, color, factor):
+        return self.blend(color, _rgb_to_grayscale(color, 3), factor)
+
+    def adjust_hue(self, color, factor):
+        if not (-0.5 <= factor <= 0.5):
+            raise ValueError(f"hue_factor ({factor}) is not in [-0.5, 0.5].")
+        hsv = _rgb_to_hsv(color)
+        hsv[..., 0] = (hsv[..., 0] + factor) % 1.0
+        return _hsv_to_rgb(hsv).astype(color.dtype)
+
+    def __call__(self, data_dict):
+        if "color" not in data_dict:
+            return data_dict
+        fn_idx = np.random.permutation(4)
+        b = None if self.brightness is None else np.random.uniform(*self.brightness)
+        c = None if self.contrast is None else np.random.uniform(*self.contrast)
+        s = None if self.saturation is None else np.random.uniform(*self.saturation)
+        h = None if self.hue is None else np.random.uniform(*self.hue)
+        for fn_id in fn_idx:
+            if fn_id == 0 and b is not None and np.random.rand() < self.p:
+                data_dict["color"] = self.adjust_brightness(data_dict["color"], b)
+            elif fn_id == 1 and c is not None and np.random.rand() < self.p:
+                data_dict["color"] = self.adjust_contrast(data_dict["color"], c)
+            elif fn_id == 2 and s is not None and np.random.rand() < self.p:
+                data_dict["color"] = self.adjust_saturation(data_dict["color"], s)
+            elif fn_id == 3 and h is not None and np.random.rand() < self.p:
+                data_dict["color"] = self.adjust_hue(data_dict["color"], h)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class MultiViewGenerator:
+    """Global and local crops of a scene for Sonata's self-distillation: a
+    major spherical view around a random point (of the points between
+    `center_height_scale`'s heights), the other global views centred on its
+    points, and local views centred on major-view points no local view covers
+    yet (the cover mask; all cleared once all are covered). A view holds the
+    nearest ``uniform(*scale) * min(max_size, N)`` points. The global views
+    come from the scene after `global_shared_transform`, the local ones
+    from the scene as given; each view then takes its own transform. Out:
+    ``global_{key}`` and ``local_{key}`` concatenated over the views, and
+    per-view offsets ``global_offset`` and ``local_offset``."""
+
+    def __init__(self, global_view_num=2, global_view_scale=(0.4, 1.0), local_view_num=4,
+                 local_view_scale=(0.1, 0.4), global_shared_transform=None, global_transform=None,
+                 local_transform=None, max_size=65536, center_height_scale=(0, 1), shared_global_view=False,
+                 view_keys=("coord", "origin_coord", "color", "normal")):
+        self.global_view_num = global_view_num
+        self.global_view_scale = global_view_scale
+        self.local_view_num = local_view_num
+        self.local_view_scale = local_view_scale
+        self.global_shared_transform = Compose(global_shared_transform)
+        self.global_transform = Compose(global_transform)
+        self.local_transform = Compose(local_transform)
+        self.max_size = max_size
+        self.center_height_scale = center_height_scale
+        self.shared_global_view = shared_global_view
+        self.view_keys = view_keys
+        assert "coord" in view_keys
+
+    def get_view(self, point, center, scale):
+        coord = point["coord"]
+        max_size = min(self.max_size, coord.shape[0])
+        size = max(1, int(np.random.uniform(*scale) * max_size))
+        index = np.argsort(np.sum(np.square(coord - center), axis=-1))[:size]
+        view = dict(index=index)
+        for key in point.keys():
+            if key in self.view_keys:
+                view[key] = point[key][index]
+        if "index_valid_keys" in point:
+            view["index_valid_keys"] = point["index_valid_keys"]
+        return view
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        point = self.global_shared_transform(copy.deepcopy(data_dict))
+        z_min, z_max = coord[:, 2].min(), coord[:, 2].max()
+        z_lo = z_min + (z_max - z_min) * self.center_height_scale[0]
+        z_hi = z_min + (z_max - z_min) * self.center_height_scale[1]
+        center_mask = (coord[:, 2] >= z_lo) & (coord[:, 2] <= z_hi)
+        if not center_mask.any():
+            center_mask[:] = True
+        major_center = coord[np.random.choice(np.where(center_mask)[0])]
+        major_view = self.get_view(point, major_center, self.global_view_scale)
+        major_coord = major_view["coord"]
+        if not self.shared_global_view:
+            global_views = [
+                self.get_view(point, major_coord[np.random.randint(major_coord.shape[0])], self.global_view_scale)
+                for _ in range(self.global_view_num - 1)
+            ]
+        else:
+            global_views = [{k: (v.copy() if isinstance(v, np.ndarray) else v) for k, v in major_view.items()}
+                            for _ in range(self.global_view_num - 1)]
+        global_views = [major_view] + global_views
+
+        cover_mask = np.zeros_like(major_view["index"], dtype=bool)
+        local_views = []
+        for _ in range(self.local_view_num):
+            if (~cover_mask).sum() == 0:
+                cover_mask[:] = False
+            center = major_coord[np.random.choice(np.where(~cover_mask)[0])]
+            local_view = self.get_view(data_dict, center, self.local_view_scale)
+            local_views.append(local_view)
+            cover_mask[np.isin(major_view["index"], local_view["index"])] = True
+
+        view_dict = {}
+        for prefix, views, transform in (("global", global_views, self.global_transform),
+                                         ("local", local_views, self.local_transform)):
+            for view in views:
+                view.pop("index")
+                view = transform(view)
+                for key in self.view_keys:
+                    view_dict.setdefault(f"{prefix}_{key}", []).append(view[key])
+            view_dict[f"{prefix}_offset"] = np.cumsum([d.shape[0] for d in view_dict[f"{prefix}_coord"]])
+        for key in view_dict:
+            if "offset" not in key:
+                view_dict[key] = np.concatenate(view_dict[key], axis=0)
+        data_dict.update(view_dict)
         return data_dict

@@ -1,6 +1,7 @@
 """Collation into fixed-capacity PointBatch arrays (counterparts in
 `pointcept_tpu/datasets/utils.py`): ragged concat, Mix3D scene fusion, then
-static padding. numpy only."""
+static padding, of one point set a sample or of the views of SSL samples.
+numpy only."""
 
 from __future__ import annotations
 
@@ -118,11 +119,71 @@ def point_collate_fn(batch: List[dict], capacity: int, mix_prob: float = 0.0, dr
     JAX package), then static padding to `capacity` rows. A batch of more
     points than `capacity` is subsampled at random, or raises without
     `drop_overflow` (the eval's loaders: a metric of a subsampled scene is
-    not the scene's). Multi-view (SSL) batches are not ported."""
+    not the scene's). Multi-view batches (``{prefix}_offset`` keys) take
+    Mix3D view-wise (scene pairs merged in every view) and
+    `pad_views_to_point_batch`."""
     num_scenes = len(batch)
     merged = collate_fn(batch)
     if any(k.endswith("_offset") and k != "offset" for k in merged):
-        raise NotImplementedError("point_collate_fn: multi-view batches are not ported")
+        if mix_prob > 0 and random.random() < mix_prob:
+            for key in [k for k in merged if k.endswith("_offset")]:
+                o = merged[key]
+                merged[key] = np.concatenate([o[1:-1:2], o[-1:]])
+        return pad_views_to_point_batch(merged, capacity, num_scenes=num_scenes, drop_overflow=drop_overflow)
     if mix_prob > 0 and random.random() < mix_prob:
         merged = mix3d(merged)
     return pad_to_point_batch(merged, capacity, num_scenes=num_scenes, drop_overflow=drop_overflow)
+
+
+VIEW_SUFFIXES = ("coord", "grid_coord", "origin_coord", "color", "normal", "feat", "segment")
+
+
+def pad_views_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = None,
+                             drop_overflow: bool = True) -> Dict[str, np.ndarray]:
+    """Pad each view set of a multi-view batch (``global_*``, ``local_*``,
+    delimited by ``{prefix}_offset``) into `capacity` rows:
+    ``{prefix}_batch`` (the view's index, -1 padding) and each
+    ``{prefix}_{suffix}`` of `VIEW_SUFFIXES` present (padding 0, or -1 for
+    segments). A view set of more points than `capacity` is subsampled
+    uniformly at random (one `np.random.choice` a view set, as the JAX
+    package), or raises without `drop_overflow`; ``dropped`` counts the
+    points subsampled away over the view sets."""
+    out: Dict[str, np.ndarray] = {}
+    prefixes = sorted({k[: -len("_offset")] for k in batch if k.endswith("_offset") and k != "offset"})
+    assert prefixes, "no view offsets found"
+    if num_scenes is None:
+        num_scenes = len(np.asarray(batch[f"{prefixes[0]}_offset"]))
+    dropped = 0
+    for prefix in prefixes:
+        offset = np.asarray(batch[f"{prefix}_offset"])
+        n_total = int(offset[-1])
+        b_ids = offset2batch_np(offset).astype(np.int32)
+        keep = None
+        if n_total > capacity:
+            if not drop_overflow:
+                raise ValueError(f"{prefix} views have {n_total} points > capacity {capacity}")
+            keep = np.sort(np.random.choice(n_total, capacity, replace=False))
+            dropped += n_total - capacity
+
+        def _sel(a):
+            return a if keep is None else a[keep]
+
+        eff = min(n_total, capacity)
+        out[f"{prefix}_batch"] = np.full((capacity,), -1, np.int32)
+        out[f"{prefix}_batch"][:eff] = _sel(b_ids)
+        for suf in VIEW_SUFFIXES:
+            key = f"{prefix}_{suf}"
+            if key not in batch:
+                continue
+            a = _sel(np.asarray(batch[key]))
+            if suf in ("grid_coord", "segment"):
+                a = a.astype(np.int32)
+                padded = np.full((capacity,) + a.shape[1:], 0 if suf == "grid_coord" else -1, np.int32)
+            else:
+                a = a.astype(np.float32)
+                padded = np.zeros((capacity,) + a.shape[1:], np.float32)
+            padded[:eff] = a
+            out[key] = padded
+    out["num_scenes"] = num_scenes
+    out["dropped"] = dropped
+    return out

@@ -1,7 +1,8 @@
 from .builder import HOOKS, build_hooks
 from .default import HookBase
 from .evaluator import SemSegEvaluator
-from .misc import CheckpointLoader, CheckpointSaver, InformationWriter, IterationTimer
+from .misc import (CheckpointLoader, CheckpointSaver, InformationWriter, IterationTimer, SonataHook,
+                   WeightDecaySchedular)
 
 __all__ = ["HOOKS", "CheckpointLoader", "CheckpointSaver", "HookBase", "InformationWriter", "IterationTimer",
-           "SemSegEvaluator", "build_hooks"]
+           "SemSegEvaluator", "SonataHook", "WeightDecaySchedular", "build_hooks"]

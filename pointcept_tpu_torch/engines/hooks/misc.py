@@ -1,7 +1,8 @@
-"""Core hooks: timing, logging, checkpoints (counterparts of
-`pointcept_tpu/engines/hooks/misc.py`; parity targets: reference
-`pointcept/engines/hooks/misc.py` IterationTimer `:34`, InformationWriter
-`:81`, CheckpointSaver `:169`, CheckpointLoader `:230`).
+"""Core hooks: timing, logging, checkpoints, and the schedules of Sonata's
+pretraining (counterparts of `pointcept_tpu/engines/hooks/misc.py`; parity
+targets: reference `pointcept/engines/hooks/misc.py` IterationTimer `:34`,
+InformationWriter `:81`, CheckpointSaver `:169`, CheckpointLoader `:230`,
+WeightDecaySchedular `:500`).
 
 Checkpoints are the reference Pointcept format, not the JAX package's Orbax
 directories: ``save_path/model/model_last.pth`` is a `torch.save` of
@@ -18,9 +19,11 @@ import shutil
 import time
 from collections import OrderedDict
 
+import numpy as np
 import torch
 
 from ...utils import comm
+from ...utils.scheduler import CosineScheduler
 from ...utils.timer import Timer
 from .builder import HOOKS
 from .default import HookBase
@@ -196,3 +199,63 @@ class CheckpointLoader(HookBase):
             trainer.optimizer.load_state_dict(checkpoint["optimizer"])
             trainer.scheduler.load_state_dict(checkpoint["scheduler"])
             trainer.logger.info(f"Resuming train at eval epoch: {trainer.start_epoch}")
+
+
+@HOOKS.register_module()
+class SonataHook(HookBase):
+    """The per-step hyperparameters of Sonata's pretraining (mask size, mask
+    ratio, teacher temperature, the teacher's EMA momentum), each a
+    `CosineScheduler` over the run's steps from the model's fields, into
+    ``comm_info["model_hyper"]`` (the train step hands them to the forward
+    and the EMA) and the storage as ``params/{name}``. A resumed run starts
+    each schedule at ``start_epoch * len(train_loader)``."""
+
+    def before_train(self):
+        model = self.trainer.model
+        steps = len(self.trainer.train_loader)
+        total_steps = steps * self.trainer.max_epoch
+        curr = self.trainer.start_epoch * steps
+
+        def sched(start, base, warmup_ratio=0.0, final=None):
+            s = CosineScheduler(base_value=base, final_value=base if final is None else final,
+                                total_steps=total_steps, warmup_steps=int(total_steps * warmup_ratio),
+                                start_warmup_value=start)
+            s.iter = curr
+            return s
+
+        self._schedules = dict(
+            mask_size=sched(model.mask_size_start, model.mask_size_base, model.mask_size_warmup_ratio),
+            mask_ratio=sched(model.mask_ratio_start, model.mask_ratio_base, model.mask_ratio_warmup_ratio),
+            teacher_temp=sched(model.teacher_temp_start, model.teacher_temp_base, model.teacher_temp_warmup_ratio),
+            momentum=sched(model.momentum_base, model.momentum_base, 0.0, final=model.momentum_final),
+        )
+
+    def before_step(self):
+        hyper = {name: float(s.step()) for name, s in self._schedules.items()}
+        self.trainer.comm_info["model_hyper"] = hyper
+        for name, value in hyper.items():
+            self.trainer.storage.put_scalar(f"params/{name}", value, smoothing_hint=False)
+
+
+@HOOKS.register_module()
+class WeightDecaySchedular(HookBase):
+    """A cosine weight-decay schedule over the epochs: before each epoch
+    every param group's ``weight_decay`` becomes ``final + (base - final) *
+    (1 + cos(pi * epoch / max_epoch)) / 2``, as the reference sets it. (The
+    JAX hook rebuilds its optimizer instead, and loses the teacher mask and
+    the clip on the way.)"""
+
+    def __init__(self, base_value=0.05, final_value=0.05):
+        self.base_value = base_value
+        self.final_value = final_value
+
+    def value(self, epoch: int) -> float:
+        t = epoch / max(self.trainer.max_epoch, 1)
+        return float(self.final_value + 0.5 * (self.base_value - self.final_value) * (1 + np.cos(np.pi * t)))
+
+    def before_epoch(self):
+        wd = self.value(self.trainer.epoch)
+        for group in self.trainer.optimizer.param_groups:
+            group["weight_decay"] = wd
+        self.trainer.storage.put_scalar("params/weight_decay", wd, smoothing_hint=False)
+        self.trainer.logger.info(f"WeightDecaySchedular: wd -> {wd:.5f}")

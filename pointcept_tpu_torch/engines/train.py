@@ -8,6 +8,12 @@ structure is the JAX trainer's (hooks, `comm_info`, `EventStorage`, the
 epoch loop compressed by `eval_epoch`), so the hooks port one to one. The
 JAX trainer's host geometry (`host_geometry`, `geometry_plan`) is not
 ported: the port builds the geometry on the device and ignores the key.
+
+Self-distillation models (Sonata) train through the same step: their
+multi-view batches go in as `make_view_inputs`, the hyperparameters a hook
+schedules (``comm_info["model_hyper"]``) go to the forward, and after the
+optimizer step the model's `ema_update` moves its teacher (whose
+parameters no optimizer holds: they do not require gradients).
 """
 
 from __future__ import annotations
@@ -36,27 +42,53 @@ from .hooks import build_hooks
 TRAINERS = Registry("trainers")
 
 
-def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None) -> PointBatch:
+def _put(arrays, key: str, dtype, device):
+    a = arrays.get(key)
+    if a is None:
+        return None
+    return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device, dtype, non_blocking=True)
+
+
+def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None, prefix: str = "") -> PointBatch:
     """Collated arrays (numpy or tensors) -> PointBatch on `device` (the GPU
     unless the caller names another; raises when no GPU is present and none
-    is named). Copies from pinned host tensors do not wait for the card."""
+    is named), from the keys ``{prefix}coord``, ... Copies from pinned host
+    tensors do not wait for the card."""
     device = resolve_device(device)
-
-    def put(key, dtype):
-        a = arrays.get(key)
-        if a is None:
-            return None
-        return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device, dtype,
-                                                                                  non_blocking=True)
-
     return PointBatch(
-        coord=put("coord", torch.float32),
-        feat=put("feat", torch.float32),
-        grid_coord=put("grid_coord", torch.int32),
-        batch=put("batch", torch.int32),
-        segment=put("segment", torch.int32),
+        coord=_put(arrays, prefix + "coord", torch.float32, device),
+        feat=_put(arrays, prefix + "feat", torch.float32, device),
+        grid_coord=_put(arrays, prefix + "grid_coord", torch.int32, device),
+        batch=_put(arrays, prefix + "batch", torch.int32, device),
+        segment=_put(arrays, prefix + "segment", torch.int32, device),
+        origin_coord=_put(arrays, prefix + "origin_coord", torch.float32, device),
         num_scenes=num_scenes,
     )
+
+
+VIEW_PREFIXES = ("global", "local")
+
+
+def make_view_inputs(arrays: Dict[str, np.ndarray], num_scenes: int, device=None) -> dict:
+    """A collated multi-view batch -> Sonata's inputs: a PointBatch of each
+    view set (``global``, ``local``; one view id a row, `num_scenes` the
+    scenes, which the model multiplies by its views) and its
+    ``{prefix}_origin_coord``."""
+    device = resolve_device(device)
+    data = {}
+    for prefix in VIEW_PREFIXES:
+        if f"{prefix}_coord" in arrays:
+            data[prefix] = make_point_batch(arrays, num_scenes, device, prefix=f"{prefix}_")
+            data[f"{prefix}_origin_coord"] = data[prefix].origin_coord
+    return data
+
+
+def make_inputs(arrays: Dict[str, np.ndarray], device=None):
+    """A collated batch -> the model's input: a PointBatch, or the view
+    inputs of a multi-view batch."""
+    if "global_coord" in arrays:
+        return make_view_inputs(arrays, arrays["num_scenes"], device)
+    return make_point_batch(arrays, arrays["num_scenes"], device)
 
 
 def _total(values, device) -> torch.Tensor:
@@ -66,27 +98,38 @@ def _total(values, device) -> torch.Tensor:
 def build_train_step(model: nn.Module, optimizer: torch.optim.Optimizer, scheduler,
                      clip_grad: Optional[float] = None) -> Callable:
     """One optimisation step on one device: forward in train mode (the
-    segmentor's summed criteria), backward, optional clip of the global
-    gradient norm, the optimizer step, then one scheduler step.
+    segmentor's summed criteria, or an SSL model's losses), backward,
+    optional clip of the global gradient norm, the optimizer step, one
+    scheduler step, then the model's `ema_update` where it has one (with
+    ``hyper["momentum"]``).
 
-    Returns ``step(pb, generator) -> {"loss", "pool_overflow",
-    "block_overflow"}``, all 0-d tensors on the model's device: the step
-    itself never waits for the card, the caller reads the scalars when it
-    wants them. `generator` draws the order shuffles and drop-path masks.
-    The parameters' ``.grad`` hold the step's gradients until the next step."""
+    Returns ``step(inputs, generator, hyper=None) -> {"loss",
+    "pool_overflow", "block_overflow", and the model's named losses
+    "*_loss"}``, all 0-d tensors on the model's device: the step itself
+    never waits for the card, the caller reads the scalars when it wants
+    them. The overflow counters sum over every forward of the step.
+    `generator` draws the order shuffles and drop-path masks (and an SSL
+    model's mask scores); `hyper` goes to the forward. The parameters'
+    ``.grad`` hold the step's gradients until the next step."""
+    ema_update = getattr(model, "ema_update", None)
 
-    def step(pb: PointBatch, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+    def step(inputs, generator: torch.Generator, hyper: Optional[dict] = None) -> Dict[str, torch.Tensor]:
         model.train()
         optimizer.zero_grad(set_to_none=True)
-        res = model(pb, generator=generator)
+        res = model(inputs, generator=generator) if hyper is None else model(inputs, generator=generator,
+                                                                               hyper=hyper)
         res["loss"].backward()
         if clip_grad is not None:
             nn.utils.clip_grad_norm_(model.parameters(), clip_grad)
         optimizer.step()
         scheduler.step()
-        diag = res["diagnostics"]
-        return {"loss": res["loss"].detach(), "pool_overflow": _total(diag["pool_overflow"], pb.device),
-                "block_overflow": _total(diag["block_overflow"], pb.device)}
+        if ema_update is not None:
+            ema_update((hyper or {}).get("momentum"))
+        diag, device = res["diagnostics"], res["loss"].device
+        out = {"loss": res["loss"].detach(), "pool_overflow": _total(diag["pool_overflow"], device),
+               "block_overflow": _total(diag["block_overflow"], device)}
+        out.update({k: v.detach() for k, v in res.items() if k.endswith("_loss")})
+        return out
 
     return step
 
@@ -235,23 +278,34 @@ class Trainer(TrainerBase):
 
     # ---------------------------------------------------------------- train step
     def run_step(self):
-        """One step of the batch in ``comm_info["input_dict"]``. The loss and
-        the two overflow counters come to the host in one read; an overflow
-        is logged as a warning, as the JAX trainer does."""
+        """One step of the batch in ``comm_info["input_dict"]`` (with the
+        hyperparameters a hook put in ``comm_info["model_hyper"]``). The
+        losses and the two overflow counters come to the host in one read;
+        an overflow, or points the collate subsampled away
+        (``collate_dropped``), is logged as a warning, as the JAX trainer
+        does for overflows."""
         batch = self.comm_info["input_dict"]
-        pb = make_point_batch(batch, batch["num_scenes"], device=self.device)
+        inputs = make_inputs(batch, device=self.device)
         global_step = self.epoch * len(self.train_loader) + self.comm_info["iter"]
         self.generator.manual_seed(step_seed(self.cfg.get("shared_seed", self.cfg.seed), global_step))
         lr = self.optimizer.param_groups[0]["lr"]
-        res = self.train_step(pb, self.generator)
-        loss, pool, block = torch.stack([res["loss"].float(), res["pool_overflow"].float(),
-                                         res["block_overflow"].float()]).tolist()
+        res = self.train_step(inputs, self.generator, self.comm_info.get("model_hyper"))
+        names = list(res)
+        values = dict(zip(names, torch.stack([res[k].float() for k in names]).tolist()))
+        loss, pool, block = values["loss"], values["pool_overflow"], values["block_overflow"]
         if self.cfg.get("empty_cache") and self.device.type == "cuda":
             torch.cuda.empty_cache()
-        self.comm_info["metrics"] = {"loss": loss}
+        self.comm_info["metrics"] = {k: v for k, v in values.items() if k.endswith("loss")}
         self.comm_info["lr"] = lr
-        self.storage.put_scalar("loss", loss)
+        for name in self.comm_info["metrics"]:
+            self.storage.put_scalar(name, values[name])
         self.storage.put_scalar("lr", lr, smoothing_hint=False)
+        dropped = batch.get("dropped")
+        if dropped is not None:
+            self.storage.put_scalar("collate_dropped", int(dropped), smoothing_hint=False)
+            if int(dropped) > 0:
+                self.logger.warning(f"collate_dropped={int(dropped)} points subsampled away this step "
+                                    "— increase point_capacity")
         for name, value in (("pool_overflow", pool), ("block_overflow", block)):
             self.storage.put_scalar(name, value, smoothing_hint=False)
             if value > 0:

@@ -16,12 +16,16 @@ MODELS = Registry("models")
 def build_model(cfg: dict, device=None, generator: Optional[torch.Generator] = None):
     """Build dict(type=..., **kwargs) in eval mode on `device` (the GPU unless
     the caller names another; raises when no GPU is present and none is
-    named). Weights are drawn from `generator` (seed 0 when omitted)."""
+    named). Weights are drawn from `generator` (seed 0 when omitted); a
+    model whose weights start as copies of others (Sonata's teacher) makes
+    them in its `post_init`."""
     from .modules import init_weights
 
     device = resolve_device(device)
     model = MODELS.build(cfg)
     init_weights(model, generator if generator is not None else torch.Generator().manual_seed(0))
+    if hasattr(model, "post_init"):
+        model.post_init()
     return model.to(device).eval()
 
 

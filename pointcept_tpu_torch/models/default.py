@@ -51,6 +51,9 @@ class DefaultSegmentorV2(nn.Module):
     def __init__(self, num_classes: int = 20, backbone_out_channels: int = 64, backbone=None,
                  criteria=None, freeze_backbone: bool = False, up_cast_level: int = 0):
         super().__init__()
+        if up_cast_level:
+            raise NotImplementedError("DefaultSegmentorV2: up_cast_level (an enc_mode backbone's "
+                                      "skip features) is not ported yet")
         self.backbone = MODELS.build(dict(backbone))
         in_ch = self.backbone.out_channels
         if backbone_out_channels != in_ch:

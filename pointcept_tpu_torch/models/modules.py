@@ -122,12 +122,16 @@ class MLP(nn.Module):
 @torch.no_grad()
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from an explicit generator: every matrix and conv weight
-    uniform in +-1/sqrt(fan_in), biases zero, norms identity. Parameters are
-    drawn on the CPU in module order, so a seed gives the same weights on
-    every device."""
+    (and weight norm's direction ``weight_v``) uniform in +-1/sqrt(fan_in),
+    biases zero, norms identity. Parameters are drawn on the CPU in module
+    order, so a seed gives the same weights on every device."""
     for m in module.modules():
         w = getattr(m, "weight", None)
-        if isinstance(m, (MaskedBatchNorm, LayerNorm)):
+        v = getattr(m, "weight_v", None)
+        if isinstance(v, nn.Parameter):
+            bound = v.shape[1] ** -0.5
+            v.copy_(torch.rand(v.shape, generator=generator) * (2 * bound) - bound)
+        elif isinstance(m, (MaskedBatchNorm, LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
         elif isinstance(w, nn.Parameter) and w.dim() >= 2:

@@ -37,9 +37,18 @@ patch partitions, pooling clusters), and `forward(pb, precomputed=...)`
 moves a batch's features through it: the tester's fragments of one voxel
 grid share it.
 
-Not ported: PDNorm, RPE, the v3m2/v3m3 options (linear stem, LayerScale,
-RoPE), LoRA, enc_mode, attention and projection dropout, host geometry and
-the scene-blocked layout. Each raises when asked for.
+PT-v3m2 (`PT-v3m2`, the Sonata backbone) adds the linear stem
+(``embed_mode="linear"``: Linear + LayerNorm + GELU) with an optional
+learned ``mask_token`` substituted at a caller's ``patch_mask``, LayerScale
+(``layer_scale``: ``ls1``/``ls2`` gammas on the attention and MLP
+branches) and ``enc_mode`` (no decoder: `forward` also returns the skip
+chain of ``(PointBatch, cluster, stage context)`` that SSL models'
+``up_cast`` pops; nothing is pinned to order 0, and pooled stages carry the
+mean of ``origin_coord``).
+
+Not ported: PDNorm, RPE, PT-v3m3's RoPE and coordinate augmentations,
+LoRA, attention and projection dropout, host geometry and the
+scene-blocked layout. Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -54,7 +63,7 @@ from torch import nn
 from ...ops import serialization as ser
 from ...ops.attention import patch_attention
 from ...ops.block_conv import block_subm_conv, build_block_tables, default_block_capacity
-from ...ops.segment_ops import segment_reduce
+from ...ops.segment_ops import segment_reduce, sorted_segment_mean
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
 from ..builder import MODELS
 from ..modules import DropPath, LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
@@ -103,16 +112,33 @@ class SerializedAttention(nn.Module):
         return self.proj(out)
 
 
+class LayerScale(nn.Module):
+    """A learned per-channel gain (reference name: gamma), made at
+    `init_value`."""
+
+    def __init__(self, channels: int, init_value: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((channels,), float(init_value)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x * self.gamma.to(x.dtype)
+
+
 class Block(nn.Module):
     """xCPE + attention + MLP with residuals (reference names: cpe.{0,1,2},
-    norm1.0, attn.{qkv,proj}, norm2.0, mlp.0.{fc1,fc2})."""
+    norm1.0, attn.{qkv,proj}, norm2.0, mlp.0.{fc1,fc2}; with `layer_scale`,
+    ls1.0.gamma and ls2.0.gamma scale the attention and MLP branches)."""
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
-                 qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False):
+                 qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False,
+                 layer_scale=None):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
         self.drop_path = DropPath(drop_path)
+        if layer_scale is not None:
+            self.ls1 = nn.ModuleList([LayerScale(c, layer_scale)])
+            self.ls2 = nn.ModuleList([LayerScale(c, layer_scale)])
         self.cpe = nn.ModuleList([
             SubMConv(c, c, 3, bias=True, fused=fused), Linear(c, c, compute_dtype=compute_dtype),
             LayerNorm(c),
@@ -131,14 +157,18 @@ class Block(nn.Module):
         cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
         feat = feat + self.cpe[2](self.cpe[1](cpe))
         x = self.norm1[0](feat) if self.pre_norm else feat
-        feat = feat + self.drop_path(self.attn(x, partition), generator)
+        feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition)), generator)
         if not self.pre_norm:
             feat = self.norm1[0](feat)
         x = self.norm2[0](feat) if self.pre_norm else feat
-        feat = feat + self.drop_path(self.mlp[0](x), generator)
+        feat = feat + self.drop_path(self._scale("ls2", self.mlp[0](x)), generator)
         if not self.pre_norm:
             feat = self.norm2[0](feat)
         return pb.replace(feat=feat)
+
+    def _scale(self, name: str, x: torch.Tensor) -> torch.Tensor:
+        ls = getattr(self, name, None)
+        return x if ls is None else ls[0](x)
 
 
 def pooling_geometry(pb: PointBatch, stride: int, out_capacity: int, orders, needed,
@@ -230,18 +260,20 @@ class SerializedPooling(nn.Module):
         g = geom if geom is not None else pooling_geometry(pb, self.stride, out_capacity, orders, needed,
                                                            identity_order0)
         m = out_capacity
-        proj, coord = self.proj(pb.feat), pb.coord
+        proj, coord, origin = self.proj(pb.feat), pb.coord, pb.origin_coord
         if not identity_order0:
             # reduce in the sorted layout: cluster ids are non-decreasing there
             order0 = pb.serialized_order[0].long()
             proj, coord = proj[order0], coord[order0]
+            origin = None if origin is None else origin[order0]
         feat = segment_reduce(proj, g["seg_ids"], m, reduce="max")
-        coord = segment_reduce(coord, g["seg_ids"], m, reduce="mean")
+        coord = sorted_segment_mean(coord, g["seg_ids"], m)
+        origin = None if origin is None else sorted_segment_mean(origin, g["seg_ids"], m)
         out = PointBatch(
             coord=coord, feat=feat, grid_coord=g["grid"], batch=g["batch"],
             segment=g["segment"], serialized_keys=g["keys"], serialized_order=g["order"],
             serialized_inverse=g["inverse"], serialized_depth=g["depth"],
-            num_scenes=pb.num_scenes,
+            num_scenes=pb.num_scenes, origin_coord=origin,
         )
         out = out.replace(feat=gelu(self.norm[0](feat, out.mask)))
         if generator is not None:
@@ -273,32 +305,52 @@ class SerializedUnpooling(nn.Module):
 
 
 class Embedding(nn.Module):
-    """SubM k5 stem + BN + GELU. Names: stem.conv, stem.norm."""
+    """The stem. ``mode="conv"``: SubM k5 conv + BN + GELU (names stem.conv,
+    stem.norm); ``mode="linear"`` (PT-v3m2): Linear + LayerNorm + GELU
+    (stem.linear, stem.norm). With `mask_token`, a learned row (made at 0)
+    replaces the features of the points of the caller's `patch_mask`."""
 
-    def __init__(self, in_channels, embed_channels, fused=False):
+    def __init__(self, in_channels, embed_channels, fused=False, mode="conv", mask_token=False,
+                 compute_dtype=None):
         super().__init__()
+        if mode not in ("conv", "linear"):
+            raise NotImplementedError(f"Embedding: mode {mode!r} is not ported")
+        self.mode = mode
         self.stem = nn.Module()
-        self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False, fused=fused)
-        self.stem.norm = MaskedBatchNorm(embed_channels)
+        if mode == "conv":
+            self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False, fused=fused)
+            self.stem.norm = MaskedBatchNorm(embed_channels)
+        else:
+            self.stem.linear = Linear(in_channels, embed_channels, compute_dtype=compute_dtype)
+            self.stem.norm = LayerNorm(embed_channels)
+        self.mask_token = nn.Parameter(torch.zeros(1, embed_channels)) if mask_token else None
 
-    def forward(self, pb: PointBatch, nbr5) -> PointBatch:
-        return pb.replace(feat=gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5), pb.mask)))
+    def forward(self, pb: PointBatch, nbr5, patch_mask: Optional[torch.Tensor] = None) -> PointBatch:
+        if self.mode == "conv":
+            feat = gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5), pb.mask))
+        else:
+            feat = gelu(self.stem.norm(self.stem.linear(pb.feat)))
+        if self.mask_token is not None and patch_mask is not None:
+            feat = torch.where(patch_mask[:, None], self.mask_token.to(feat.dtype), feat)
+        return pb.replace(feat=feat)
 
 
 _UNSUPPORTED = dict(
-    enc_mode=False, pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
-    embed_mode="conv", mask_token=False, layer_scale=None, rope_base=None, lora_rank=0,
-    attn_drop=0.0, proj_drop=0.0,
+    pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False, rope_base=None,
+    lora_rank=0, attn_drop=0.0, proj_drop=0.0,
 )
 
 
 @MODELS.register_module("PT-v3m1")
 class PointTransformerV3(nn.Module):
     """PT-v3m1 backbone; `forward(pb, generator)` returns (decoded PointBatch
-    in the caller's point order, diagnostics). The diagnostics count the
+    in the caller's point order, diagnostics), and with `enc_mode` (the last
+    stage's PointBatch, diagnostics, skips). The diagnostics count the
     points dropped by static capacities: ``block_overflow`` (one per
     block-table build) and ``pool_overflow`` (one per pooling). In train mode
     the order shuffles and drop-path masks are drawn from `generator`."""
+
+    default_embed_mode = "conv"
 
     def __init__(
         self,
@@ -329,6 +381,10 @@ class PointTransformerV3(nn.Module):
         block_conv_fused: bool = False,
         grid_size: float = 0.02,
         amp: bool = False,
+        enc_mode: bool = False,
+        embed_mode: Optional[str] = None,
+        mask_token: bool = False,
+        layer_scale: Optional[float] = None,
         # config-parity options without effect (attention is always fused,
         # its softmax always f32; PDNorm is not ported)
         enable_flash: bool = True,
@@ -346,9 +402,15 @@ class PointTransformerV3(nn.Module):
         super().__init__()
         for key, value in unsupported.items():
             if key not in _UNSUPPORTED:
-                raise TypeError(f"PT-v3m1: unexpected argument {key!r}")
+                raise TypeError(f"{type(self).__name__}: unexpected argument {key!r}")
             if value != _UNSUPPORTED[key]:
-                raise NotImplementedError(f"PT-v3m1: {key}={value!r} is not ported yet")
+                raise NotImplementedError(f"{type(self).__name__}: {key}={value!r} is not ported yet")
+        self.enc_mode = enc_mode
+        embed_mode = embed_mode or self.default_embed_mode
+        self.embed_mode = embed_mode
+        self.enc_channels = tuple(enc_channels)
+        if enc_mode:
+            dec_depths = dec_channels = dec_num_head = dec_patch_size = ()
         self.order = (order,) if isinstance(order, str) else tuple(order)
         self.stride = tuple(stride)
         self.enc_depths = tuple(enc_depths)
@@ -374,7 +436,7 @@ class PointTransformerV3(nn.Module):
         dec_dp = np.linspace(0, drop_path, sum(dec_depths)).tolist()
 
         fused = block_conv_fused
-        self.embedding = Embedding(in_channels, enc_channels[0], fused)
+        self.embedding = Embedding(in_channels, enc_channels[0], fused, embed_mode, mask_token, dt)
         self.enc = nn.Module()
         for s in range(n):
             stage = nn.Module()
@@ -385,11 +447,12 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
+                    layer_scale=layer_scale,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         self.dec = nn.Module()
-        for s in reversed(range(n - 1)):
+        for s in reversed(range(0 if enc_mode else n - 1)):
             stage = nn.Module()
             stage.up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], compute_dtype=dt)
             dp_slice = dec_dp[sum(dec_depths[:s]) : sum(dec_depths[: s + 1])][::-1]
@@ -397,9 +460,10 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
+                    layer_scale=layer_scale,
                 ))
             self.dec.add_module(f"dec{s}", stage)
-        self.out_channels = dec_ch[0]
+        self.out_channels = enc_channels[-1] if enc_mode else dec_ch[0]
 
     def _used_orders(self, stage: int, shuffled: bool):
         """Orders the blocks of a stage read (with shuffled orders: all)."""
@@ -407,7 +471,7 @@ class PointTransformerV3(nn.Module):
         if shuffled:
             return tuple(range(s_orders))
         used = {0} | {i % s_orders for i in range(self.enc_depths[stage])}
-        if stage < len(self.enc_depths) - 1:
+        if stage < len(self.dec_depths):
             used |= {i % s_orders for i in range(self.dec_depths[stage])}
         return tuple(sorted(used))
 
@@ -430,9 +494,9 @@ class PointTransformerV3(nn.Module):
     def _stage_ctx(self, pb: PointBatch, stage: int, patch_size: int, nbr5, stage0_tables, diag,
                    shuffled: bool, ident0: bool):
         if self.conv_engine == "block" and pb.capacity >= self.block_engine_min_points:
-            nbr3 = (stage0_tables if stage == 0
+            nbr3 = (stage0_tables if stage == 0 and stage0_tables is not None
                     else self._block_tables(pb, stage, diag, shuffled, ident0))
-        elif stage == 0 and not isinstance(nbr5, dict):
+        elif stage == 0 and nbr5 is not None and not isinstance(nbr5, dict):
             # the stage-0 k3 map is a column subset of the stem's k5 map
             nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=pb.device).long()]
         else:
@@ -456,6 +520,8 @@ class PointTransformerV3(nn.Module):
         orders and draws drop-path masks)."""
         if self.training:
             raise ValueError("PT-v3m1: build_geometry serves the eval forward; the model is in train mode")
+        if self.enc_mode:
+            raise ValueError("PT-v3: build_geometry serves the eval forward of the decoder path, not enc_mode")
         num_stages = len(self.enc_depths)
         diag = {"block_overflow": [], "pool_overflow": []}
         pb = pb.with_grid_coord(self.grid_size).replace(feat=None)
@@ -495,11 +561,12 @@ class PointTransformerV3(nn.Module):
                     overflow=overflow)
 
     def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
-                precomputed: Optional[dict] = None):
+                precomputed: Optional[dict] = None, patch_mask: Optional[torch.Tensor] = None):
         """`precomputed`: the `build_geometry` of a batch of the same points
         (grid and batch ids); `pb` then brings only its features (and
         coords), which go through the geometry's pin. Its overflow is counted
-        once, as ``geom_overflow``."""
+        once, as ``geom_overflow``. `patch_mask` [N] bool: the points whose
+        stem features the mask token replaces (``mask_token`` only)."""
         s_orders = len(self.order)
         num_stages = len(self.enc_depths)
         shuffled = self.training and self.shuffle_orders
@@ -529,13 +596,16 @@ class PointTransformerV3(nn.Module):
                 used0 = self._used_orders(0, False)
                 pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
                                   sort_indices=used0, key_orders=used0)
-            sorted_ok = self.sorted_layout and not shuffled
+            # enc_mode keeps the caller's order: its skips are read by point
+            sorted_ok = self.sorted_layout and not shuffled and not self.enc_mode
             unsort = None
             if sorted_ok:
                 # sorted layout: pin the batch to order 0, which then is the identity
                 perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
                 pb = pb.reorder(perm0, inv0, rebase_orders=used0, rebase_keys=used0)
                 unsort = (inv0, perm0)
+                if patch_mask is not None:
+                    patch_mask = patch_mask[perm0.long()]
 
         def ident0(stage):
             # order 0 is the identity: at stage 0 after the pin, at pooled
@@ -543,13 +613,14 @@ class PointTransformerV3(nn.Module):
             return not shuffled and (stage > 0 or sorted_ok)
 
         if geom is None:
-            stage0_tables = None
+            stage0_tables = nbr5 = None
             if self.conv_engine == "block":
+                # the stem's and stage 0's tables (a linear stem needs none)
                 stage0_tables = nbr5 = self._block_tables(pb, 0, diag, shuffled, ident0(0))
-            else:
+            elif self.embed_mode == "conv":
                 nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
                                                self.serialize_depth, 5)
-        pb = self.embedding(pb, nbr5)
+        pb = self.embedding(pb, nbr5, patch_mask)
 
         skips = []
         ctx = None
@@ -573,6 +644,8 @@ class PointTransformerV3(nn.Module):
             for i in range(self.enc_depths[s]):
                 pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders],
                                                  generator=generator)
+        if self.enc_mode:
+            return pb, diag, skips
 
         for s in reversed(range(num_stages - 1)):
             stage = getattr(self.dec, f"dec{s}")
@@ -588,3 +661,21 @@ class PointTransformerV3(nn.Module):
             pb = pb.reorder(unsort[0], unsort[1], rebase_orders=(), rebase_keys=False)
         pb = pb.replace(serialized_keys=None, serialized_order=None, serialized_inverse=None)
         return pb, diag
+
+
+@MODELS.register_module("PT-v3m2")
+class PointTransformerV3M2(PointTransformerV3):
+    """The Sonata variant (reference point_transformer_v3m2_sonata.py):
+    PT-v3m1 with the linear stem by default, the optional mask token and
+    LayerScale."""
+
+    default_embed_mode = "linear"
+
+
+@MODELS.register_module("PT-v3m3")
+class PointTransformerV3M3(PointTransformerV3M2):
+    """The Utonia variant (RoPE on q and k, coordinate augmentations): not
+    ported."""
+
+    def __init__(self, **kwargs):
+        raise NotImplementedError("PT-v3m3: RoPE and its coordinate augmentations are not ported yet")

@@ -10,6 +10,16 @@ dict pushed through the JAX package's `convert_state_dict(sd, "PT-v3m1")`
 * MaskedBatchNorm ``{scale, bias}`` + batch_stats ``{mean, var}``
                                       -> ``{weight, bias, running_mean, running_var}``
 * LayerNorm ``{scale, bias}``         -> ``{weight, bias}``
+
+PT-v3m2 adds the linear stem (``embedding/stem_linear`` ->
+``embedding.stem.linear``), ``embedding/mask_token`` ->
+``embedding.mask_token`` and the LayerScale gammas (a block's ``ls1_gamma``
+-> ``ls1.0.gamma``), the names `convert_state_dict` maps back. A Sonata
+tree (top-level ``teacher_backbone``) maps by `SONATA_ROOTS`: the student's
+subtrees to ``student.*``, the teacher's to ``teacher.*`` (the reference
+model's two ModuleDicts); a head's ``Dense_0``/``Dense_1`` to ``mlp.0`` and
+``mlp.2``, its ``prototypes [embed, K]`` to ``prototype.weight_v [K, embed]``
+beside the reference's fixed ``prototype.weight_g`` of ones.
 """
 
 from __future__ import annotations
@@ -44,7 +54,13 @@ _BLOCK = {
 }
 _MODULE = {
     "embedding/stem_conv": "backbone.embedding.stem.conv",
+    "embedding/stem_linear": "backbone.embedding.stem.linear",
     "embedding/stem_norm": "backbone.embedding.stem.norm",
+}
+SONATA_ROOTS = {
+    "backbone_module": "student.backbone", "mask_head": "student.mask_head",
+    "unmask_head": "student.unmask_head", "teacher_backbone": "teacher.backbone",
+    "teacher_mask_head": "teacher.mask_head", "teacher_unmask_head": "teacher.unmask_head",
 }
 _UP = {"proj": "proj.0", "proj_norm": "proj.1", "proj_skip": "proj_skip.0",
        "proj_skip_norm": "proj_skip.1"}
@@ -111,15 +127,19 @@ def _spunet_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
-def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """DefaultSegmentorV2 + PT-v3m1 or DefaultSegmentor + SpUNet flax trees
-    (arrays) -> the port's state dict."""
-    if "conv_input" in params.get("backbone_module", {}):
-        sd = _spunet_from_jax(params, batch_stats)
-        return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}
+def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     sd = {}
     for key, value in _flat(params).items():
-        module, leaf = _torch_module("/".join(key[:-1])), key[-1]
+        path, leaf = "/".join(key[:-1]), key[-1]
+        if leaf == "mask_token":
+            assert path == "backbone_module/embedding", path
+            sd["backbone.embedding.mask_token"] = value
+            continue
+        if leaf in ("ls1_gamma", "ls2_gamma"):
+            kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)", path).groups()
+            sd[f"backbone.{kind}.{kind}{s}.block{i}.{leaf[:3]}.0.gamma"] = value
+            continue
+        module = _torch_module(path)
         if leaf == "kernel":
             sd[f"{module}.weight"] = np.ascontiguousarray(value.T)
         elif leaf == "scale":
@@ -131,4 +151,40 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     for key, value in _flat(batch_stats).items():
         module, leaf = _torch_module("/".join(key[:-1])), key[-1]
         sd[f"{module}.running_{leaf}"] = value
+    return sd
+
+
+def _head_from_jax(tree: dict, prefix: str) -> Dict[str, np.ndarray]:
+    """An OnlineCluster's flax tree -> its reference names under `prefix`."""
+    sd = {}
+    for dense, name in (("Dense_0", "mlp.0"), ("Dense_1", "mlp.2")):
+        sd[f"{prefix}.{name}.weight"] = np.ascontiguousarray(np.asarray(tree[dense]["kernel"]).T)
+        sd[f"{prefix}.{name}.bias"] = np.asarray(tree[dense]["bias"])
+    proto = np.asarray(tree["prototypes"])
+    sd[f"{prefix}.prototype.weight_v"] = np.ascontiguousarray(proto.T)
+    sd[f"{prefix}.prototype.weight_g"] = np.ones((proto.shape[1], 1), np.float32)
+    return sd
+
+
+def _sonata_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+    sd = {}
+    for root, prefix in SONATA_ROOTS.items():
+        if prefix.endswith("backbone"):
+            sub = _ptv3_from_jax({"backbone_module": params[root]},
+                                 {"backbone_module": batch_stats.get(root, {})})
+            sd.update({prefix + k[len("backbone"):]: v for k, v in sub.items()})
+        else:
+            sd.update(_head_from_jax(params[root], prefix))
+    return sd
+
+
+def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
+    """DefaultSegmentorV2 + PT-v3m1/m2, DefaultSegmentor + SpUNet or
+    Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
+    if "conv_input" in params.get("backbone_module", {}):
+        sd = _spunet_from_jax(params, batch_stats)
+    elif "teacher_backbone" in params:
+        sd = _sonata_from_jax(params, batch_stats)
+    else:
+        sd = _ptv3_from_jax(params, batch_stats)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -34,6 +34,7 @@ class PointBatch:
     serialized_inverse: Optional[torch.Tensor] = None  # [S, N] int32
     serialized_depth: int = 0
     num_scenes: int = 1
+    origin_coord: Optional[torch.Tensor] = None  # [N, 3] float32 pre-augmentation coords (SSL)
 
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)
@@ -168,6 +169,7 @@ class PointBatch:
                 ])
         return self.replace(
             coord=take(self.coord),
+            origin_coord=take(self.origin_coord),
             feat=take(self.feat),
             grid_coord=take(self.grid_coord),
             batch=take(self.batch),

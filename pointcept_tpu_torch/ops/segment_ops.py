@@ -56,3 +56,47 @@ def segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: 
     else:
         raise ValueError(f"unknown reduce {reduce}")
     return out[:num_segments]
+
+
+def sorted_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Mean of the rows of each segment, for non-decreasing `segment_ids`
+    (ids >= num_segments dropped; empty segments give 0), in a fixed order:
+    the differences of f64 prefix sums at the segments' bounds, so the same
+    inputs give the same bits on the card, where `index_add_`'s f32 atomics
+    would not. The pooled coordinates of SSL models feed nearest-neighbour
+    matches, which such bits could flip."""
+    ids = torch.clamp(segment_ids.long(), max=num_segments)
+    # the scan runs along rows of the transposed data: a scan down the
+    # columns of [N, 3] takes ~15 ms a call on the card
+    cols = data.reshape(data.shape[0], -1).double().T.contiguous()
+    prefix = torch.cat([torch.zeros((cols.shape[0], 1), dtype=torch.float64, device=data.device),
+                        torch.cumsum(cols, dim=1)], dim=1)
+    seg = torch.arange(num_segments, device=data.device)
+    start = torch.searchsorted(ids, seg)
+    end = torch.searchsorted(ids, seg, right=True)
+    mean = (prefix[:, end] - prefix[:, start]) / torch.clamp(end - start, min=1)
+    return mean.T.reshape((num_segments,) + tuple(data.shape[1:])).to(data.dtype)
+
+
+def masked_segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor, mask: torch.Tensor,
+                          num_segments: int, reduce: str = "sum") -> torch.Tensor:
+    """Reduce the rows of `data` where `mask` holds by segment id, for a few
+    segments (scenes or views): reduce in {sum, mean, min}; ids outside
+    [0, num_segments) and empty segments give 0. One dense [segments, N]
+    selection reduced along N, so the sums take a fixed order on every
+    device (no atomics) and are differentiable."""
+    ids = torch.where(mask, segment_ids.long(), -1)
+    sel = ids[None, :] == torch.arange(num_segments, device=data.device)[:, None]  # [S, N]
+    sel = sel.view(sel.shape + (1,) * (data.dim() - 1))
+    zero = torch.zeros((), dtype=data.dtype, device=data.device)
+    if reduce in ("sum", "mean"):
+        out = torch.where(sel, data[None], zero).sum(dim=1)
+        if reduce == "mean":
+            count = sel.sum(dim=1).to(data.dtype)
+            out = out / torch.clamp(count, min=1)
+        return out
+    if reduce == "min":
+        out = torch.where(sel, data[None], torch.full((), float("inf"), dtype=data.dtype,
+                                                      device=data.device)).amin(dim=1)
+        return torch.where(torch.isfinite(out), out, zero)
+    raise ValueError(f"unknown reduce {reduce}")

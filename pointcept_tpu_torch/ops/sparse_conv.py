@@ -88,23 +88,68 @@ class NeighborGather(torch.autograd.Function):
     the gradient is the same on every run."""
 
     @staticmethod
-    def forward(ctx, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
-        ctx.save_for_backward(nbr)
-        ctx.dtype = x.dtype
+    def gather(x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
         n, k = nbr.shape
         g = x[torch.clamp(nbr, min=0).reshape(-1).long()].reshape(n, k, x.shape[1])
         return torch.where((nbr >= 0)[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
 
     @staticmethod
-    def backward(ctx, g: torch.Tensor):
-        (nbr,) = ctx.saved_tensors
+    def pull(g: torch.Tensor, nbr: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
         n, k = nbr.shape
         opp = nbr.flip(1)  # opp[j, k] = nbr[j, K-1-k]: the reader of j at offset k
         src = torch.clamp(opp, min=0).long() * k + torch.arange(k, device=nbr.device)
         pulled = g.reshape(n * k, -1)[src.reshape(-1)].reshape(n, k, -1)
         pulled = torch.where((opp >= 0)[..., None], pulled,
                              torch.zeros((), dtype=g.dtype, device=g.device))
-        return pulled.sum(dim=1, dtype=torch.float32).to(ctx.dtype), None
+        return pulled.sum(dim=1, dtype=torch.float32).to(dtype)
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, nbr: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(nbr)
+        ctx.dtype = x.dtype
+        return NeighborGather.gather(x, nbr)
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        (nbr,) = ctx.saved_tensors
+        return NeighborGather.pull(g, nbr, ctx.dtype), None
+
+
+class GatherGEMM(torch.autograd.Function):
+    """``gather(x, nbr).reshape(N, K * Cin) @ w.reshape(K * Cin, Cout)`` in
+    f32 (operands cast up, result f32), saving x, nbr and w rather than the
+    gathered rows, which are K times x and f32: the backward gathers them
+    again. The gradients are the unfused ops' under autograd, bit for bit
+    (the matmul's two products, each cast back to its operand's dtype; the
+    rows' VJP a pull, `NeighborGather`, for a submanifold rule map, or
+    `TakeRows`' adds for a table that reads each row at most once)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, symmetric: bool) -> torch.Tensor:
+        ctx.save_for_backward(x, nbr, w)
+        ctx.symmetric = symmetric
+        g = NeighborGather.gather(x, nbr)
+        return g.reshape(nbr.shape[0], -1).float() @ w.reshape(-1, w.shape[2]).float()
+
+    @staticmethod
+    def backward(ctx, dout: torch.Tensor):
+        x, nbr, w = ctx.saved_tensors
+        n, k = nbr.shape
+        dx = dw = None
+        if ctx.needs_input_grad[2]:
+            g = NeighborGather.gather(x, nbr).reshape(n, -1).float()
+            dw = (g.T @ dout).to(w.dtype).reshape(w.shape)
+            del g
+        if ctx.needs_input_grad[0]:
+            dg = (dout @ w.reshape(-1, w.shape[2]).float().T).to(x.dtype).reshape(n, k, -1)
+            if ctx.symmetric:
+                dx = NeighborGather.pull(dg, nbr, x.dtype)
+            else:
+                dg = torch.where((nbr >= 0)[..., None], dg, torch.zeros((), dtype=dg.dtype, device=dg.device))
+                idx = torch.clamp(nbr.long(), min=0).reshape(-1)
+                dx = torch.zeros((x.shape[0], x.shape[1]), dtype=torch.float32, device=x.device).index_add_(
+                    0, idx, dg.reshape(n * k, -1).float()).to(x.dtype)
+        return dx, None, dw, None
 
 
 def gather_conv(
@@ -123,21 +168,12 @@ def gather_conv(
 
     `symmetric`: `nbr` is a submanifold rule map, and the gather's VJP pulls
     (`NeighborGather`). Otherwise (a strided conv's child table, which reads
-    each row at most once) it adds the cotangents into their rows with
-    `TakeRows`: one nonzero term per row, so exact in any order."""
-    n, k = nbr.shape
-    cin = feat.shape[1]
-    cout = weight.shape[2]
+    each row at most once) it adds the cotangents into their rows as
+    `TakeRows` does: one nonzero term per row, so exact in any order. The
+    backward gathers the rows again (`GatherGEMM`) rather than keep them."""
     f = feat if compute_dtype is None else feat.to(compute_dtype)
     w = weight if compute_dtype is None else weight.to(compute_dtype)
-    if symmetric:
-        g = NeighborGather.apply(f, nbr)
-    else:
-        idx = torch.clamp(nbr.long(), min=0)
-        g = TakeRows.apply(f, idx.reshape(-1)).reshape(n, k, cin)
-        g = torch.where((nbr >= 0)[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
-    out = g.reshape(n, k * cin).float() @ w.reshape(k * cin, cout).float()
-    out = out.to(feat.dtype)
+    out = GatherGEMM.apply(f, nbr, w, symmetric).to(feat.dtype)
     if bias is not None:
         out = out + bias
     return out

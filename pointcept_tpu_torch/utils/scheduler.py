@@ -1,11 +1,36 @@
 """LR schedule builder (counterpart of `pointcept_tpu/utils/scheduler.py`):
 per-step `torch.optim.lr_scheduler.OneCycleLR`, which
 tests/test_torch_parity.py holds against the JAX package's pure schedule.
-Other schedules are not ported."""
+Other LR schedules are not ported. `CosineScheduler` schedules the
+hyperparameters of SSL models (`SonataHook`)."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
+
+
+class CosineScheduler:
+    """A value schedule over `total_steps`: a linear warm-up from
+    `start_warmup_value` to `base_value` over `warmup_steps`, then a cosine
+    from `base_value` to `final_value`. `step()` returns the value at
+    `iter` and advances it; past the end the last value holds."""
+
+    def __init__(self, base_value, final_value, total_steps, warmup_steps=0, start_warmup_value=0):
+        warmup = np.linspace(start_warmup_value, base_value, warmup_steps) if warmup_steps > 0 else np.array([])
+        iters = np.arange(total_steps - warmup_steps)
+        cosine = final_value + 0.5 * (base_value - final_value) * (1 + np.cos(np.pi * iters / len(iters)))
+        self.schedule = np.concatenate((warmup, cosine))
+        self.total_steps = total_steps
+        self.iter = 0
+
+    def __getitem__(self, it):
+        return self.schedule[min(it, self.total_steps - 1)]
+
+    def step(self):
+        value = self[self.iter]
+        self.iter += 1
+        return value
 
 
 def build_scheduler(cfg: dict, optimizer: torch.optim.Optimizer, total_steps: int):

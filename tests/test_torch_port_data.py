@@ -44,3 +44,25 @@ def test_synthetic_batch_matches(seed, kw):
     for k in want:
         np.testing.assert_array_equal(np.asarray(got[k]), np.asarray(want[k]), err_msg=k)
     assert (got["batch"] >= 0).sum() > 0
+
+
+class _DyingDataset:
+    """A dataset whose workers die on their first sample."""
+
+    def __len__(self):
+        return 4
+
+    def __getitem__(self, idx):
+        import os
+
+        os._exit(3)
+
+
+def test_loader_raises_when_a_worker_dies():
+    """A worker that dies (as one does that touches CUDA state it forked)
+    makes the loader raise instead of waiting for its batches forever."""
+    from pointcept_tpu_torch.datasets import DataLoader
+
+    loader = DataLoader(_DyingDataset(), batch_size=2, num_workers=2, collate_fn=lambda s: s)
+    with pytest.raises(RuntimeError, match="worker died"):
+        list(loader)

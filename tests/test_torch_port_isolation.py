@@ -33,6 +33,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.engines.hooks, pointcept_tpu_torch.engines.train\n"
         "import pointcept_tpu_torch.engines.test, pointcept_tpu_torch.utils.misc\n"
         "import pointcept_tpu_torch.datasets.loader, pointcept_tpu_torch.datasets.scannet\n"
+        "import pointcept_tpu_torch.models.sonata.sonata, pointcept_tpu_torch.ops.pointops\n"
+        "import pointcept_tpu_torch.engines.hooks.misc, pointcept_tpu_torch.datasets.transform\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -71,7 +73,7 @@ def test_entry_points_raise_without_a_gpu():
 
 
 @pytest.mark.parametrize("option", [dict(scene_blocked=True), dict(enable_rpe=True),
-                                    dict(proj_drop=0.1), dict(enc_mode=True)])
+                                    dict(proj_drop=0.1), dict(rope_base=10000.0)])
 def test_unported_options_raise(option):
     from pointcept_tpu_torch.models import MODELS
 

@@ -240,10 +240,12 @@ def test_head_dim_8_padding_is_exact():
 
 # (path, stage, pairs = patches x heads) of PTv3-base's attention calls at
 # K 1024, D 16: the eval forward (one 102,400-point scene) and the train
-# step (two), encoder and decoder widths (chip_smoke.attention_shapes)
+# step (two), encoder and decoder widths (chip_smoke.attention_shapes); and
+# Sonata's global views at stages 0 and 3 (262,144 rows, chip_smoke.SONATA_ATTENTION)
 MAIN_PATH_PAIRS = [("eval", 0, 202), ("eval", 0, 404), ("eval", 1, 144), ("eval", 2, 80),
                    ("eval", 3, 64), ("eval", 4, 64), ("train", 0, 404), ("train", 0, 808),
-                   ("train", 1, 288), ("train", 2, 160), ("train", 3, 112), ("train", 4, 128)]
+                   ("train", 1, 288), ("train", 2, 160), ("train", 3, 112), ("train", 4, 128),
+                   ("sonata", 0, 780), ("sonata", 3, 864)]
 
 
 @pytest.mark.parametrize("path,stage,pairs", MAIN_PATH_PAIRS)
@@ -276,11 +278,11 @@ def cuda():
 # size that is not a multiple of 64, the whole-K kernels' patch 128, head
 # dim 32 (the backward takes K <= 768 there), head dim 8 (the synthetic
 # configs' widths, zero-padded to 16: the tiny configs' stages 0 and 2 at
-# patch 128, and K 1024)
+# patch 128, and K 1024), and Sonata's odd head counts (C 48 / H 3, C 384 / H 24)
 ATTN_CARD_CASES = [(4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
                    (4, 1024, 512, 32), (2, 1024, 512, 32), (1, 1024, 32, 2), (3, 48, 32, 2),
                    (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2), (40, 128, 16, 2),
-                   (10, 128, 64, 8), (2, 1024, 16, 2)]
+                   (10, 128, 64, 8), (2, 1024, 16, 2), (4, 1024, 48, 3), (3, 1024, 384, 24)]
 
 
 @pytest.mark.gpu

@@ -142,6 +142,34 @@ def test_segment_reduce_matches_jax(reduce):
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("reduce", ["sum", "mean", "min"])
+def test_masked_segment_reduce_matches_jax(reduce):
+    """Sonata's per-scene reductions: masked rows, ids outside the range,
+    an empty segment; sums in a fixed order (no atomics)."""
+    rng = np.random.RandomState(2)
+    data = rng.randn(400, 3).astype(np.float32)
+    ids = rng.randint(-1, 7, 400).astype(np.int32)  # segment 5 of 6 stays empty, -1 and 6 drop
+    ids[ids == 5] = 6
+    mask = rng.rand(400) < 0.8
+    want = np.asarray(jseg.masked_segment_reduce(jnp.asarray(data), jnp.asarray(ids), jnp.asarray(mask), 6,
+                                                 reduce))
+    got = tseg.masked_segment_reduce(T(data), T(ids), T(mask), 6, reduce).numpy()
+    assert (got[5] == 0).all()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_sorted_segment_mean_matches_jax():
+    """The pooling's fixed-order mean (f64 prefix sums) against the JAX
+    segment mean, on sorted ids with empty and dropped segments."""
+    rng = np.random.RandomState(1)
+    data = (rng.randn(300, 3) * 3).astype(np.float32)
+    ids = np.sort(rng.choice([i for i in range(30) if i not in (3, 7, 20)], 300)).astype(np.int32)
+    want = np.asarray(jseg.segment_reduce(jnp.asarray(data), jnp.asarray(ids), 24, reduce="mean"))
+    got = tseg.sorted_segment_mean(T(data), T(ids), 24)
+    assert got.dtype == torch.float32 and (got.numpy()[[3, 7, 20]] == 0).all()
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
 @pytest.mark.parametrize("kernel", [3, 5])
 def test_neighbor_map_and_gather_conv_match_jax(kernel):
     depth = 8

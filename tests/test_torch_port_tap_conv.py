@@ -30,6 +30,7 @@ from pointcept_tpu_torch.ops import block_conv as tbc  # noqa: E402
 from pointcept_tpu_torch.ops import serialization as tser  # noqa: E402
 from pointcept_tpu_torch.ops import sparse_conv as tsc  # noqa: E402
 from pointcept_tpu_torch.ops.kernels import tap_conv as ttc  # noqa: E402
+from pointcept_tpu_torch.ops.segment_ops import TakeRows  # noqa: E402
 
 
 def T(a):
@@ -243,3 +244,40 @@ def test_gather_conv_grads_match_jax():
     for g_, w_ in ((tf.grad.numpy(), np.asarray(want[0])), (tw.grad.numpy(), np.asarray(want[1]))):
         # bf16 operands on both sides, f32 sums in another order, one bf16 rounding
         assert np.abs(g_ - w_).max() <= 1e-2 * np.abs(w_).max()
+
+
+@pytest.mark.parametrize("symmetric", [True, False], ids=["rule_map", "read_once"])
+@pytest.mark.parametrize("compute", [None, "bfloat16"])
+def test_gather_gemm_equals_unfused_autograd(symmetric, compute):
+    """`GatherGEMM`, which keeps x rather than the gathered rows and gathers
+    them again in its backward, against autograd over the unfused ops (the
+    masked gather, the f32 matmul, the casts): output, input and weight
+    gradients bit for bit."""
+    nbr, _ = _rule_map(3, seed=3)
+    if not symmetric:  # a table that reads each row at most once
+        n = nbr.shape[0]
+        flat = torch.randperm(n * nbr.shape[1], generator=torch.Generator().manual_seed(0))
+        nbr = torch.where(flat.reshape(nbr.shape) < n, flat.reshape(nbr.shape), -1).to(torch.int32)
+    rng = np.random.RandomState(4)
+    cdt = None if compute is None else getattr(torch, compute)
+    feat = T(rng.randn(nbr.shape[0], 8).astype(np.float32))
+    w = T((rng.randn(27, 8, 5) * 0.2).astype(np.float32))
+    cot = T(rng.randn(nbr.shape[0], 5).astype(np.float32))
+    runs = []
+    for fused in (True, False):
+        x, ww = feat.clone().requires_grad_(), w.clone().requires_grad_()
+        f = x if cdt is None else x.to(cdt)
+        w2 = ww if cdt is None else ww.to(cdt)
+        if fused:
+            out = tsc.GatherGEMM.apply(f, nbr, w2, symmetric).to(x.dtype)
+        else:
+            if symmetric:
+                g = tsc.NeighborGather.apply(f, nbr)
+            else:
+                g = TakeRows.apply(f, torch.clamp(nbr.long(), min=0).reshape(-1)).reshape(*nbr.shape, 8)
+                g = torch.where((nbr >= 0)[..., None], g, torch.zeros((), dtype=g.dtype))
+            out = (g.reshape(nbr.shape[0], -1).float() @ w2.reshape(-1, 5).float()).to(x.dtype)
+        runs.append((out.detach(),) + torch.autograd.grad(out, (x, ww), cot))
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert float(runs[0][1].abs().max()) > 0 and float(runs[0][2].abs().max()) > 0

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--model ptv3|spunet] [--fused] [--requests N] [--train]
+    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata] [--fused] [--requests N] [--train]
                                         [--out DIR]
 
 Runs the PTv3-base eval forward of `chip_smoke.py` (102,400-point synthetic
@@ -10,7 +10,10 @@ scenes per step, the config's recipe), under `torch.profiler`, after one
 warm-up. `--model spunet`: SpUNet-v1m1 of `chip_smoke.py` instead (the fused
 block conv); `--fused`: PTv3 with ``block_conv_fused=True`` (the fused
 implicit-GEMM conv instead of cuDNN over halos; run with and without it in
-turns for an A/B). It prints JSON lines: the calls that make the host wait for the
+turns for an A/B); `--model sonata`: the train step of
+`configs/sonata/pretrain-sonata-v1m1-0-base.py` at `chip_smoke.py` phase
+13's geometry (its train pipeline on two of phase 10's synthetic scenes a
+step, 262,144 rows, the schedule's base hyperparameters). It prints JSON lines: the calls that make the host wait for the
 card in one request or step, the device's busy time per request or step and
 its idle share of the same work run without the profiler, the device time
 by category (the port's kernels, convs, matmuls, sorts, gathers and
@@ -59,7 +62,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
     ap.add_argument("--train", action="store_true", help="profile the train step")
-    ap.add_argument("--model", choices=("ptv3", "spunet"), default="ptv3")
+    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata"), default="ptv3")
     ap.add_argument("--fused", action="store_true", help="PTv3 with block_conv_fused=True")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
@@ -68,21 +71,30 @@ def main() -> int:
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
-    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.engines import make_inputs, make_point_batch
     from pointcept_tpu_torch.models import build_model
 
     device = torch.device("cuda", 0)
     card = cs.nvidia_smi("name,power.limit")
+    if args.model != "ptv3" and args.fused:
+        ap.error("--fused applies to PTv3")
     if args.model == "spunet":
-        if args.fused:
-            ap.error("--fused applies to PTv3: SpUNet's configuration always takes the fused conv")
         eval_cfg, train_cfg, recipe = cs.SPUNET_MODEL, cs.SPUNET_MODEL, cs.SPUNET_RECIPE
+    elif args.model == "sonata":
+        args.train = True
     else:
         fused = dict(block_conv_fused=args.fused)
         eval_cfg = dict(cs.MODEL, backbone=dict(cs.MODEL["backbone"], **fused))
         train_cfg = dict(cs.TRAIN_MODEL, backbone=dict(cs.TRAIN_MODEL["backbone"], **fused))
         recipe = cs.PTV3_RECIPE
-    if args.train:
+    if args.model == "sonata":
+        step, data = sonata_step(cs, device, args.requests + 1)
+        gen = torch.Generator(device=device).manual_seed(7)
+        hyper = dict(mask_size=0.4, mask_ratio=0.7, teacher_temp=0.07, momentum=0.996)
+
+        def run(arrays):
+            step(make_inputs(arrays, device=device), gen, hyper)
+    elif args.train:
         # the same seed pairs again and again: a step's work hardly depends on them
         _, step = cs._train_setup(train_cfg, device, seed=0, recipe=recipe)
         pairs = [cs.TRAIN_SEEDS[i % len(cs.TRAIN_SEEDS)] for i in range(args.requests + 1)]
@@ -155,7 +167,7 @@ def main() -> int:
         {"name": name[:120], "ms_per_request": ms / n, "launches_per_request": cnt / n}
         for name, (ms, cnt) in top[:15]]}))
     os.makedirs(args.out, exist_ok=True)
-    name = "torch_port_profile" + "_spunet" * (args.model == "spunet") + "_fused" * args.fused
+    name = "torch_port_profile" + f"_{args.model}" * (args.model != "ptv3") + "_fused" * args.fused
     name += "_train.txt" if args.train else ".txt"
     with open(os.path.join(args.out, name), "w") as f:
         f.write(f"{card}\n")
@@ -165,6 +177,40 @@ def main() -> int:
             sort_by="self_device_time_total", row_limit=40, max_name_column_width=40,
             max_shapes_column_width=120))
     return 0
+
+
+def sonata_step(cs, device, batches: int):
+    """The Sonata config's train step on the card and `batches` collated
+    batches of its train pipeline (two synthetic scenes each, phase 10's)."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
+    from pointcept_tpu_torch.engines import build_train_step
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
+    from pointcept_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, cs.SONATA_CONFIG))
+    model = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device=device,
+                        generator=torch.Generator().manual_seed(0))
+    optimizer = build_optimizer(dict(cfg.optimizer), model, cfg.param_dicts)
+    step = build_train_step(model, optimizer, build_scheduler(dict(cfg.scheduler), optimizer, cs.TOTAL_STEPS))
+    pipeline = Compose(list(cfg.data.train.transform))
+    seeds = cs.SCANNET_SEEDS["train"]
+    data = []
+    for b in range(batches):
+        np.random.seed(b)
+        samples = []
+        for s in (seeds[(2 * b) % len(seeds)], seeds[(2 * b + 1) % len(seeds)]):
+            sc = synthesize_scene(s, num_points=cs.RAW_POINTS, num_classes=cs.NUM_CLASSES, extent=6.0)
+            samples.append(pipeline(dict(coord=sc["coord"], color=sc["color"].astype(np.float32),
+                                         normal=sc["normal"])))
+        batch = point_collate_fn(samples, capacity=cs.SONATA_OPTIONS["point_capacity"])
+        if batch["dropped"]:
+            raise AssertionError(f"the collate subsampled {batch['dropped']} points")
+        data.append(batch)
+    return step, data
 
 
 if __name__ == "__main__":
