@@ -14,7 +14,9 @@ each printing JSON lines:
    forward at every stage's shapes of the eval forward and the train step
    (and at head dim 8, the overfit config's stage 0, zero-padded to 16),
    the forward and backward at Sonata's stage 0 (C 48, H 3) and stage 3
-   (C 384, H 24) over the global views of 262,144 rows,
+   (C 384, H 24) over the global views of 262,144 rows, and at Utonia's
+   head dim 18 (stage 0: C 54, H 3; stage 3: C 432, H 24) over a fine-tune
+   step's two scenes of 262,144 rows,
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -60,8 +62,8 @@ each printing JSON lines:
    checkpoints every epoch, launch counters set to 0 just before and read
    just after; then the second epoch again through the CLI as a
    subprocess, resumed from `epoch_1.pth`: its losses against the first
-   run's, bit for bit; then its steady state: one epoch of 16 steps (loop
-   8), every step's batch and data time, and the trainer's own train step
+   run's, bit for bit; then its steady state: one epoch of 8 steps (loop
+   4), every step's batch and data time, and the trainer's own train step
    alone on batches of its loader, beside phase 7's bare step;
 11. the tester: the config's test section unchanged (13 views, GridSample's
    test mode, fragments of one voxel grid sharing their geometry, four a
@@ -88,12 +90,31 @@ each printing JSON lines:
    student parameter updated, `epoch_1.pth` holding the teacher, 72
    attention forwards and 48 backwards a step; then one more step, after
    which every teacher tensor is its EMA bit for bit; the second epoch
-   resumed through the CLI (the same loss bits); a 16-step epoch; one
+   resumed through the CLI (the same loss bits); an 8-step epoch; one
    small-depth step on the card against the CPU; and the supervised PT-v3m2
    config (`semseg-pt-v3m2-0-sonata-scratch.py`, block engine) for 4 steps
    at phase 10's cuts;
-14. one {"kernels": [...]} line (launches: the training paths', PTv3's for
-   its four kernels and SpUNet's for the fused block conv's two).
+14. Sonata's downstream configs on phase 13's checkpoint (its student
+   backbone through each config's `CheckpointLoader`), through `main_worker`
+   at phase 10's cuts (4 steps, one evaluation): the linear probe `0a`
+   (frozen encoder: its tensors the checkpoint's bit for bit, no attention
+   backward, only the seg head trained), the decoder probe `0b`, the
+   fine-tune `0c` and the data-efficient `0e0` (la20: an `la_file` of 20
+   labelled points a scene, only those labels in the loss) and `0e4` (lr1:
+   a one-line `lr_file`); the loaded keys (missing: the seg head alone, the
+   decoder too for `0b`; unexpected: the teacher, the SSL heads, the mask
+   token), peak memory and later steps' ms of each; then the probe's test
+   section (13 views) through the test CLI's `main_worker` on one
+   102,400-point val scene, on the per-fragment path;
+15. Utonia's linear probe and fine-tune (`configs/utonia/semseg-utonia-v1m1-0{a,c}`:
+   PT-v3m3, RoPE at base 10, head dim 18, widths 54-576) through
+   `main_worker` at phase 14's cuts and `in_channels=6` (no Utonia
+   checkpoint: random weights of seed 0), the attention forwards and
+   backwards a step at D = 18, then one small-depth fine-tune step on the
+   card against the CPU (f32);
+16. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+   its four kernels and SpUNet's for the fused block conv's two; the D = 18
+   rows: phase 15's fine-tune).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -192,9 +213,10 @@ SCANNET_SEEDS = {"train": (0, 1, 2, 3), "val": (5, 6)}
 RAW_POINTS = 409600
 TRAINER_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_val=262144, epoch=2, eval_epoch=2,
                        num_worker=4, seed=0, **{"hooks.4.save_freq": 1})
-# a longer epoch of the same run for the trainer's steady state: loop 8
-# (epoch // eval_epoch), 16 steps, one evaluation
-STEADY_OPTIONS = dict(epoch=8, eval_epoch=1)
+# a longer epoch of the same run for the trainer's steady state: loop 4
+# (epoch // eval_epoch), 8 steps, one evaluation
+STEADY_OPTIONS = dict(epoch=4, eval_epoch=1)
+STEADY_STEPS = 8
 BARE_STEPS = 6
 # the overfit configs and their options: their point_capacity (4,096) is per
 # chip, where the JAX package spreads the batch of 8 scenes over 8 chips, so
@@ -231,7 +253,7 @@ SPUNET_SMALL = dict(SPUNET, layers=(1,) * 8, block_engine_min_points=4096)
 SONATA_CONFIG = "configs/sonata/pretrain-sonata-v1m1-0-base.py"
 SONATA_OPTIONS = dict(batch_size=2, point_capacity=262144, num_worker=4, seed=0, epoch=2, eval_epoch=2,
                       **{"hooks.5.save_freq": 1})
-SONATA_STEADY = dict(epoch=8, eval_epoch=1)
+SONATA_STEADY = dict(epoch=4, eval_epoch=1)  # 8 steps
 SONATA_POOL = (0.5, 0.5, 0.5, 0.5)  # PT-v3m2's pooling factors, which the config keeps
 SONATA_VIEWS = (2, 4)  # global and local views a scene
 # Sonata's attention at its stage 0 and its 12-block stage 3: (stage, C, H,
@@ -243,14 +265,50 @@ SONATA_EMA_NAMES = ("teacher.backbone.embedding.stem.linear.weight",
 # the supervised PT-v3m2 config (linear stem, decoder, the ScanNet base's
 # block engine) at phase 10's cuts
 SCRATCH_CONFIG = "configs/scannet/semseg-pt-v3m2-0-sonata-scratch.py"
+# phase 14: Sonata's downstream configs on phase 13's own checkpoint (its
+# student backbone, by the configs' CheckpointLoader), at phase 10's cuts:
+# 4 steps (loop 2 of one epoch: epoch // eval_epoch) and one evaluation
+# each; the lr1 fine-tune's one scene takes loop 4 for its 2 steps
+DOWNSTREAM_CONFIGS = (
+    ("0a", "configs/sonata/semseg-sonata-v1m1-0a-scannet-lin.py"),
+    ("0b", "configs/sonata/semseg-sonata-v1m1-0b-scannet-dec.py"),
+    ("0c", "configs/sonata/semseg-sonata-v1m1-0c-scannet-ft.py"),
+    ("0e0", "configs/sonata/semseg-sonata-v1m1-0e0-scannet-ft-la20.py"),
+    ("0e4", "configs/sonata/semseg-sonata-v1m1-0e4-scannet-ft-lr1.py"),
+)
+DOWNSTREAM_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_val=262144, epoch=2, eval_epoch=1,
+                          num_worker=4, seed=0)
+LA_POINTS = 20  # labelled points a scene of the la20 benchmark
+LR_SCENES = ("scene0001_00",)  # the lr file: one line (the JAX package cannot read it)
+# the linear probe's test section on one val scene of 102,400 raw points
+# (the per-fragment path runs one forward a fragment: the 409,600-point
+# scene's ~550 fragments would pass the time limit)
+PROBE_TEST_SCENE = "scene0007_00"
+PROBE_TEST_POINTS = 102400
+# phase 15: Utonia's linear probe and fine-tune (PT-v3m3, RoPE, head dim 18)
+# at phase 14's cuts; its in_channels=9 differs from the 6 channels its
+# data section collects
+UTONIA_CONFIGS = (("0a", "configs/utonia/semseg-utonia-v1m1-0a-scannet-lin.py"),
+                  ("0c", "configs/utonia/semseg-utonia-v1m1-0c-scannet-ft.py"))
+UTONIA_OPTIONS = {"model.backbone.in_channels": 6}
+# Utonia's attention at head dim 18 (zero-padded onto the D = 24 kernels):
+# stage 0 (C 54, H 3) and the 12-block stage 3 (C 432, H 24) of a fine-tune
+# step's two scenes of 262,144 rows: (stage, C, H, launches a step, forward
+# and backward)
+UTONIA_ATTENTION = ((0, 54, 3, 3), (3, 432, 24, 12))
+UTONIA_POOL = (0.5, 0.5, 0.5, 0.5)
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
 TRAIN_BOUNDS = {False: (2e-2, 5e-2, 0.999), True: (1e-1, 1.5e-1, 0.99)}
 
 
+_START = time.perf_counter()
+
+
 def emit(phase: str, **kw) -> None:
-    print(json.dumps({"phase": phase, **kw}), flush=True)
+    """One JSON line; ``t``: seconds since the script started."""
+    print(json.dumps({"phase": phase, **kw, "t": time.perf_counter() - _START}), flush=True)
 
 
 def nvidia_smi(query: str) -> str:
@@ -517,7 +575,8 @@ def attention_cases(device, gen, exp_rate):
     K <= 512 reaches; no main-path launch). The forward (output and
     statistics) and the backward must give the same bits twice at the
     stage-0 train shape. Returns the rows of the kernels line: the eval
-    forward and the train backward at stage 0's encoder width."""
+    forward and the train backward at stage 0's encoder width, and Utonia's
+    stage 0 at head dim 18 (forward and backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -538,10 +597,14 @@ def attention_cases(device, gen, exp_rate):
     cases += [("sonata", 2 * SONATA_VIEWS[0], stage, c, h, n) for stage, c, h, n in SONATA_ATTENTION]
     # the tester's stage 0 (TESTER_B fragments a forward), encoder and decoder
     cases += [("tester", TESTER_B, stage, c, h, n) for stage, c, h, n in attention_shapes() if stage == 0]
+    # Utonia's head dim 18 (two scenes a fine-tune step), launches of a step's
+    # forward and backward
+    cases += [("utonia", 2, stage, c, h, n) for stage, c, h, n in UTONIA_ATTENTION]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
                else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
+               else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
                else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
@@ -598,7 +661,7 @@ def attention_cases(device, gen, exp_rate):
                 flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
                 name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
                 if ((path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8"
-                        or (path == "sonata" and stage == 0)):
+                        or (path in ("sonata", "utonia") and stage == 0)):
                     identical_checks(qkv, out, dout, m_, l_, h, scale, got)
             exps = np_ * h * kk_ * kk_
             row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
@@ -612,6 +675,8 @@ def attention_cases(device, gen, exp_rate):
             if stage == 0 and c == BACKBONE["enc_channels"][0] and (path, kern) in (("eval", "fwd"),
                                                                                    ("train", "bwd")):
                 results[name] = row
+            if path == "utonia" and stage == 0:
+                results[f"{name}[D=18]"] = row
             del got, want
     for (path, name), ms in sums.items():
         emit("attention_sum", path=path, kernel=name, ms_per_forward_or_step=ms,
@@ -1065,8 +1130,9 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
                                 ("cpu_nudged", "cpu", nudged)):
             model, step = _train_setup(cfg, dev, seed=1, recipe=recipe)
             res = step(make_point_batch(data, 1, device=dev), torch.Generator().manual_seed(5))
+            # (a parameter the step does not reach, as Utonia's mask token, has no gradient)
             out[name] = (float(res["loss"]), {n: p.grad.float().cpu().numpy()
-                                              for n, p in model.named_parameters()})
+                                              for n, p in model.named_parameters() if p.grad is not None})
         (gl, gg), (cl, cg), (nl, ng) = out["card"], out["cpu"], out["cpu_nudged"]
         gmax = max(float(np.abs(g).max()) for g in cg.values())
         if not amp:
@@ -1092,23 +1158,29 @@ def write_scannet_scenes(root: str) -> dict:
     .npy files a scene (`coord`, `color` as uint8, `normal`, `segment20`,
     `instance`): a 6 m room of RAW_POINTS points, the benchmark's scene
     before its voxelisation. Returns the points a split."""
+    sizes = {}
+    for split, seeds in SCANNET_SEEDS.items():
+        for seed in seeds:
+            sizes.setdefault(split, []).append(write_scannet_scene(root, split, seed))
+    return sizes
+
+
+def write_scannet_scene(root: str, split: str, seed: int, points: int = RAW_POINTS) -> int:
+    """One synthetic scene of `points` points in a 6 m room, in ScanNet's
+    layout under ``root/split/scene{seed:04d}_00``; returns its points."""
     from pointcept_tpu_torch.datasets import synthesize_scene
 
     import numpy as np
 
-    sizes = {}
-    for split, seeds in SCANNET_SEEDS.items():
-        for seed in seeds:
-            d = os.path.join(root, split, f"scene{seed:04d}_00")
-            os.makedirs(d)
-            sc = synthesize_scene(seed, num_points=RAW_POINTS, num_classes=NUM_CLASSES, extent=6.0)
-            np.save(os.path.join(d, "coord.npy"), sc["coord"])
-            np.save(os.path.join(d, "color.npy"), sc["color"].astype(np.uint8))
-            np.save(os.path.join(d, "normal.npy"), sc["normal"])
-            np.save(os.path.join(d, "segment20.npy"), sc["segment"].astype(np.int16))
-            np.save(os.path.join(d, "instance.npy"), sc["instance"].astype(np.int16))
-            sizes.setdefault(split, []).append(len(sc["coord"]))
-    return sizes
+    d = os.path.join(root, split, f"scene{seed:04d}_00")
+    os.makedirs(d)
+    sc = synthesize_scene(seed, num_points=points, num_classes=NUM_CLASSES, extent=6.0)
+    np.save(os.path.join(d, "coord.npy"), sc["coord"])
+    np.save(os.path.join(d, "color.npy"), sc["color"].astype(np.uint8))
+    np.save(os.path.join(d, "normal.npy"), sc["normal"])
+    np.save(os.path.join(d, "segment20.npy"), sc["segment"].astype(np.int16))
+    np.save(os.path.join(d, "instance.npy"), sc["instance"].astype(np.int16))
+    return len(sc["coord"])
 
 
 _LOGS = {}
@@ -1235,7 +1307,7 @@ def _step_times(steps: list) -> dict:
 
 def steady_state(device, card, work: str, options: dict, bare_step_ms: float):
     """Phase 10's steady state: the same config and scenes through the
-    trainer for one epoch of 16 steps, then the trainer's own train step
+    trainer for one epoch of STEADY_STEPS steps, then the trainer's own train step
     alone on batches of its loader (no hooks, no loader), which the
     trainer's steps are held against beside phase 7's bare step."""
     import torch
@@ -1272,7 +1344,7 @@ def steady_state(device, card, work: str, options: dict, bare_step_ms: float):
          batch_time_ms=[st["batch_time_ms"] for st in steps], data_time_ms=[st["data_time_ms"] for st in steps],
          **_step_times(steps), config_bare_step_ms=bare, config_bare_step_median_ms=statistics.median(bare),
          bare_step_median_ms=bare_step_ms)
-    if len(steps) != 16 or any(st["overflow"] for st in steps):
+    if len(steps) != STEADY_STEPS or any(st["overflow"] for st in steps):
         raise AssertionError(f"trainer steady state: {len(steps)} steps, overflow {[st['overflow'] for st in steps]}")
     del trainer, batches, step
     torch.cuda.empty_cache()
@@ -1295,13 +1367,6 @@ def _median(values):
 def tester_path(device, card, work: str):
     """Phase 11: the ScanNet config's test section through the test CLI's
     `main_worker`, on phase 10's weights and one of its val scenes."""
-    import numpy as np
-    import torch
-
-    from pointcept_tpu_torch.engines import default_config_parser
-    from pointcept_tpu_torch.ops.kernels import KERNELS
-
-    main_worker = _test_main_worker()
     # one scene of the two: a data root that holds val scene 5 alone
     test_root = os.path.join(work, "scannet_test")
     os.makedirs(os.path.join(test_root, "val"))
@@ -1310,11 +1375,27 @@ def tester_path(device, card, work: str):
     weight = os.path.join(models, "model_best.pth")
     if not os.path.isfile(weight):
         weight = os.path.join(models, "model_last.pth")
-    save = os.path.join(work, "tester")
-    options = dict(TESTER_OPTIONS, save_path=save, weight=weight, **{"data.test.data_root": test_root})
-    cfg = default_config_parser(os.path.join(ROOT, SCANNET_CONFIG), options)
-    emit("tester_setup", config=SCANNET_CONFIG, options=dict(options, weight=os.path.relpath(weight, work)),
-         views=len(cfg.data.test.test_cfg.aug_transform), fragment_batch=cfg.get("tester_fragment_batch", TESTER_B))
+    options = dict(TESTER_OPTIONS, weight=weight, **{"data.test.data_root": test_root})
+    emit("tester_setup", config=SCANNET_CONFIG, options=dict(options, weight=os.path.relpath(weight, work)))
+    test_scene(device, card, work, "tester", SCANNET_CONFIG, TESTER_SCENE, RAW_POINTS, options)
+
+
+def test_scene(device, card, work: str, phase: str, config: str, scene_name: str, raw_points: int,
+               options: dict):
+    """A config's test section through the test CLI's `main_worker` on one
+    scene, launch counters set to 0 just before and read just after:
+    nothing dropped, the preds finite at full resolution, their mass the
+    fragment points' count and every point voted by every view. Returns the
+    scene's stats."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    main_worker = _test_main_worker()
+    save = os.path.join(work, phase)
+    cfg = default_config_parser(os.path.join(ROOT, config), dict(options, save_path=save))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     for fn in KERNELS.values():
@@ -1326,34 +1407,35 @@ def tester_path(device, card, work: str):
     launches = {name: fn.launches for name, fn in KERNELS.items()}
     peak = torch.cuda.max_memory_allocated(device)
     (st,) = tester.scene_stats
-    pred = np.load(os.path.join(save, "result", f"{TESTER_SCENE}_pred.npy"))
+    pred = np.load(os.path.join(save, "result", f"{scene_name}_pred.npy"))
     # each fragment point adds one softmax (mass 1), and every view holds
     # every voxel, so each point has at least one vote a view
     views = len(cfg.data.test.test_cfg.aug_transform)
     votes = pred.sum(axis=1, dtype=np.float64)
     mass_err = abs(float(votes.sum()) - st["points"]) / st["points"]
-    device_ms = sum(st["geometry_ms"]) + sum(st["forward_ms"])
-    emit("tester", card=card, seconds=seconds, parameters=sum(p.numel() for p in tester.model.parameters()),
-         fragments=st["fragments"], groups=st["groups"], forwards=st["forwards"], fragment_batch=st["batch"],
-         scene_ms=st["scene_ms"], fragments_per_s=st["fragments"] / (st["scene_ms"] / 1e3),
+    geometry_ms = st.get("geometry_ms", [])
+    emit(phase, config=config, card=card, seconds=seconds, parameters=sum(p.numel() for p in tester.model.parameters()),
+         capacity=tester.test_capacity, fragments=st["fragments"], groups=st["groups"], forwards=st["forwards"],
+         fragment_batch=st["batch"], scene_ms=st["scene_ms"], fragments_per_s=st["fragments"] / (st["scene_ms"] / 1e3),
          median_forward_ms=_median(st["forward_ms"]), forward_ms_range=[min(st["forward_ms"]), max(st["forward_ms"])],
-         median_geometry_ms=_median(st["geometry_ms"]), geometry_ms_total=sum(st["geometry_ms"]),
-         forward_ms_total=sum(st["forward_ms"]), device_ms_timed=device_ms, host_ms=st["host_ms"],
-         loader_wait_ms=st["loader_wait_ms"], peak_memory_bytes=peak, dropped=st["dropped"],
+         median_geometry_ms=_median(geometry_ms), geometry_ms_total=sum(geometry_ms),
+         forward_ms_total=sum(st["forward_ms"]), device_ms_timed=sum(geometry_ms) + sum(st["forward_ms"]),
+         host_ms=st["host_ms"], loader_wait_ms=st["loader_wait_ms"], peak_memory_bytes=peak, dropped=st["dropped"],
          raw_points=int(pred.shape[0]), fragment_points=st["points"], vote_mass_rel_err=mass_err,
          min_votes=float(votes.min()), views=views, mIoU=result["mIoU"], mAcc=result["mAcc"],
          allAcc=result["allAcc"], launches=launches)
     if st["dropped"]:
-        raise AssertionError(f"tester: {st['dropped']} points dropped by static capacities")
-    if pred.shape != (RAW_POINTS, NUM_CLASSES) or not np.isfinite(pred).all():
-        raise AssertionError(f"tester: pred of shape {pred.shape}, finite {np.isfinite(pred).all()}")
+        raise AssertionError(f"{phase}: {st['dropped']} points dropped by static capacities")
+    if pred.shape != (raw_points, NUM_CLASSES) or not np.isfinite(pred).all():
+        raise AssertionError(f"{phase}: pred of shape {pred.shape}, finite {np.isfinite(pred).all()}")
     if mass_err > 1e-4 or votes.min() < views * (1 - 1e-4):
-        raise AssertionError(f"tester: votes off: mass {mass_err} relative, least {votes.min()} of {views} views")
-    for name in EVAL_KERNELS:
+        raise AssertionError(f"{phase}: votes off: mass {mass_err} relative, least {votes.min()} of {views} views")
+    for name in ("patch_attention",) if tester.model.backbone.enc_mode else EVAL_KERNELS:
         if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched by the tester")
+            raise AssertionError(f"kernel {name} was not launched by the tester ({phase})")
     del tester
     torch.cuda.empty_cache()
+    return st
 
 
 def overfit_tester(device, card, work: str, path: str, options: dict, save: str):
@@ -1569,7 +1651,7 @@ def sonata_path(device, card, work: str):
     if got != want:
         raise AssertionError(f"sonata: resumed epoch 2 losses {got} differ from the first run's {want}")
 
-    # the steady state: one epoch of 16 steps
+    # the steady state: one epoch of STEADY_STEPS steps
     save = os.path.join(work, "sonata_steady")
     cfg = default_config_parser(os.path.join(ROOT, SONATA_CONFIG), dict(options, save_path=save, **SONATA_STEADY))
     torch.cuda.reset_peak_memory_stats(device)
@@ -1580,7 +1662,7 @@ def sonata_path(device, card, work: str):
     emit("sonata_steady", card=card, options=SONATA_STEADY, steps=len(steady),
          batch_time_ms=[st["batch_time_ms"] for st in steady], data_time_ms=[st["data_time_ms"] for st in steady],
          **_step_times(steady), peak_memory_bytes=peak)
-    if len(steady) != 16 or any(st["overflow"] for st in steady):
+    if len(steady) != STEADY_STEPS or any(st["overflow"] for st in steady):
         raise AssertionError(f"sonata steady state: {len(steady)} steps, overflow {[st['overflow'] for st in steady]}")
     del trainer
     torch.cuda.empty_cache()
@@ -1697,15 +1779,31 @@ def scratch_path(device, card, work: str):
     (PT-v3m2's linear stem, Sonata's encoder widths, a decoder, the ScanNet
     base's block engine) through `main_worker` at phase 10's cuts: 4 steps,
     2 evaluations."""
+    data_root = os.path.join(work, "scannet")
+    options = dict(TRAINER_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, SCRATCH_CONFIG, options, "scratch")
+    emit("scratch", config=SCRATCH_CONFIG, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+         losses=[st["loss"] for st in steps], **_step_times(steps), val_mIoU=evals["mIoU"],
+         val_overflow=evals["overflow"], peak_memory_bytes=peak, launches=launches)
+    if len(steps) != 4:
+        raise AssertionError(f"scratch: expected 4 steps, got {len(steps)}")
+    for name in TRAIN_KERNELS:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by the PT-v3m2 trainer")
+
+
+def _run_config(device, work: str, config: str, options: dict, tag: str):
+    """`main_worker` of the training CLI on `config` with `options`, launch
+    counters set to 0 just before and read just after: (trainer, its steps
+    from metrics.jsonl, its evaluation, launches, peak bytes, seconds)."""
     import torch
 
     from pointcept_tpu_torch.engines import default_config_parser, main_worker
     from pointcept_tpu_torch.ops.kernels import KERNELS
 
-    data_root = os.path.join(work, "scannet")
-    save = os.path.join(work, "scratch")
-    options = dict(TRAINER_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
-    cfg = default_config_parser(os.path.join(ROOT, SCRATCH_CONFIG), dict(options, save_path=save))
+    save = os.path.join(work, tag)
+    cfg = default_config_parser(os.path.join(ROOT, config), dict(options, save_path=save))
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(device)
     for fn in KERNELS.values():
@@ -1715,24 +1813,203 @@ def scratch_path(device, card, work: str):
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated(device)
     steps = [dict(epoch=r["epoch"], loss=r["loss"], batch_time_ms=r["batch_time"] * 1e3,
                   data_time_ms=r["data_time"] * 1e3, overflow=r["pool_overflow"] + r["block_overflow"])
              for r in _metrics(save)]
     evals = trainer.comm_info["eval_result"]
-    emit("scratch", config=SCRATCH_CONFIG, card=card, seconds=seconds,
-         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
-         losses=[st["loss"] for st in steps], **_step_times(steps), val_mIoU=evals["mIoU"],
-         val_overflow=evals["overflow"], peak_memory_bytes=torch.cuda.max_memory_allocated(device),
-         launches=launches)
-    if len(steps) != 4 or not all(math.isfinite(st["loss"]) for st in steps):
-        raise AssertionError(f"scratch: expected 4 finite losses, got {[st['loss'] for st in steps]}")
-    if any(st["overflow"] for st in steps) or evals["overflow"]:
-        raise AssertionError("scratch: points overflowed static capacities")
-    for name in TRAIN_KERNELS:
-        if launches[name] == 0:
-            raise AssertionError(f"kernel {name} was not launched by the PT-v3m2 trainer")
-    del trainer
-    torch.cuda.empty_cache()
+    if len(steps) < 2 or not all(math.isfinite(st["loss"]) for st in steps):
+        raise AssertionError(f"{tag}: expected finite losses of at least 2 steps, got {[st['loss'] for st in steps]}")
+    if any(st["overflow"] for st in steps) or evals["overflow"] or not math.isfinite(evals["mIoU"]):
+        raise AssertionError(f"{tag}: points overflowed static capacities, or val mIoU {evals['mIoU']}")
+    return trainer, steps, evals, launches, peak, seconds
+
+
+def _moved(model, reference: dict, prefix: str = "") -> tuple:
+    """(names of `model`'s parameters under `prefix` equal to `reference`'s
+    tensor of the same name, names that differ); names `reference` lacks
+    are left out."""
+    same, moved = [], []
+    for name, p in model.named_parameters():
+        if name.startswith(prefix) and name in reference:
+            (same if bool((p.detach().cpu() == reference[name]).all()) else moved).append(name)
+    return same, moved
+
+
+def _write_la_lr(work: str, data_root: str) -> dict:
+    """The data-efficient benchmarks' files for phase 10's train scenes, in
+    the formats the ports read: the la20 dict (scene -> LA_POINTS labelled
+    point indices) as an `np.save` pickle, and the lr1 list, one scene a
+    line."""
+    import numpy as np
+
+    rng = np.random.RandomState(0)
+    la = {}
+    for name in sorted(os.listdir(os.path.join(data_root, "train"))):
+        n = np.load(os.path.join(data_root, "train", name, "coord.npy"), mmap_mode="r").shape[0]
+        la[name] = np.sort(rng.choice(n, LA_POINTS, replace=False))
+    la_file, lr_file = os.path.join(work, "points20"), os.path.join(work, "lr1.txt")
+    with open(la_file, "wb") as f:
+        np.save(f, la)
+    with open(lr_file, "w") as f:
+        f.write("".join(f"{name}\n" for name in LR_SCENES))
+    return dict(la_file=la_file, lr_file=lr_file)
+
+
+def downstream_path(device, card, work: str):
+    """Phase 14: Sonata's downstream configs on phase 13's checkpoint
+    (`model_last.pth` of its first run), through the training CLI's
+    `main_worker`: the linear probe, the decoder probe, the fine-tune and
+    the data-efficient la20 and lr1 fine-tunes; then the linear probe's test
+    section through the test CLI's `main_worker`."""
+    import numpy as np
+    import torch
+
+    data_root = os.path.join(work, "scannet")
+    weight = os.path.join(work, "sonata", "model", "model_last.pth")
+    ckpt = torch.load(weight, map_location="cpu", weights_only=False)["state_dict"]
+    student = {"backbone." + k[len("student.backbone."):]: v for k, v in ckpt.items()
+               if k.startswith("student.backbone.")}
+    del ckpt
+    files = _write_la_lr(work, data_root)
+    base = dict(DOWNSTREAM_OPTIONS, weight=weight, **{"data.train.data_root": data_root,
+                                                     "data.val.data_root": data_root})
+    extra = {"0e0": {"data.train.la_file": files["la_file"]},
+             "0e4": {"data.train.lr_file": files["lr_file"], "epoch": 4}}
+    emit("downstream_setup", configs=[c for _, c in DOWNSTREAM_CONFIGS], options=dict(base, weight="phase 13"),
+         per_config=extra, la_points=LA_POINTS, lr_scenes=list(LR_SCENES))
+    summary = {}
+    for tag, config in DOWNSTREAM_CONFIGS:
+        options = dict(base, **extra.get(tag, {}))
+        trainer, steps, evals, launches, peak, seconds = _run_config(device, work, config, options, f"down_{tag}")
+        model = trainer.model
+        info = trainer.comm_info.get("load_info", {})
+        missing, unexpected = info.get("missing", []), info.get("unexpected", [])
+        # the probes and fine-tunes miss the seg head alone (the decoder
+        # probe its decoder too); the teacher, the SSL heads and the mask
+        # token are unexpected
+        fresh = ("seg_head.", "backbone.dec.") if tag == "0b" else ("seg_head.",)
+        load_ok = (bool(missing) and all(k.startswith(fresh) for k in missing)
+                   and {k for k in model.state_dict() if k.startswith(fresh)} == set(missing)
+                   and all(k.startswith(("teacher.", "student.mask_head.", "student.unmask_head."))
+                           or k == "backbone.embedding.mask_token" for k in unexpected)
+                   and any(k.startswith("teacher.") for k in unexpected))
+        same, moved = _moved(model, student, "backbone.")
+        trainable = [n for n, p in model.named_parameters() if p.requires_grad]
+        grouped = sum(len(g["params"]) for g in trainer.optimizer.param_groups)
+        row = dict(config=config, card=card, seconds=seconds, steps=len(steps), losses=[st["loss"] for st in steps],
+                   **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+                   eval_ms_per_scene=evals["batch_ms"], launches=launches, missing_keys=len(missing),
+                   unexpected_keys=len(unexpected), load_ok=load_ok, backbone_unchanged=len(same),
+                   backbone_moved=len(moved), trainable=len(trainable), optimizer_tensors=grouped,
+                   parameters=sum(p.numel() for p in model.parameters()))
+        if tag == "0e0":
+            trainer.train_loader.num_workers = 0
+            labelled = []
+            for i in range(len(trainer.train_loader.dataset)):
+                seg = trainer.train_loader.dataset[i]["segment"]
+                labelled.append(int((np.asarray(seg) >= 0).sum()))
+            row["labelled_points_a_sample"] = labelled
+            if not (0 < max(labelled) and max(labelled) <= LA_POINTS):
+                raise AssertionError(f"0e0: labelled points a sample {labelled}, expected 1-{LA_POINTS}")
+        emit("downstream", tag=tag, **row)
+        summary[tag] = row
+        if not load_ok:
+            raise AssertionError(f"{tag}: loaded keys off: missing {missing[:5]}, unexpected {unexpected[:5]}")
+        if tag == "0a":
+            # the frozen backbone: as loaded, bit for bit; only the seg head is trained
+            if moved or set(trainable) != {"seg_head.weight", "seg_head.bias"} or grouped != 2:
+                raise AssertionError(f"0a: backbone tensors moved {moved[:3]}, trainable {trainable[:4]}")
+            if launches["patch_attention_bwd"]:
+                raise AssertionError("0a: an attention backward ran through the frozen backbone")
+        else:
+            enc = [n for n in same if not n.startswith("backbone.dec.")]
+            if enc:
+                raise AssertionError(f"{tag}: {len(enc)} backbone tensors not updated, e.g. {enc[:3]}")
+            for name in ("patch_attention", "patch_attention_bwd"):
+                if launches[name] == 0:
+                    raise AssertionError(f"kernel {name} was not launched by {tag}")
+        del trainer, model
+        torch.cuda.empty_cache()
+    if not summary["0a"]["peak_memory_bytes"] < summary["0c"]["peak_memory_bytes"]:
+        raise AssertionError("the linear probe needed no less memory than the fine-tune")
+    probe_tester(device, card, work)
+
+
+def probe_tester(device, card, work: str):
+    """Phase 14's tester: the linear probe config's test section (13 views)
+    on the probe's weights and one val scene of PROBE_TEST_POINTS points;
+    the enc_mode backbone takes the per-fragment path (one forward a
+    fragment)."""
+    test_root = os.path.join(work, "scannet_probe_test")
+    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PROBE_TEST_POINTS)
+    # one scene: a loader worker would overlap nothing and take its start
+    options = dict(weight=os.path.join(work, "down_0a", "model", "model_last.pth"), seed=0, num_worker=0,
+                   **{"data.test.data_root": test_root})
+    st = test_scene(device, card, work, "probe_tester", DOWNSTREAM_CONFIGS[0][1], PROBE_TEST_SCENE, raw, options)
+    if st["groups"] is not None or st["forwards"] != st["fragments"]:
+        raise AssertionError("probe tester: the enc_mode probe did not take the per-fragment path")
+
+
+def utonia_path(device, card, work: str) -> dict:
+    """Phase 15: Utonia's linear probe and fine-tune (PT-v3m3 with RoPE,
+    head dim 18) through the training CLI's `main_worker` at full width on
+    phase 10's scenes, at phase 14's cuts and ``in_channels=6``; no Utonia
+    checkpoint exists, so the loader logs "No weight found" and the weights
+    are random (seed 0). Then one small-depth fine-tune step on the card
+    against the CPU. Returns the fine-tune's launches of the D = 18
+    attention kernels."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    data_root = os.path.join(work, "scannet")
+    options = dict(DOWNSTREAM_OPTIONS, **UTONIA_OPTIONS, **{"data.train.data_root": data_root,
+                                                          "data.val.data_root": data_root})
+    emit("utonia_setup", configs=[c for _, c in UTONIA_CONFIGS], options=options)
+    result = {}
+    for tag, config in UTONIA_CONFIGS:
+        trainer, steps, evals, launches, peak, seconds = _run_config(device, work, config, options, f"utonia_{tag}")
+        cfg = trainer.cfg
+        model = trainer.model
+        initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device="cpu",
+                              generator=torch.Generator().manual_seed(cfg.shared_seed))
+        reference = {n: p.detach() for n, p in initial.named_parameters()}
+        del initial
+        same, moved = _moved(model, reference)
+        bb = cfg.model.backbone
+        blocks, n = sum(bb.enc_depths), len(steps)
+        # every val batch's forward attends once a block
+        fwd_per_step = (launches["patch_attention"] - len(evals["batch_ms"]) * blocks) / n
+        bwd_per_step = launches["patch_attention_bwd"] / n
+        d = {c // h for c, h in zip(bb.enc_channels, bb.enc_num_head)}
+        emit("utonia", tag=tag, config=config, card=card, seconds=seconds, head_dims=sorted(d),
+             rope_base=bb.rope_base, steps=n, losses=[st["loss"] for st in steps], **_step_times(steps),
+             peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+             eval_ms_per_scene=evals["batch_ms"], launches=launches, attention_fwd_per_step=fwd_per_step,
+             attention_bwd_per_step=bwd_per_step, unchanged_parameters=len(same), moved_parameters=len(moved),
+             parameters=sum(p.numel() for p in model.parameters()))
+        if d != {18}:
+            raise AssertionError(f"utonia: head dims {d}")
+        if fwd_per_step != blocks or bwd_per_step != (blocks if tag == "0c" else 0):
+            raise AssertionError(f"utonia {tag}: {fwd_per_step} attention forwards and {bwd_per_step} "
+                                 f"backwards a step, {blocks} blocks")
+        if tag == "0a" and any(not n_.startswith("seg_head.") for n_ in moved):
+            raise AssertionError(f"utonia 0a: frozen backbone tensors moved, e.g. {moved[:3]}")
+        if tag == "0c" and [n_ for n_ in same if n_ != "backbone.embedding.mask_token"]:
+            raise AssertionError(f"utonia 0c: tensors not updated, e.g. {same[:3]}")
+        result[tag] = launches
+        del trainer, model
+        torch.cuda.empty_cache()
+
+    # one small-depth fine-tune step (f32) on the card against the CPU
+    cfg = Config.fromfile(os.path.join(ROOT, UTONIA_CONFIGS[1][1]))
+    small = dict(cfg.model, backbone=dict(cfg.model.backbone, in_channels=6, enc_depths=(1,) * 5, drop_path=0.0,
+                                          pool_capacity_factors=(0.5,) * 4))
+    recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=cfg.param_dicts, scheduler=dict(cfg.scheduler))
+    card_vs_cpu_train(device, [(False, small, recipe)], phase="utonia_card_vs_cpu_train")
+    return result["0c"]
 
 
 def main() -> int:
@@ -1778,6 +2055,8 @@ def main() -> int:
         tester_path(device, card, work)
         overfit_runs(device, card, work)
         sonata_path(device, card, work)
+        downstream_path(device, card, work)
+        utonia = utonia_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -1800,6 +2079,11 @@ def main() -> int:
         "tap_conv_dw": "pointcept_tpu/ops/pallas/tap_conv.py:268 "
                        "(_dw_kernel_banded; also _dw_kernel_sliced at :286, via tap_conv_dw at :310)",
     }
+    # the D = 18 rows: the same kernels at Utonia's head dim (padded to 24),
+    # launched by phase 15's fine-tune
+    for name in ("patch_attention", "patch_attention_bwd"):
+        sources[f"{name}[D=18]"], replaces[f"{name}[D=18]"] = sources[name], replaces[name]
+        launches[f"{name}[D=18]"] = utonia[name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

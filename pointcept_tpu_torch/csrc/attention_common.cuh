@@ -5,7 +5,13 @@
 // A head row of D bf16 values is D / 8 chunks of 16 bytes, stored unpadded.
 // Chunk c of row r sits at chunk position c ^ swz(r), where swz spreads the
 // eight rows that one ldmatrix reads over all 32 banks (D = 16: two chunks a
-// row, swz = (r / 4) % 2; D = 32: four chunks, swz = (r / 2) % 4).
+// row, swz = (r / 4) % 2; D = 32: four chunks, swz = (r / 2) % 4). At D = 24
+// (three chunks, 48 bytes a row) the rows need no swizzle: eight rows at a
+// pitch of 48 bytes already start in eight distinct 16-byte bank groups.
+//
+// D = 24 is not a whole number of mma.k16 steps: a product over D takes two
+// steps, the second of which has its upper eight columns (24-31) zero in
+// registers (`kHalfStep`); nothing past column 24 is staged or read.
 
 #pragma once
 
@@ -33,6 +39,19 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+// two 8x8 b16 matrices; lanes 0-15 give the row addresses (matrix l / 8)
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void ldsm_x2_t(uint32_t (&r)[2], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0,%1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
                : "r"(addr));
 }
 
@@ -83,10 +102,17 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// mma.k16 steps of a product over D, and whether the last is half a step
+template <int D>
+constexpr int kSteps = (D + 15) / 16;
+template <int D>
+constexpr bool kHalfStep = D % 16 != 0;
+
 // byte offset of chunk c (8 bf16) of row r in a swizzled [rows, D] tile
 template <int D>
 __device__ __forceinline__ uint32_t swz(int r, int c) {
   constexpr int kChunks = D / 8;
+  if constexpr (D == 24) return (uint32_t)(r * D * 2 + 16 * c);
   return (uint32_t)(r * D * 2 + 16 * (c ^ ((r / (8 / kChunks)) % kChunks)));
 }
 
@@ -104,9 +130,10 @@ __device__ __forceinline__ void stage_rows(unsigned char* dst, const __nv_bfloat
 
 // B fragments of a [16 rows x D] slice (rows r0..r0+15) of a swizzled tile
 // whose rows are the n index and whose columns are the contraction:
-// b[n8][kd][2] for S = A * tile^T (q k^T: the tile is K).
+// b[n8][kd][2] for S = A * tile^T (q k^T: the tile is K). At D = 24 the
+// last step's upper half (columns 24-31) is zero.
 template <int D>
-__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2][D / 16][2], uint32_t base, int r0,
+__device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2][kSteps<D>][2], uint32_t base, int r0,
                                             int lane) {
   const int mi = lane >> 3, rr = lane & 7;
 #pragma unroll
@@ -118,6 +145,15 @@ __device__ __forceinline__ void frag_b_rows(uint32_t (&b)[2][D / 16][2], uint32_
     b[1][kd][0] = r[2];
     b[1][kd][1] = r[3];
   }
+  if constexpr (kHalfStep<D>) {
+    constexpr int kd = D / 16;
+    uint32_t r[2];
+    ldsm_x2(r, base + swz<D>(r0 + (mi & 1) * 8 + rr, 2 * kd));
+    b[0][kd][0] = r[0];
+    b[0][kd][1] = 0u;
+    b[1][kd][0] = r[1];
+    b[1][kd][1] = 0u;
+  }
 }
 
 // B fragments of the same slice as the contraction rows: b[n8 of D][2] for
@@ -127,7 +163,7 @@ __device__ __forceinline__ void frag_b_cols(uint32_t (&b)[D / 8][2], uint32_t ba
                                             int lane) {
   const int mi = lane >> 3, rr = lane & 7;
 #pragma unroll
-  for (int c = 0; c < D / 8; c += 2) {
+  for (int c = 0; c + 1 < D / 8; c += 2) {
     uint32_t r[4];
     ldsm_x4_t(r, base + swz<D>(r0 + (mi & 1) * 8 + rr, c + (mi >> 1)));
     b[c][0] = r[0];
@@ -135,21 +171,34 @@ __device__ __forceinline__ void frag_b_cols(uint32_t (&b)[D / 8][2], uint32_t ba
     b[c + 1][0] = r[2];
     b[c + 1][1] = r[3];
   }
+  if constexpr ((D / 8) % 2 == 1) {
+    constexpr int c = D / 8 - 1;
+    uint32_t r[2];
+    ldsm_x2_t(r, base + swz<D>(r0 + (mi & 1) * 8 + rr, c));
+    b[c][0] = r[0];
+    b[c][1] = r[1];
+  }
 }
 
 // A fragments (16 rows x D) of row-major global rows r0.. (row stride
-// `stride`); rows at or past `rows` read row rows - 1.
+// `stride`); rows at or past `rows` read row rows - 1. At D = 24 the last
+// step's columns 24-31 are zero, not read.
 template <int D>
-__device__ __forceinline__ void frag_a_global(uint32_t (&a)[D / 16][4], const __nv_bfloat16* src,
-                                              size_t stride, int r0, int rows, int g, int t) {
+__device__ __forceinline__ void frag_a_global(uint32_t (&a)[kSteps<D>][4],
+                                              const __nv_bfloat16* src, size_t stride, int r0,
+                                              int rows, int g, int t) {
   const __nv_bfloat16* p0 = src + (size_t)min(r0 + g, rows - 1) * stride;
   const __nv_bfloat16* p8 = src + (size_t)min(r0 + g + 8, rows - 1) * stride;
 #pragma unroll
-  for (int kd = 0; kd < D / 16; ++kd) {
+  for (int kd = 0; kd < kSteps<D>; ++kd) {
     a[kd][0] = ld32(p0 + kd * 16 + 2 * t);
     a[kd][1] = ld32(p8 + kd * 16 + 2 * t);
-    a[kd][2] = ld32(p0 + kd * 16 + 2 * t + 8);
-    a[kd][3] = ld32(p8 + kd * 16 + 2 * t + 8);
+    if (kHalfStep<D> && kd == kSteps<D> - 1) {
+      a[kd][2] = a[kd][3] = 0u;
+    } else {
+      a[kd][2] = ld32(p0 + kd * 16 + 2 * t + 8);
+      a[kd][3] = ld32(p8 + kd * 16 + 2 * t + 8);
+    }
   }
 }
 

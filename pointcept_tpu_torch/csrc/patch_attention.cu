@@ -30,6 +30,9 @@
 //    fragment; one tile where the grid is small, see `launch`) and runs
 //    q k^T and p v on mma.sync.m16n8k16; the score accumulators are
 //    repacked in place as the A operand of p v.
+// Head dim 24 (the Utonia configs' 18, zero-padded by the wrapper) stages
+// 48-byte rows and pads the contraction to 32 in registers only
+// (attention_common.cuh): 96 KB of K and V at K = 1024, two blocks an SM.
 // A block holds 256 query rows; at D = 16 its 64 KB of K and V for K = 1024
 // and at most 80 registers a thread leave room for three blocks an SM, so
 // one block's staging overlaps the others' exps (two blocks, at 122
@@ -53,15 +56,15 @@ using namespace attn;
 constexpr int kWarps = 8;
 
 template <int D, int MT>
-__device__ __forceinline__ void scores(float (&s)[MT][2][4], const uint32_t (&qa)[MT][D / 16][4],
-                                       const uint32_t (&kb)[2][D / 16][2]) {
+__device__ __forceinline__ void scores(float (&s)[MT][2][4], const uint32_t (&qa)[MT][kSteps<D>][4],
+                                       const uint32_t (&kb)[2][kSteps<D>][2]) {
 #pragma unroll
   for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
     for (int n = 0; n < 2; ++n) {
       s[mt][n][0] = s[mt][n][1] = s[mt][n][2] = s[mt][n][3] = 0.f;
 #pragma unroll
-      for (int kd = 0; kd < D / 16; ++kd) mma_bf16(s[mt][n], qa[mt][kd], kb[n][kd][0], kb[n][kd][1]);
+      for (int kd = 0; kd < kSteps<D>; ++kd) mma_bf16(s[mt][n], qa[mt][kd], kb[n][kd][0], kb[n][kd][1]);
     }
 }
 
@@ -94,7 +97,7 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   const bool active = r0 < K;  // K % 16 == 0: a later m16 tile may lie past K
 
   // A fragments of q (rows past K repeat row K - 1 and are not stored)
-  uint32_t qa[MT][D / 16][4];
+  uint32_t qa[MT][kSteps<D>][4];
   if (active) {
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) frag_a_global<D>(qa[mt], base, stride, r0 + 16 * mt, K, g, t);
@@ -109,7 +112,7 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   __syncthreads();
   if (active) {
     for (int k0 = 0; k0 < K; k0 += 16) {
-      uint32_t kb[2][D / 16][2];
+      uint32_t kb[2][kSteps<D>][2];
       frag_b_rows<D>(kb, kbase, k0, lane);
       float s[MT][2][4];
       scores<D, MT>(s, qa, kb);
@@ -149,7 +152,7 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   __syncthreads();
   if (!active) return;
   for (int k0 = 0; k0 < K; k0 += 16) {
-    uint32_t kb[2][D / 16][2], vb[D / 8][2];
+    uint32_t kb[2][kSteps<D>][2], vb[D / 8][2];
     frag_b_rows<D>(kb, kbase, k0, lane);
     frag_b_cols<D>(vb, vbase, k0, lane);
     float s[MT][2][4];
@@ -243,7 +246,7 @@ int launch(const void* qkv, void* out, float* m, float* l, int np, int K, int C,
 
 // qkv [np, K, 3C] bf16 row-major (q | k | v, heads of D columns each) ->
 // out [np, K, C] bf16, and when m and l are not null the row statistics
-// m, l [np, H, K] f32; K % 16 == 0. Returns the cudaError_t of the launch.
+// m, l [np, H, K] f32; D 16, 24 or 32, K % 16 == 0. Returns the cudaError_t of the launch.
 extern "C" int patch_attention_fwd(const void* qkv, void* out, void* m, void* l, int np, int K,
                                    int C, int H, int D, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -253,6 +256,8 @@ extern "C" int patch_attention_fwd(const void* qkv, void* out, void* m, void* l,
   switch (D) {
     case 16:
       return launch<16>(qkv, out, mf, lf, np, K, C, H, scale, s);
+    case 24:
+      return launch<24>(qkv, out, mf, lf, np, K, C, H, scale, s);
     case 32:
       return launch<32>(qkv, out, mf, lf, np, K, C, H, scale, s);
     default:

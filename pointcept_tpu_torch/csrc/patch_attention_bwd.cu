@@ -30,7 +30,8 @@
 // Design: a pre-pass kernel (`attn_bwd_prep_kernel`) writes lse2 and D_ once
 // per row. The main kernel (`attn_bwd_kernel`) gives each (patch, head) a
 // cluster of S blocks that split the key rows; each warp owns T tiles of 16
-// keys (T = 4 at D = 16 where K % 64 == 0, else 1), keeps their K and V
+// keys (T = 4 at D = 16 where K % 64 == 0, 2 at D = 24 where K % 32 == 0,
+// else 1), keeps their K and V
 // fragments and their dK, dV sums in registers, and walks every query, 64 a
 // step. Q, dO and the row terms of the whole patch sit in each block's
 // shared memory (cp.async, swizzled, unpadded), where ldmatrix reads them as
@@ -56,6 +57,14 @@
 // the staging and the cluster epilogues); so were a ring of 32-query
 // tiles, split-phase barriers, per-warp turn flags and persistent clusters.
 // Steps of 64 queries beat steps of 32 (half the barriers).
+//
+// Head dim 24 (the Utonia configs' 18, zero-padded by the wrapper): 48-byte
+// rows, the contraction over D padded to 32 in registers only
+// (attention_common.cuh). At K = 1024 a block's Q, dO, row terms and f32 dQ
+// take 200 KB (at D = 32 they would take 264 KB, over the 227 KB a block may
+// use), so one block of 8 warps an SM, two key tiles of 16 a warp and a
+// cluster of 4 blocks split the keys (on an H100 at Utonia's stages 0 and
+// 3, 28% faster than one tile a warp in a cluster of 8, PERF.md).
 //
 // Grid: S blocks (one cluster) per (patch, head), W warps a block; the plan
 // (S, W, T) comes from the wrapper (ops/kernels/patch_attention.py, bwd_plan).
@@ -109,8 +118,11 @@ size_t smem_bytes(int kp) {
 // f32 offset of (row, col) in the dQ tile: the 8-column groups of a row are
 // permuted by the row so that a warp's float2 accesses (rows g, columns 2t)
 // hit 32 distinct banks a phase
+// (at D = 24 the rows need no permutation: a half warp's rows g = 0-3 at a
+// pitch of 24 floats already start 8 banks apart)
 template <int D>
 __device__ __forceinline__ int dq_off(int row, int col) {
+  if constexpr (D == 24) return row * D + col;
   const int f = D == 16 ? (row >> 1) & 1 : row & 3;
   return row * D + (((col >> 3) ^ f) << 3) + (col & 7);
 }
@@ -160,7 +172,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
 
   // each key tile's K and V as A operands of k q^T and v dO^T, K as the B
   // operand of dS K
-  uint32_t ka[KT][D / 16][4], va[KT][D / 16][4], kb[KT][D / 8][2];
+  uint32_t ka[KT][kSteps<D>][4], va[KT][kSteps<D>][4], kb[KT][D / 8][2];
   float dk[KT][D / 8][4], dv[KT][D / 8][4];
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt)
@@ -198,7 +210,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
         const int qr = x * kStep + 16 * sub;
         // s^T = k q^T and dP^T = v dO^T: rows = the key tile's keys g, g+8;
         // columns = queries qr + 8n + 2t, +1
-        uint32_t qf[2][D / 16][2], df[2][D / 16][2];
+        uint32_t qf[2][kSteps<D>][2], df[2][kSteps<D>][2];
         frag_b_rows<D>(qf, qbase, qr, lane);
         frag_b_rows<D>(df, dobase, qr, lane);
         float4 sq[2];
@@ -214,7 +226,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
             s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
             dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
 #pragma unroll
-            for (int kd = 0; kd < D / 16; ++kd) {
+            for (int kd = 0; kd < kSteps<D>; ++kd) {
               mma_bf16(s[n], ka[kt][kd], qf[n][kd][0], qf[n][kd][1]);
               mma_bf16(dp[n], va[kt][kd], df[n][kd][0], df[n][kd][1]);
             }
@@ -362,7 +374,8 @@ int launch(const void* qkv, const void* out, const void* dout, const float* m, c
   // every block of a cluster owns keys: a block with none would add a dQ
   // tile it never wrote
   if (S < 1 || S > 8 || W < 1 || W > kMaxWarps || W > (K + kStep - 1) / kStep ||
-      (T != 1 && !(D == 16 && T == 4 && W <= 8)) || K % keys != 0 || S * W * keys < K ||
+      (T != 1 && !(D == 16 && T == 4 && W <= 8) && !(D == 24 && T == 2)) || K % keys != 0 ||
+      S * W * keys < K ||
       (S - 1) * W * keys >= K)
     return (int)cudaErrorInvalidValue;
   const int rows = np * H * K;
@@ -376,6 +389,9 @@ int launch(const void* qkv, const void* out, const void* dout, const float* m, c
     // four key tiles take twice the registers of one: at most 8 warps
     if (T == 4) return launch_main<D, 4, 8>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
   }
+  if constexpr (D == 24) {
+    if (T == 2) return launch_main<D, 2, 8>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
+  }
   return launch_main<D, 1, kMaxWarps>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
 }
 
@@ -384,8 +400,8 @@ int launch(const void* qkv, const void* out, const void* dout, const float* m, c
 // qkv [np, K, 3C] bf16 (q | k | v, heads of D columns each), out and dout
 // [np, K, C] bf16 (the forward's output and its cotangent), m and l
 // [np, H, K] f32 (the forward's row max and denominator), stats [np, H, K, 2]
-// f32 scratch -> dqkv [np, K, 3C] bf16. The wrapper's plan: S blocks a
-// cluster of W warps that own T key tiles of 16 each (T = 1, or 4 at
+// f32 scratch -> dqkv [np, K, 3C] bf16; D 16, 24 or 32. The wrapper's plan: S blocks a
+// cluster of W warps that own T key tiles of 16 each (T = 1, 2 at D = 24, or 4 at
 // D = 16 with W <= 8), (S - 1) * W * 16T < K <= S * W * 16T, K % 16T == 0,
 // W at most the K / 64 query tiles. Returns the cudaError_t of the launches.
 extern "C" int patch_attention_bwd(const void* qkv, const void* out, const void* dout,
@@ -399,6 +415,8 @@ extern "C" int patch_attention_bwd(const void* qkv, const void* out, const void*
   switch (D) {
     case 16:
       return launch<16>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
+    case 24:
+      return launch<24>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
     case 32:
       return launch<32>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
     default:

@@ -1,15 +1,41 @@
 """ScanNet v2, 20 classes (counterpart of `ScanNetDataset` in
 `pointcept_tpu/datasets/scannet.py`; parity target: reference
 `pointcept/datasets/scannet.py:28`): DefaultDataset over preprocessed .npy
-scenes whose labels are `segment20.npy`. The data-efficient `lr_file` /
-`la_file` benchmarks and ScanNet200 are not ported."""
+scenes whose labels are `segment20.npy`.
+
+The data-efficient benchmarks: `lr_file` (limited reconstructions) names
+the train scenes, one a line, read from ``data_root/train``; `la_file`
+(limited annotations) maps a scene's name to the indices of its labelled
+points, and every other point's label becomes `ignore_index`, the indices
+kept as ``sampled_index`` for `RandomDropout` and `GridSample`. An
+`la_file` is a pickled dict, as the JAX package reads it (`np.save` of the
+dict) or as the reference's `torch.save`. ScanNet200 is not ported."""
 
 from __future__ import annotations
+
+import os.path as osp
 
 import numpy as np
 
 from .builder import DATASETS
 from .defaults import DefaultDataset
+
+
+def read_scene_list(path: str) -> np.ndarray:
+    """An `lr_file`'s scene names, one a line, as a 1-d array (also for a
+    file of one line, which the JAX package reads as a 0-d array)."""
+    return np.atleast_1d(np.loadtxt(path, dtype=str))
+
+
+def read_label_index(path: str) -> dict:
+    """An `la_file`'s dict of scene name -> labelled point indices."""
+    with open(path, "rb") as f:
+        magic = f.read(6)
+    if magic == b"\x93NUMPY":
+        return np.load(path, allow_pickle=True).item()
+    import torch
+
+    return {k: np.asarray(v) for k, v in torch.load(path, weights_only=False).items()}
 
 
 @DATASETS.register_module()
@@ -19,12 +45,27 @@ class ScanNetDataset(DefaultDataset):
     class2id = np.array([1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 14, 16, 24, 28, 33, 34, 36, 39])
 
     def __init__(self, lr_file=None, la_file=None, **kwargs):
-        if lr_file is not None or la_file is not None:
-            raise NotImplementedError("ScanNetDataset: lr_file / la_file are not ported")
+        self.lr = read_scene_list(lr_file) if lr_file is not None else None
+        self.la = read_label_index(la_file) if la_file is not None else None
         super().__init__(**kwargs)
+
+    def get_data_list(self):
+        if self.lr is None:
+            return super().get_data_list()
+        return [osp.join(self.data_root, "train", name) for name in self.lr]
 
     def load_assets(self, idx) -> dict:
         data_dict = super().load_assets(idx)
         if "segment20" in data_dict:
             data_dict["segment"] = data_dict.pop("segment20").reshape([-1]).astype(np.int32)
+        return data_dict
+
+    def get_data(self, idx):
+        data_dict = super().get_data(idx)
+        if self.la:
+            sampled_index = self.la[self.get_data_name(idx)]
+            mask = np.ones_like(data_dict["segment"], dtype=bool)
+            mask[sampled_index] = False
+            data_dict["segment"][mask] = self.ignore_index
+            data_dict["sampled_index"] = sampled_index
         return data_dict

@@ -145,13 +145,23 @@ class RandomDropout:
         self.dropout_application_ratio = dropout_application_ratio
 
     def __call__(self, data_dict):
-        if "sampled_index" in data_dict:
-            raise NotImplementedError("RandomDropout: sampled_index (ScanNet la/lr) is not ported")
         if random.random() < self.dropout_application_ratio:
             n = len(data_dict["coord"])
             idx = np.random.choice(n, int(n * (1 - self.dropout_ratio)), replace=False)
+            if "sampled_index" in data_dict:
+                # the labelled points of the data-efficient benchmarks survive
+                idx, data_dict["sampled_index"] = _keep_sampled(idx, data_dict)
             data_dict = index_operator(data_dict, idx)
         return data_dict
+
+
+def _keep_sampled(idx: np.ndarray, data_dict: dict):
+    """(`idx` with every ``sampled_index`` point added, sorted and unique;
+    the positions of those points in it)."""
+    idx = np.unique(np.append(idx, data_dict["sampled_index"]))
+    mask = np.zeros(len(data_dict["segment"]), bool)
+    mask[data_dict["sampled_index"]] = True
+    return idx, np.flatnonzero(mask[idx])
 
 
 def _rotation_matrix(axis: str, angle: float) -> np.ndarray:
@@ -383,12 +393,13 @@ class GridSample:
         return out
 
     def __call__(self, data_dict):
-        if "sampled_index" in data_dict:
-            raise NotImplementedError("GridSample: sampled_index (ScanNet la/lr) is not ported")
         grid, order, starts, counts, vox = self._voxel_runs(data_dict["coord"])
         if self.mode == "train":
             rng = self.rng if self.rng is not None else np.random
             picked = order[starts + rng.randint(0, counts.max(), counts.size) % counts]
+            if "sampled_index" in data_dict:
+                # the labelled points of the data-efficient benchmarks survive
+                picked, data_dict["sampled_index"] = _keep_sampled(picked, data_dict)
             return self._attach(index_operator(data_dict, picked), picked, grid, vox)
         parts = []
         for i in range(counts.max()):

@@ -172,7 +172,11 @@ class CheckpointLoader(HookBase):
     """Before training, from ``cfg.weight``: the weights (a checkpoint's
     ``state_dict``, or a bare state dict) through `remap_state_dict`, loaded
     with `strict`; with ``cfg.resume`` also the optimizer, the scheduler, the
-    start epoch and the best metric."""
+    start epoch and the best metric. The missing and the unexpected keys are
+    logged (a probe on a Sonata checkpoint: its seg head missing, the
+    teacher, the SSL heads and the mask token unexpected); a tensor whose
+    shape differs from the model's raises, naming it (`load_state_dict`
+    does, `strict` or not)."""
 
     def __init__(self, keywords="", replacement=None, strict=False):
         self.keywords = keywords
@@ -189,10 +193,11 @@ class CheckpointLoader(HookBase):
         # the trainer's own checkpoints: tensors, numbers and the optimizer's
         # and scheduler's state dicts
         checkpoint = torch.load(cfg.weight, map_location=trainer.device, weights_only=False)
-        state = checkpoint.get("state_dict", checkpoint)
-        info = trainer.model.load_state_dict(remap_state_dict(state, self.keywords, self.replacement),
-                                             strict=self.strict)
+        state = remap_state_dict(checkpoint.get("state_dict", checkpoint), self.keywords, self.replacement)
+        info = trainer.model.load_state_dict(state, strict=self.strict)
         trainer.logger.info(f"Missing keys: {info.missing_keys}")
+        trainer.logger.info(f"Unexpected keys: {info.unexpected_keys}")
+        trainer.comm_info["load_info"] = dict(missing=list(info.missing_keys), unexpected=list(info.unexpected_keys))
         if cfg.get("resume"):
             trainer.start_epoch = int(checkpoint["epoch"])
             trainer.best_metric_value = float(checkpoint["best_metric_value"])

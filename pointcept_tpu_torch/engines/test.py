@@ -19,8 +19,10 @@ fragments run through it. Each fragment's f32 softmax is added into a
 device-resident ``[n_vox + capacity, C]`` accumulator with `index_add_`;
 pad rows go to distinct trash rows, so no two adds of one call meet one
 row and the sums are the same bits run to run. The prediction comes to the
-host once a scene. Other backbones, or ``fragment_geometry_reuse=False``,
-run one forward a fragment.
+host once a scene. Other backbones (an ``enc_mode`` PT-v3 among them: its
+skip chain has no shared geometry), or ``fragment_geometry_reuse=False``,
+run one forward a fragment. A backbone with RoPE reads each fragment's own
+coordinates, so its groups bring them beside the features.
 
 Not ported: the JAX tester's wire, host geometry and dispatch/collect split
 (TPU workarounds), the host accumulation loop (``device_accumulate=False``
@@ -82,16 +84,17 @@ class SceneLoader:
     workers; it holds no model, so it pickles small). With `grouped`, the
     fragments are keyed by their voxel grid (its bytes and length); each
     group brings its grid once, its fragments' features ``[k, n, F]`` and
-    source indices ``[k, n]``. The coords stay behind: PT-v3's logits read
-    the grid, and coords only through RPE or RoPE (not ported). Otherwise
-    each fragment comes padded to `capacity`. A scene whose pred is cached
-    in `result_dir` is not packed."""
+    source indices ``[k, n]``, and with `with_coord` its fragments' coords
+    ``[k, n, 3]`` (PT-v3's logits read the grid, and coords only through
+    RoPE). Otherwise each fragment comes padded to `capacity`. A scene whose
+    pred is cached in `result_dir` is not packed."""
 
-    def __init__(self, dataset, capacity: int, grouped: bool, result_dir: str):
+    def __init__(self, dataset, capacity: int, grouped: bool, result_dir: str, with_coord: bool = False):
         self.dataset = dataset
         self.capacity = capacity
         self.grouped = grouped
         self.result_dir = result_dir
+        self.with_coord = with_coord
 
     def __call__(self, batch) -> dict:
         (idx,) = batch
@@ -121,11 +124,15 @@ class SceneLoader:
             self._check_size(n)
             grid = np.ascontiguousarray(f["grid_coord"], np.int32)
             key = (hashlib.blake2b(grid.tobytes(), digest_size=16).hexdigest(), n)
-            g = groups.setdefault(key, dict(grid=grid, feat=[], index=[]))
+            g = groups.setdefault(key, dict(grid=grid, feat=[], index=[], coord=[]))
             g["feat"].append(np.asarray(f["feat"], np.float32))
             g["index"].append(np.asarray(f["index"]).astype(np.int32))
+            if self.with_coord:
+                g["coord"].append(np.asarray(f["coord"], np.float32))
         return [dict(grid=torch.from_numpy(g["grid"]), feat=torch.from_numpy(np.stack(g["feat"])),
-                     index=torch.from_numpy(np.stack(g["index"]))) for g in groups.values()]
+                     index=torch.from_numpy(np.stack(g["index"])),
+                     coord=torch.from_numpy(np.stack(g["coord"])) if self.with_coord else None)
+                for g in groups.values()]
 
     def _pad(self, fragment) -> dict:
         index = np.asarray(fragment.pop("index")).astype(np.int32)
@@ -189,15 +196,25 @@ class TesterBase:
         return ((n + b - 1) // b) * b
 
     def _fragment_geometry_ok(self) -> bool:
-        """The grouped path: a PT-v3 backbone under `DefaultSegmentorV2`,
-        unless ``fragment_geometry_reuse`` is off."""
+        """The grouped path: a PT-v3 backbone with its decoder under
+        `DefaultSegmentorV2`, unless ``fragment_geometry_reuse`` is off. An
+        ``enc_mode`` backbone (the linear probes and fine-tunes) takes the
+        per-fragment path: `build_geometry` serves the decoder path only (the
+        JAX tester sends it to the grouped path, where it fails)."""
         if not self.cfg.get("fragment_geometry_reuse", True):
             return False
         model_cfg = dict(self.cfg.model)
         if model_cfg.get("type") != "DefaultSegmentorV2":
             return False
-        bb = model_cfg.get("backbone")
-        return bool(bb) and str(dict(bb).get("type", "")).startswith("PT-v3")
+        bb = dict(model_cfg.get("backbone") or {})
+        return str(bb.get("type", "")).startswith("PT-v3") and not bb.get("enc_mode", False)
+
+    def _fragment_coord(self) -> bool:
+        """Whether the backbone reads the fragments' own coordinates (RoPE:
+        PT-v3m3 unless its ``rope_base`` is None), as the JAX tester's
+        `_coord_from_grid_ok` decides."""
+        bb = dict(dict(self.cfg.model).get("backbone") or {})
+        return bb.get("type") == "PT-v3m3" and bb.get("rope_base", 10000.0) is not None
 
     def check_dropped(self, dropped: int, n_valid: int, context: str):
         """Raise when the static capacities dropped more than
@@ -238,7 +255,8 @@ class SemSegTester(TesterBase):
         ``num_worker`` spawned workers (at most one a scene)."""
         workers = min(int(self.cfg.get("num_worker_per_gpu", self.cfg.get("num_worker", 0)) or 0),
                       len(self.test_dataset))
-        scenes = SceneLoader(self.test_dataset, self.test_capacity, self._fragment_geometry_ok(), self.result_dir)
+        scenes = SceneLoader(self.test_dataset, self.test_capacity, self._fragment_geometry_ok(), self.result_dir,
+                             with_coord=self._fragment_coord())
         return torch.utils.data.DataLoader(
             range(len(self.test_dataset)), batch_size=1, shuffle=False, num_workers=workers,
             collate_fn=scenes, pin_memory=self.device.type == "cuda",
@@ -275,13 +293,17 @@ class SemSegTester(TesterBase):
                 geom = model.backbone.build_geometry(template)
             timer.add("geometry", t0, timer.mark())
             feat_b = torch.zeros((b * cap, feat.shape[2]), dtype=torch.float32, device=dev)
+            coord = None if g.get("coord") is None else g["coord"].to(dev, non_blocking=True)
+            coord_b = template.coord if coord is None else torch.zeros_like(template.coord)
             for j0 in range(0, slots, b):
                 for s in range(b):
                     # a dummy slot runs fragment 0 again, its rows to the trash
                     src = j0 + s if j0 + s < k else 0
                     feat_b[s * cap : s * cap + n] = feat[src]
+                    if coord is not None:
+                        coord_b[s * cap : s * cap + n] = coord[src]
                 t0 = timer.mark()
-                res = model(template.replace(feat=feat_b), precomputed=geom)
+                res = model(template.replace(feat=feat_b, coord=coord_b), precomputed=geom)
                 probs = torch.softmax(res["seg_logits"].float(), dim=-1)
                 for s in range(b):
                     pred.index_add_(0, rows[j0 + s], probs[s * cap : (s + 1) * cap])

@@ -39,6 +39,9 @@ def apply_amp_policy(model_cfg: dict, enable_amp: bool) -> dict:
     if not enable_amp or not isinstance(bb, dict) or "type" not in bb:
         return model_cfg
     cls = MODELS.get(bb["type"])
-    if cls is not None and "amp" in inspect.signature(cls.__init__).parameters and "amp" not in bb:
+    # the arguments of every __init__ up the class chain (PT-v3m3's passes the rest on)
+    takes = set() if cls is None else {name for c in cls.__mro__ if "__init__" in vars(c)
+                                       for name in inspect.signature(c.__init__).parameters}
+    if "amp" in takes and "amp" not in bb:
         model_cfg["backbone"] = dict(bb, amp=True)
     return model_cfg

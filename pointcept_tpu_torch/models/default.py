@@ -8,9 +8,11 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..utils.logger import get_root_logger
 from .builder import MODELS
 from .losses import build_criteria
 from .modules import Linear
+from .point_transformer_v3.point_transformer_v3 import up_cast
 from .utils.structure import PointBatch
 
 
@@ -46,33 +48,53 @@ class DefaultSegmentorV2(nn.Module):
     train mode only; the eval forward runs under `torch.no_grad`. In train
     mode the backbone draws its order shuffles and drop-path masks from
     `generator`. `precomputed`: the backbone's `build_geometry` of the
-    batch's points, shared by the batches of one voxel grid (PT-v3)."""
+    batch's points, shared by the batches of one voxel grid (PT-v3).
+
+    An ``enc_mode`` backbone (Sonata's and Utonia's downstream configs)
+    returns its skip chain too; the head reads the up-cast of
+    `up_cast_level` levels of it (0: every level, as the JAX package), and
+    its width is the up-cast's, as JAX's ``nn.Dense`` infers it (a config's
+    differing `backbone_out_channels` is logged). `freeze_backbone` is the
+    reference's: the backbone's parameters do not require gradients, so no
+    optimizer group holds them, no graph is recorded through the backbone
+    and its weights stay as loaded; its BatchNorm statistics still move in
+    train mode."""
 
     def __init__(self, num_classes: int = 20, backbone_out_channels: int = 64, backbone=None,
                  criteria=None, freeze_backbone: bool = False, up_cast_level: int = 0):
         super().__init__()
-        if up_cast_level:
-            raise NotImplementedError("DefaultSegmentorV2: up_cast_level (an enc_mode backbone's "
-                                      "skip features) is not ported yet")
         self.backbone = MODELS.build(dict(backbone))
-        in_ch = self.backbone.out_channels
-        if backbone_out_channels != in_ch:
-            raise ValueError(f"backbone_out_channels={backbone_out_channels} but the backbone "
-                             f"emits {in_ch} channels")
+        self.enc_mode = bool(getattr(self.backbone, "enc_mode", False))
+        if self.enc_mode:
+            enc = self.backbone.enc_channels
+            self.up_cast_level = min(up_cast_level or len(enc) - 1, len(enc) - 1)
+            in_ch = sum(enc[len(enc) - 1 - self.up_cast_level:])
+            if backbone_out_channels != in_ch:
+                get_root_logger().warning(
+                    f"DefaultSegmentorV2: backbone_out_channels={backbone_out_channels} but the up-cast of "
+                    f"{self.up_cast_level} levels gives {in_ch} channels; the head takes {in_ch}")
+        else:
+            in_ch = self.backbone.out_channels
+            if backbone_out_channels != in_ch:
+                raise ValueError(f"backbone_out_channels={backbone_out_channels} but the backbone "
+                                 f"emits {in_ch} channels")
         self.criteria = build_criteria(criteria)
         self.freeze_backbone = freeze_backbone
+        if freeze_backbone:
+            self.backbone.requires_grad_(False)
         self.seg_head = Linear(in_ch, num_classes) if num_classes > 0 else nn.Identity()
 
     def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
                 precomputed: Optional[dict] = None) -> dict:
         with contextlib.nullcontext() if self.training else torch.no_grad():
-            if precomputed is None:
-                out, diag = self.backbone(pb, generator=generator)
+            kw = {} if precomputed is None else dict(precomputed=precomputed)
+            if self.enc_mode:
+                out, diag, skips = self.backbone(pb, generator=generator, **kw)
+                out = up_cast(out, skips, self.up_cast_level)
             else:
-                out, diag = self.backbone(pb, generator=generator, precomputed=precomputed)
-            feat = out.feat.detach() if self.freeze_backbone else out.feat
-            logits = self.seg_head(feat)
-            result = {"seg_logits": logits, "feat": feat, "diagnostics": diag}
+                out, diag = self.backbone(pb, generator=generator, **kw)
+            logits = self.seg_head(out.feat)
+            result = {"seg_logits": logits, "feat": out.feat, "diagnostics": diag}
             if pb.segment is not None:
                 result["loss"] = self.criteria(logits, pb.segment)
         return result

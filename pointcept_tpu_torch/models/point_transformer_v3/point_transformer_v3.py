@@ -46,9 +46,16 @@ chain of ``(PointBatch, cluster, stage context)`` that SSL models'
 ``up_cast`` pops; nothing is pinned to order 0, and pooled stages carry the
 mean of ``origin_coord``).
 
-Not ported: PDNorm, RPE, PT-v3m3's RoPE and coordinate augmentations,
-LoRA, attention and projection dropout, host geometry and the
-scene-blocked layout. Each raises when asked for.
+PT-v3m3 (`PT-v3m3`, the Utonia backbone) is PT-v3m2 with 3D RoPE
+(``rope_base``): q and k are rotated by each point's coordinate
+(`ops/pointrope.py`) after the qkv projection, and in train mode the RoPE
+positions may be shifted (``shift_coords``), jittered per axis
+(``jitter_coords``) and rescaled (``rescale_coords``), one draw per
+attention call from the caller's generator. Its head dims are multiples of
+6 (Utonia's is 18).
+
+Not ported: PDNorm, RPE, LoRA, attention and projection dropout, host
+geometry and the scene-blocked layout. Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -63,6 +70,7 @@ from torch import nn
 from ...ops import serialization as ser
 from ...ops.attention import patch_attention
 from ...ops.block_conv import block_subm_conv, build_block_tables, default_block_capacity
+from ...ops.pointrope import point_rope
 from ...ops.segment_ops import segment_reduce, sorted_segment_mean
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
 from ..builder import MODELS
@@ -95,18 +103,60 @@ class SubMConv(nn.Module):
 
 
 class SerializedAttention(nn.Module):
+    """qkv projection, patch attention, output projection; with `rope` (a
+    dict of ``base`` and the optional train-time ``shift``, ``jitter`` and
+    ``rescale`` of the positions) q and k are rotated by the points'
+    coordinates first."""
+
     def __init__(self, channels, num_heads, patch_size, qkv_bias=True, qk_scale=None,
-                 compute_dtype=None):
+                 compute_dtype=None, rope: Optional[dict] = None):
         super().__init__()
         self.num_heads = num_heads
         self.patch_size = patch_size
         self.scale = qk_scale or (channels // num_heads) ** -0.5
+        self.rope = rope
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, compute_dtype=compute_dtype)
         self.proj = Linear(channels, channels, compute_dtype=compute_dtype)
 
-    def forward(self, feat: torch.Tensor, partition) -> torch.Tensor:
+    def rope_positions(self, coord: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        """The RoPE positions: the coordinates, in train mode shifted by one
+        uniform draw in (-shift, shift) per axis, scaled by exp of one draw in
+        (-log jitter, log jitter) per axis and by exp of one draw in
+        (-log rescale, log rescale), each where set (jitter and rescale above
+        1), all from `generator` (as the JAX package draws them per call)."""
+        r = self.rope
+        shift, jitter, rescale = r.get("shift"), r.get("jitter"), r.get("rescale")
+        active = (shift is not None and shift > 0) or (jitter is not None and jitter > 1.0) or (
+            rescale is not None and rescale > 1.0)
+        if not (self.training and active):
+            return coord
+        if generator is None:
+            raise ValueError("PT-v3m3: train mode draws its RoPE coordinate augmentations from an explicit generator")
+
+        def uniform(shape, bound):
+            u = torch.rand(shape, generator=generator, device=coord.device, dtype=torch.float32)
+            return (2.0 * u - 1.0) * bound
+
+        if shift is not None and shift > 0:
+            coord = coord + uniform((1, 3), shift)
+        if jitter is not None and jitter > 1.0:
+            coord = coord * torch.exp(uniform((1, 3), math.log(jitter)))
+        if rescale is not None and rescale > 1.0:
+            coord = coord * torch.exp(uniform((1, 1), math.log(rescale)))
+        return coord
+
+    def forward(self, feat: torch.Tensor, partition, coord: Optional[torch.Tensor] = None,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         slot_to_point, point_to_slot = partition
-        out = patch_attention(self.qkv(feat), slot_to_point, point_to_slot,
+        qkv = self.qkv(feat)
+        if self.rope is not None:
+            n, h = qkv.shape[0], self.num_heads
+            qkv4 = qkv.reshape(n, 3, h, -1)
+            pos = self.rope_positions(coord, generator)
+            q, k = (point_rope(qkv4[:, i].transpose(0, 1), pos, freq=self.rope["base"]).transpose(0, 1)
+                    for i in range(2))
+            qkv = torch.stack([q, k, qkv4[:, 2]], dim=1).reshape(n, -1)
+        out = patch_attention(qkv, slot_to_point, point_to_slot,
                               num_heads=self.num_heads, patch_size=self.patch_size,
                               scale=self.scale)
         return self.proj(out)
@@ -131,7 +181,7 @@ class Block(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False,
-                 layer_scale=None):
+                 layer_scale=None, rope=None):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
@@ -144,7 +194,7 @@ class Block(nn.Module):
             LayerNorm(c),
         ])
         self.norm1 = nn.ModuleList([LayerNorm(c)])
-        self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype)
+        self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype, rope)
         self.norm2 = nn.ModuleList([LayerNorm(c)])
         self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
 
@@ -157,7 +207,7 @@ class Block(nn.Module):
         cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
         feat = feat + self.cpe[2](self.cpe[1](cpe))
         x = self.norm1[0](feat) if self.pre_norm else feat
-        feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition)), generator)
+        feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition, pb.coord, generator)), generator)
         if not self.pre_norm:
             feat = self.norm1[0](feat)
         x = self.norm2[0](feat) if self.pre_norm else feat
@@ -316,6 +366,7 @@ class Embedding(nn.Module):
         if mode not in ("conv", "linear"):
             raise NotImplementedError(f"Embedding: mode {mode!r} is not ported")
         self.mode = mode
+        self.in_channels = in_channels
         self.stem = nn.Module()
         if mode == "conv":
             self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False, fused=fused)
@@ -326,6 +377,11 @@ class Embedding(nn.Module):
         self.mask_token = nn.Parameter(torch.zeros(1, embed_channels)) if mask_token else None
 
     def forward(self, pb: PointBatch, nbr5, patch_mask: Optional[torch.Tensor] = None) -> PointBatch:
+        if pb.feat.shape[1] != self.in_channels:
+            # the JAX package's stems infer their width; a config's in_channels
+            # that differs from its data (Utonia's 9 over ScanNet's 6) is refused here
+            raise ValueError(f"PT-v3 stem: in_channels={self.in_channels} but the batch's features have "
+                             f"{pb.feat.shape[1]} channels")
         if self.mode == "conv":
             feat = gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5), pb.mask))
         else:
@@ -335,8 +391,25 @@ class Embedding(nn.Module):
         return pb.replace(feat=feat)
 
 
+def up_cast(pb: PointBatch, skips: list, levels: int) -> PointBatch:
+    """An enc_mode backbone's output with the features of `levels` earlier
+    stages of its skip chain, deepest first: at each level every point of
+    the finer stage puts its own features first and its cluster's features
+    of the coarser stage after them (zero where its cluster was dropped)."""
+    feat = pb.feat
+    skips = list(skips)
+    for _ in range(min(levels, len(skips))):
+        skip_pb, cluster, _ctx = skips.pop()
+        m = feat.shape[0]
+        up = feat[torch.clamp(cluster, max=m - 1).long()]
+        up = torch.where((cluster < m)[:, None], up, torch.zeros((), dtype=up.dtype, device=up.device))
+        feat = torch.cat([skip_pb.feat, up], dim=-1)
+        pb = skip_pb.replace(feat=feat)
+    return pb
+
+
 _UNSUPPORTED = dict(
-    pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False, rope_base=None,
+    pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
     lora_rank=0, attn_drop=0.0, proj_drop=0.0,
 )
 
@@ -351,6 +424,7 @@ class PointTransformerV3(nn.Module):
     the order shuffles and drop-path masks are drawn from `generator`."""
 
     default_embed_mode = "conv"
+    takes_rope = False  # RoPE is PT-v3m3's (the Utonia configs')
 
     def __init__(
         self,
@@ -394,9 +468,10 @@ class PointTransformerV3(nn.Module):
         pdnorm_adaptive: bool = False,
         pdnorm_affine: bool = True,
         pdnorm_conditions: Sequence[str] = ("ScanNet", "S3DIS", "Structured3D"),
-        shift_coords=None,
-        jitter_coords=None,
-        rescale_coords=None,
+        rope_base: Optional[float] = None,
+        shift_coords: Optional[float] = None,
+        jitter_coords: Optional[float] = None,
+        rescale_coords: Optional[float] = None,
         **unsupported,
     ):
         super().__init__()
@@ -411,6 +486,16 @@ class PointTransformerV3(nn.Module):
         self.enc_channels = tuple(enc_channels)
         if enc_mode:
             dec_depths = dec_channels = dec_num_head = dec_patch_size = ()
+        rope = None
+        if rope_base and not self.takes_rope:
+            raise NotImplementedError(f"{type(self).__name__}: rope_base is ported for PT-v3m3 only")
+        if rope_base:
+            rope = dict(base=float(rope_base), shift=shift_coords, jitter=jitter_coords, rescale=rescale_coords)
+            for c, h in zip(tuple(enc_channels) + tuple(dec_channels), tuple(enc_num_head) + tuple(dec_num_head)):
+                if c % h != 0 or (c // h) % 6 != 0:
+                    raise ValueError(f"{type(self).__name__}: RoPE needs head dims that are multiples of 6, "
+                                     f"got {c}/{h}")
+        self.rope = rope
         self.order = (order,) if isinstance(order, str) else tuple(order)
         self.stride = tuple(stride)
         self.enc_depths = tuple(enc_depths)
@@ -447,7 +532,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
-                    layer_scale=layer_scale,
+                    layer_scale=layer_scale, rope=rope,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
@@ -460,7 +545,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
-                    layer_scale=layer_scale,
+                    layer_scale=layer_scale, rope=rope,
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = enc_channels[-1] if enc_mode else dec_ch[0]
@@ -674,8 +759,12 @@ class PointTransformerV3M2(PointTransformerV3):
 
 @MODELS.register_module("PT-v3m3")
 class PointTransformerV3M3(PointTransformerV3M2):
-    """The Utonia variant (RoPE on q and k, coordinate augmentations): not
-    ported."""
+    """The Utonia variant (reference point_transformer_v3m3_utonia.py):
+    PT-v3m2 with 3D RoPE on q and k (``rope_base``, 10000 unless the config
+    says otherwise) and the optional train-time shift, jitter and rescale of
+    the RoPE positions."""
 
-    def __init__(self, **kwargs):
-        raise NotImplementedError("PT-v3m3: RoPE and its coordinate augmentations are not ported yet")
+    takes_rope = True
+
+    def __init__(self, rope_base: Optional[float] = 10000.0, **kwargs):
+        super().__init__(rope_base=rope_base, **kwargs)

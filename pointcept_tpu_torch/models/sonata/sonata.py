@@ -40,6 +40,7 @@ from ...ops.pointops import knn_query
 from ...ops.segment_ops import masked_segment_reduce
 from ..builder import MODELS
 from ..modules import Linear, gelu
+from ..point_transformer_v3.point_transformer_v3 import up_cast
 from ..utils.structure import PointBatch
 
 
@@ -217,16 +218,9 @@ class Sonata(nn.Module):
     def up_cast(self, pb: PointBatch, skips: list) -> PointBatch:
         """Concatenate the features of `up_cast_level` earlier stages, each
         point taking its cluster's feature of the stage after it."""
-        feat = pb.feat
-        skips = list(skips)
-        for _ in range(self.up_cast_level):
-            skip_pb, cluster, _ctx = skips.pop()
-            m = feat.shape[0]
-            up = feat[torch.clamp(cluster, max=m - 1).long()]
-            up = torch.where((cluster < m)[:, None], up, torch.zeros((), dtype=up.dtype, device=up.device))
-            feat = torch.cat([skip_pb.feat, up], dim=-1)
-            pb = skip_pb.replace(feat=feat)
-        return pb
+        if len(skips) < self.up_cast_level:
+            raise ValueError(f"Sonata: up_cast_level={self.up_cast_level} but the backbone has {len(skips)} skips")
+        return up_cast(pb, skips, self.up_cast_level)
 
     def _ce(self, target, pred_sim, valid, batch, num_segments: int) -> torch.Tensor:
         """Cross-entropy of the student's assignment against `target`, a mean

@@ -11,6 +11,10 @@ dict pushed through the JAX package's `convert_state_dict(sd, "PT-v3m1")`
                                       -> ``{weight, bias, running_mean, running_var}``
 * LayerNorm ``{scale, bias}``         -> ``{weight, bias}``
 
+An ``enc_mode`` backbone under the segmentor (the probes and fine-tunes
+of Sonata and Utonia) maps the same way: its seg head is a Dense of the
+up-cast's width, and PT-v3m3's RoPE holds no parameters.
+
 PT-v3m2 adds the linear stem (``embedding/stem_linear`` ->
 ``embedding.stem.linear``), ``embedding/mask_token`` ->
 ``embedding.mask_token`` and the LayerScale gammas (a block's ``ls1_gamma``
@@ -179,7 +183,7 @@ def _sonata_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """DefaultSegmentorV2 + PT-v3m1/m2, DefaultSegmentor + SpUNet or
+    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet or
     Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
     if "conv_input" in params.get("backbone_module", {}):
         sd = _spunet_from_jax(params, batch_stats)

@@ -65,27 +65,31 @@ def _check(qkv_p: torch.Tensor, num_heads: int, what: str) -> int:
     if qkv_p.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{what}: the raw kernel records no gradient; use PatchAttention")
     c = qkv_p.shape[2] // 3
-    if c % num_heads != 0 or (c // num_heads) not in (8, 16, 32):
-        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 8, 16 or 32")
+    if c % num_heads != 0 or (c // num_heads) not in (8, 16, 18, 24, 32):
+        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 8, 16, 18, 24 or 32")
     if qkv_p.shape[1] % 16 != 0:
         raise ValueError(f"{what}: patch size {qkv_p.shape[1]} must be a multiple of 16")
     return c // num_heads
 
 
-_PAD_D = 16  # head dim 8 runs the D = 16 kernels on zero-padded heads
+# head dims the kernels take on zero-padded heads: 8 runs the D = 16
+# kernels, 18 (Utonia's) the D = 24 ones. The zero columns add nothing to
+# q . k, and their output and gradient columns are dropped; the caller's
+# scale (1 / sqrt(8) or 1 / sqrt(18)) is passed on unchanged.
+_PAD_WIDTH = {8: 16, 18: 24}
 
 
-def _pad_heads(x: torch.Tensor, num_heads: int, parts: int) -> torch.Tensor:
-    """[nP, K, parts * H * 8] -> [nP, K, parts * H * 16], each head's 8
-    columns followed by 8 zeros."""
+def _pad_heads(x: torch.Tensor, num_heads: int, parts: int, width: int = 16) -> torch.Tensor:
+    """[nP, K, parts * H * d] -> [nP, K, parts * H * width], each head's d
+    columns followed by width - d zeros."""
     np_, k, _ = x.shape
     x = x.reshape(np_, k, parts, num_heads, x.shape[2] // (parts * num_heads))
-    return F.pad(x, (0, _PAD_D - x.shape[-1])).reshape(np_, k, parts * num_heads * _PAD_D)
+    return F.pad(x, (0, width - x.shape[-1])).reshape(np_, k, parts * num_heads * width)
 
 
 def _unpad_heads(x: torch.Tensor, num_heads: int, parts: int, d: int) -> torch.Tensor:
     np_, k, _ = x.shape
-    return x.reshape(np_, k, parts, num_heads, _PAD_D)[..., :d].reshape(np_, k, parts * num_heads * d)
+    return x.reshape(np_, k, parts, num_heads, _PAD_WIDTH[d])[..., :d].reshape(np_, k, parts * num_heads * d)
 
 
 def attention_sizes(np_: int, k: int, c: int, num_heads: int) -> None:
@@ -97,13 +101,13 @@ def attention_sizes(np_: int, k: int, c: int, num_heads: int) -> None:
 def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats: bool = False):
     """qkv_p [nP, K, 3C] slot-gathered rows (q | k | v, head-major within
     each) -> [nP, K, C]; with `stats` also the row statistics m, l that
-    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 8, 16
-    or 32, K a multiple of 16."""
+    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 8, 16,
+    18, 24 or 32 (8 and 18 on zero-padded heads), K a multiple of 16."""
     if qkv_p.device.type == "cpu":
         return patch_attention_fwd_plain(qkv_p, num_heads, scale, stats=stats)
     d = _check(qkv_p, num_heads, "patch_attention_fwd")
-    if d == 8:
-        res = patch_attention_fwd(_pad_heads(qkv_p, num_heads, 3), num_heads, scale, stats=stats)
+    if d in _PAD_WIDTH:
+        res = patch_attention_fwd(_pad_heads(qkv_p, num_heads, 3, _PAD_WIDTH[d]), num_heads, scale, stats=stats)
         out = _unpad_heads(res[0] if stats else res, num_heads, 1, d)
         return (out,) + tuple(res[1:]) if stats else out
     np_, k, c3 = qkv_p.shape
@@ -176,17 +180,20 @@ def bwd_plan(k: int, d: int):
     """(S, W, T, shared memory bytes) of the backward kernel at patch size k
     and head dim d: S blocks (one cluster) split the k keys of a (patch,
     head), W warps a block own T key tiles of 16 each: four at D = 16 where
-    k is a multiple of 64 (each Q and dO fragment read from shared memory,
-    and each dQ update, then serves 64 keys; at most 8 warps, for the
-    registers), else one. A block holds Q and dO of the whole patch (bf16),
-    each query's lse2 and row term (an f32 pair) and an f32 dQ tile, over k
-    rounded up to whole 64-query tiles. W is at most 16 (D = 16) or 8
-    (D = 32: more registers a warp) and at most the number of query tiles,
-    since warp w handles tile (i + w) mod tiles at its i-th step."""
+    k is a multiple of 64, two at D = 24 where k is a multiple of 32 (each
+    Q and dO fragment read from shared memory, and each dQ update, then
+    serves 64 or 32 keys; at most 8 warps, for the registers), else one. A
+    block holds Q and dO of the whole patch (bf16), each query's lse2 and
+    row term (an f32 pair) and an f32 dQ tile, over k rounded up to whole
+    64-query tiles. W is at most 16 (D = 16) or 8 (D = 24 and 32: more
+    registers a warp; at K = 1024, D = 24 the 200 KB block takes one SM
+    alone, and a cluster of 4 such blocks splits the keys) and at most the
+    number of query tiles, since warp w handles tile (i + w) mod tiles at
+    its i-th step."""
     kp = -(-k // _BWD_STEP) * _BWD_STEP
-    t = 4 if d == 16 and k % 64 == 0 else 1
+    t = 4 if d == 16 and k % 64 == 0 else 2 if d == 24 and k % 32 == 0 else 1
     tiles = k // (16 * t)
-    w = min(8 if t == 4 or d == 32 else 16, kp // _BWD_STEP)
+    w = min(8 if t > 1 or d > 16 else 16, kp // _BWD_STEP)
     s = -(-tiles // w)
     w = -(-tiles // s)
     return s, w, t, kp * (2 * d * 2 + 8 + d * 4)
@@ -213,9 +220,10 @@ def patch_attention_bwd(qkv_p: torch.Tensor, out: torch.Tensor, dout: torch.Tens
                              f"{qkv_p.device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16 != 0:
             raise ValueError(f"patch_attention_bwd: {name} must be contiguous and 16-byte aligned")
-    if d == 8:
-        dqkv = patch_attention_bwd(_pad_heads(qkv_p, num_heads, 3), _pad_heads(out, num_heads, 1),
-                                   _pad_heads(dout, num_heads, 1), m, l, num_heads, scale)
+    if d in _PAD_WIDTH:
+        w = _PAD_WIDTH[d]
+        dqkv = patch_attention_bwd(_pad_heads(qkv_p, num_heads, 3, w), _pad_heads(out, num_heads, 1, w),
+                                   _pad_heads(dout, num_heads, 1, w), m, l, num_heads, scale)
         return _unpad_heads(dqkv, num_heads, 3, d)
     attention_sizes(np_, k, c, num_heads)
     split, warps, key_tiles, smem = bwd_plan(k, d)

@@ -278,11 +278,16 @@ def cuda():
 # size that is not a multiple of 64, the whole-K kernels' patch 128, head
 # dim 32 (the backward takes K <= 768 there), head dim 8 (the synthetic
 # configs' widths, zero-padded to 16: the tiny configs' stages 0 and 2 at
-# patch 128, and K 1024), and Sonata's odd head counts (C 48 / H 3, C 384 / H 24)
+# patch 128, and K 1024), Sonata's odd head counts (C 48 / H 3, C 384 / H 24),
+# and head dim 18 (Utonia's widths 54-576, zero-padded to the D = 24
+# kernels: stages 0, 2 and 3 at K 1024, patch 128, a patch size that is not
+# a multiple of 64) beside head dim 24 itself
 ATTN_CARD_CASES = [(4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
                    (4, 1024, 512, 32), (2, 1024, 512, 32), (1, 1024, 32, 2), (3, 48, 32, 2),
                    (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2), (40, 128, 16, 2),
-                   (10, 128, 64, 8), (2, 1024, 16, 2), (4, 1024, 48, 3), (3, 1024, 384, 24)]
+                   (10, 128, 64, 8), (2, 1024, 16, 2), (4, 1024, 48, 3), (3, 1024, 384, 24),
+                   (4, 1024, 54, 3), (1, 1024, 216, 12), (3, 1024, 432, 24), (3, 128, 108, 6),
+                   (2, 48, 36, 2), (2, 1024, 48, 2)]
 
 
 @pytest.mark.gpu
@@ -298,7 +303,8 @@ def test_attention_kernel_matches_plain_on_card(cuda, np_, k, c, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES if cs[2] // cs[3] in (8, 16) or cs[1] <= 768])
+@pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES
+                                       if cs[2] // cs[3] in (8, 16, 18, 24) or cs[1] <= 768])
 def test_attention_backward_kernel_matches_plain_on_card(cuda, np_, k, c, h):
     """The forward with and without statistics gives the same bits, the
     backward matches its plain version and gives the same bits twice."""

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata] [--fused] [--requests N] [--train]
+    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata|probe|utonia] [--fused] [--requests N]
+                                        [--train]
                                         [--out DIR]
 
 Runs the PTv3-base eval forward of `chip_smoke.py` (102,400-point synthetic
@@ -13,7 +14,12 @@ implicit-GEMM conv instead of cuDNN over halos; run with and without it in
 turns for an A/B); `--model sonata`: the train step of
 `configs/sonata/pretrain-sonata-v1m1-0-base.py` at `chip_smoke.py` phase
 13's geometry (its train pipeline on two of phase 10's synthetic scenes a
-step, 262,144 rows, the schedule's base hyperparameters). It prints JSON lines: the calls that make the host wait for the
+step, 262,144 rows, the schedule's base hyperparameters); `--model probe`
+and `--model utonia`: the train step of Sonata's linear probe
+(`semseg-sonata-v1m1-0a-scannet-lin.py`, frozen encoder, random weights)
+and of Utonia's fine-tune (`semseg-utonia-v1m1-0c-scannet-ft.py`, RoPE,
+head dim 18, ``in_channels=6``) at phase 14's and 15's geometry (the same
+scenes through the configs' train pipeline). It prints JSON lines: the calls that make the host wait for the
 card in one request or step, the device's busy time per request or step and
 its idle share of the same work run without the profiler, the device time
 by category (the port's kernels, convs, matmuls, sorts, gathers and
@@ -62,7 +68,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
     ap.add_argument("--train", action="store_true", help="profile the train step")
-    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata"), default="ptv3")
+    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata", "probe", "utonia"), default="ptv3")
     ap.add_argument("--fused", action="store_true", help="PTv3 with block_conv_fused=True")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
@@ -80,20 +86,23 @@ def main() -> int:
         ap.error("--fused applies to PTv3")
     if args.model == "spunet":
         eval_cfg, train_cfg, recipe = cs.SPUNET_MODEL, cs.SPUNET_MODEL, cs.SPUNET_RECIPE
-    elif args.model == "sonata":
+    elif args.model in CONFIG_STEPS:
         args.train = True
     else:
         fused = dict(block_conv_fused=args.fused)
         eval_cfg = dict(cs.MODEL, backbone=dict(cs.MODEL["backbone"], **fused))
         train_cfg = dict(cs.TRAIN_MODEL, backbone=dict(cs.TRAIN_MODEL["backbone"], **fused))
         recipe = cs.PTV3_RECIPE
-    if args.model == "sonata":
-        step, data = sonata_step(cs, device, args.requests + 1)
+    if args.model in CONFIG_STEPS:
+        step, data = config_step(cs, device, args.model, args.requests + 1)
         gen = torch.Generator(device=device).manual_seed(7)
         hyper = dict(mask_size=0.4, mask_ratio=0.7, teacher_temp=0.07, momentum=0.996)
 
         def run(arrays):
-            step(make_inputs(arrays, device=device), gen, hyper)
+            if args.model == "sonata":
+                step(make_inputs(arrays, device=device), gen, hyper)
+            else:
+                step(make_inputs(arrays, device=device), gen)
     elif args.train:
         # the same seed pairs again and again: a step's work hardly depends on them
         _, step = cs._train_setup(train_cfg, device, seed=0, recipe=recipe)
@@ -179,23 +188,50 @@ def main() -> int:
     return 0
 
 
-def sonata_step(cs, device, batches: int):
-    """The Sonata config's train step on the card and `batches` collated
-    batches of its train pipeline (two synthetic scenes each, phase 10's)."""
-    import numpy as np
+# the config-driven train steps: the chip_smoke.py names of the config, its
+# options and the collate's capacity
+CONFIG_STEPS = {
+    "sonata": lambda cs: (cs.SONATA_CONFIG, {}, cs.SONATA_OPTIONS["point_capacity"]),
+    "probe": lambda cs: (cs.DOWNSTREAM_CONFIGS[0][1], {}, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
+    "utonia": lambda cs: (cs.UTONIA_CONFIGS[1][1], cs.UTONIA_OPTIONS, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
+}
+
+
+def config_step(cs, device, model_name: str, batches: int):
+    """A config's train step on the card (`CONFIG_STEPS`) and `batches`
+    collated batches of its train pipeline (`config_batches`)."""
     import torch
 
-    from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
     from pointcept_tpu_torch.engines import build_train_step
     from pointcept_tpu_torch.models import apply_amp_policy, build_model
     from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
-    from pointcept_tpu_torch.utils.config import Config
 
-    cfg = Config.fromfile(os.path.join(ROOT, cs.SONATA_CONFIG))
+    cfg, capacity = _config(cs, model_name)
     model = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device=device,
                         generator=torch.Generator().manual_seed(0))
     optimizer = build_optimizer(dict(cfg.optimizer), model, cfg.param_dicts)
     step = build_train_step(model, optimizer, build_scheduler(dict(cfg.scheduler), optimizer, cs.TOTAL_STEPS))
+    return step, config_batches(cs, model_name, batches)
+
+
+def _config(cs, model_name: str):
+    from pointcept_tpu_torch.utils.config import Config
+
+    config, options, capacity = CONFIG_STEPS[model_name](cs)
+    cfg = Config.fromfile(os.path.join(ROOT, config))
+    cfg.merge_from_dict(options)
+    return cfg, capacity
+
+
+def config_batches(cs, model_name: str, batches: int) -> list:
+    """`batches` batches of the config's train pipeline, two synthetic
+    scenes each (phase 10's), collated into its capacity; raises where the
+    collate would subsample."""
+    import numpy as np
+
+    from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
+
+    cfg, capacity = _config(cs, model_name)
     pipeline = Compose(list(cfg.data.train.transform))
     seeds = cs.SCANNET_SEEDS["train"]
     data = []
@@ -205,12 +241,9 @@ def sonata_step(cs, device, batches: int):
         for s in (seeds[(2 * b) % len(seeds)], seeds[(2 * b + 1) % len(seeds)]):
             sc = synthesize_scene(s, num_points=cs.RAW_POINTS, num_classes=cs.NUM_CLASSES, extent=6.0)
             samples.append(pipeline(dict(coord=sc["coord"], color=sc["color"].astype(np.float32),
-                                         normal=sc["normal"])))
-        batch = point_collate_fn(samples, capacity=cs.SONATA_OPTIONS["point_capacity"])
-        if batch["dropped"]:
-            raise AssertionError(f"the collate subsampled {batch['dropped']} points")
-        data.append(batch)
-    return step, data
+                                         normal=sc["normal"], segment=sc["segment"].astype(np.int32))))
+        data.append(point_collate_fn(samples, capacity=capacity, drop_overflow=False))
+    return data
 
 
 if __name__ == "__main__":
