@@ -14,9 +14,10 @@ each printing JSON lines:
    forward at every stage's shapes of the eval forward and the train step
    (and at head dim 8, the overfit config's stage 0, zero-padded to 16),
    the forward and backward at Sonata's stage 0 (C 48, H 3) and stage 3
-   (C 384, H 24) over the global views of 262,144 rows, and at Utonia's
-   head dim 18 (stage 0: C 54, H 3; stage 3: C 432, H 24) over a fine-tune
-   step's two scenes of 262,144 rows,
+   (C 384, H 24) over the global views of 262,144 rows, at Utonia's
+   head dim 18 (stage 0: C 54, H 3; stage 3: C 432, H 24) and at
+   Concerto-large's LoRA fine-tune (stage 0: C 64, H 4; stage 4: C 768,
+   H 48) over a fine-tune step's two scenes of 262,144 rows,
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -68,10 +69,10 @@ each printing JSON lines:
 11. the tester: the config's test section unchanged (13 views, GridSample's
    test mode, fragments of one voxel grid sharing their geometry, four a
    forward) through `main_worker` of `tools/torch_port_test.py`, on phase
-   10's `model_best.pth` and val scene 5, at `point_capacity_test=262144`,
-   launch counters set to 0 just before and read just after; nothing
-   dropped, the preds' mass equals the fragment points' count and every
-   point has a vote from every view;
+   10's `model_best.pth` and val scene 5 drawn at 102,400 raw points, at
+   `point_capacity_test=262144`, launch counters set to 0 just before and
+   read just after; nothing dropped, the preds' mass equals the fragment
+   points' count and every point has a vote from every view;
 12. the two overfit configs of `configs/synthetic/` (PTv3 with head dim 8,
    AMP, its second pooling's factor raised to 0.75; SpUNet) through the
    trainer: train loss < 0.05, val mIoU > 0.80, no point dropped; then the
@@ -112,7 +113,33 @@ each printing JSON lines:
    checkpoint: random weights of seed 0), the attention forwards and
    backwards a step at D = 18, then one small-depth fine-tune step on the
    card against the CPU (f32);
-16. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+16. ScanNet200's PTv3 config (`configs/scannet200/semseg-pt-v3m1-0-base.py`,
+   a 200-class head) on phase 10's scenes (their `segment200.npy`) at
+   phase 14's cuts, then its test section (13 views, the grouped path) on
+   one 102,400-point val scene: nothing dropped, every point voted by every
+   view, 200-way preds, the benchmark submission refused with the list it
+   lacks;
+17. S3DIS's SpUNet config (`configs/s3dis/semseg-spunet-v1m1-0-base.py`:
+   SGD nesterov, PolyLR, ShufflePoint, GridSample at 4 cm) on synthetic
+   offices of a million raw points in Areas 1-6: 4 steps at batch 2 (each
+   step's lr against PolyLR's formula), one evaluation, the one-view test
+   section on the Area_5 room at a `point_capacity_test` set from its voxel
+   count, its `record.npz` read by `tools/test_s3dis_6fold.py`, and the
+   tester refusing the room above its capacities (a fragment too large,
+   pooled levels that drop points);
+18. ScanNet++'s PTv3 config (`configs/scannetpp/semseg-pt-v3m1-0-base.py`,
+   100 classes) on phase 10's scenes in ScanNet++'s layout, at phase 14's
+   cuts;
+19. Concerto-large's LoRA fine-tune
+   (`configs/concerto/semseg-ptv3-large-v1m1-0f-scannet-ft-lora.py`: PT-v3m2
+   at 64-768 channels, LoRA rank 16 on every qkv, the encoder frozen) at
+   phase 14's cuts and `in_channels=6` from a random encoder saved in the
+   reference's checkpoint layout: the missing keys exactly the adapters and
+   the head, every frozen encoder tensor the checkpoint's bit for bit after
+   the steps, every adapter and the head moved, 24 attention forwards and
+   backwards a step; then one small-depth LoRA step on the card against the
+   CPU (f32);
+20. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two; the D = 18
    rows: phase 15's fine-tune).
 
@@ -232,10 +259,14 @@ OVERFIT_CONFIGS = {
 # of 128, its encoder and decoder block a step
 OVERFIT_ATTENTION = dict(capacity=32768, scenes=8, k=128, c=16, h=2, launches=2)
 # the tester's phase: the ScanNet config's test section on phase 10's
-# weights and val scene 5 (one of the two), at a capacity that holds a
-# fragment (the config's 131,072 is per chip; a fragment of the synthetic
-# scene has ~220k points); B fragments a forward, the tester's default
+# weights and val scene 5 drawn at TESTER_POINTS raw points (its 409,600-point
+# draw took 144 s, most of it the loader's fragment build; cut for the time
+# limit), at a capacity that holds a fragment without drops (the config's
+# 131,072 is per chip; at it a fragment of the sparse synthetic scene drops
+# points at the second pooling); B fragments a forward, the tester's default.
+# Phases 3-4's tester rows keep the 409,600-point scene's stage 0
 TESTER_SCENE = "scene0005_00"
+TESTER_POINTS = 102400
 TESTER_OPTIONS = {"point_capacity_test": 262144, "seed": 0}
 TESTER_B = 4
 # card-vs-CPU bounds of the overfit tester's summed preds (AMP: the slice's
@@ -297,6 +328,38 @@ UTONIA_OPTIONS = {"model.backbone.in_channels": 6}
 # and backward)
 UTONIA_ATTENTION = ((0, 54, 3, 3), (3, 432, 24, 12))
 UTONIA_POOL = (0.5, 0.5, 0.5, 0.5)
+# phase 16: ScanNet200's PTv3 config (the 200-class head) at phase 14's cuts
+# on phase 10's scenes, which carry a segment200.npy beside segment20.npy
+# as preprocessed ScanNet does; then its test section (13 views, the
+# grouped path) on one val scene of PROBE_TEST_POINTS raw points at phase
+# 11's capacity
+SCANNET200_CONFIG = "configs/scannet200/semseg-pt-v3m1-0-base.py"
+# phase 17: S3DIS with SpUNet (SGD nesterov, PolyLR, ShufflePoint, GridSample
+# at 4 cm) on synthetic offices of about a million raw points, the scanner's
+# density: 8 train rooms in Areas 1-4 and 6 (4 steps at batch 2, one
+# evaluation) and one Area_5 room for val and the one-view test section;
+# the batch of two rooms needs 262,144 rows (the config's 131,072 is per
+# chip over a batch of 12)
+S3DIS_CONFIG = "configs/s3dis/semseg-spunet-v1m1-0-base.py"
+S3DIS_ROOMS = {"Area_1": 2, "Area_2": 2, "Area_3": 1, "Area_4": 2, "Area_5": 1, "Area_6": 1}
+S3DIS_ROOM_POINTS = 1_000_000
+S3DIS_CLASSES = ("ceiling", "floor", "wall", "beam", "column", "window", "door", "table", "chair", "sofa",
+                 "bookcase", "board", "clutter")
+S3DIS_OPTIONS = dict(batch_size=2, point_capacity=262144, epoch=1, eval_epoch=1, num_worker=4, seed=0)
+# phase 18: ScanNet++'s PTv3 config (100 classes) at phase 14's cuts, on
+# phase 10's scenes in ScanNet++'s layout (a 1-d segment.npy)
+SCANNETPP_CONFIG = "configs/scannetpp/semseg-pt-v3m1-0-base.py"
+# phase 19: Concerto-large LoRA fine-tuning (PT-v3m2 at 64-768 channels over
+# heads 4-48, LoRA rank 16 on every qkv, the encoder frozen) at phase 14's
+# cuts and in_channels=6, on a random encoder saved in the reference's
+# checkpoint layout (the repository holds no Concerto checkpoint)
+LORA_CONFIG = "configs/concerto/semseg-ptv3-large-v1m1-0f-scannet-ft-lora.py"
+LORA_OPTIONS = {"model.backbone.in_channels": 6}
+# its attention at the new shapes: stage 0 (C 64, H 4) and stage 4 (C 768,
+# H 48) of a step's two scenes of 262,144 rows, (stage, C, H, launches a
+# step, forward and backward)
+LORA_ATTENTION = ((0, 64, 4, 3), (4, 768, 48, 3))
+LORA_POOL = (0.5, 0.5, 0.5, 0.5)
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -600,11 +663,14 @@ def attention_cases(device, gen, exp_rate):
     # Utonia's head dim 18 (two scenes a fine-tune step), launches of a step's
     # forward and backward
     cases += [("utonia", 2, stage, c, h, n) for stage, c, h, n in UTONIA_ATTENTION]
+    # Concerto-large's LoRA fine-tune (two scenes a step), forward and backward
+    cases += [("lora", 2, stage, c, h, n) for stage, c, h, n in LORA_ATTENTION]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
                else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
+               else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LORA_POOL) if path == "lora"
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
                else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
@@ -661,7 +727,7 @@ def attention_cases(device, gen, exp_rate):
                 flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
                 name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
                 if ((path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8"
-                        or (path in ("sonata", "utonia") and stage == 0)):
+                        or (path in ("sonata", "utonia", "lora") and stage == 0)):
                     identical_checks(qkv, out, dout, m_, l_, h, scale, got)
             exps = np_ * h * kk_ * kk_
             row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
@@ -1000,7 +1066,7 @@ def card_vs_cpu(device, cases=None, phase="card_vs_cpu"):
                                  f"{out[f'{device}_overflow']} (card)")
 
 
-def _train_setup(cfg, device, seed, recipe=PTV3_RECIPE):
+def _train_setup(cfg, device, seed, recipe=PTV3_RECIPE, init=None):
     import torch
 
     from pointcept_tpu_torch.engines import build_train_step
@@ -1008,6 +1074,8 @@ def _train_setup(cfg, device, seed, recipe=PTV3_RECIPE):
     from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
 
     model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(seed))
+    if init is not None:
+        init(model)
     optimizer = build_optimizer(recipe["optimizer"], model, recipe["param_dicts"])
     scheduler = build_scheduler(recipe["scheduler"], optimizer, total_steps=TOTAL_STEPS)
     return model, build_train_step(model, optimizer, scheduler)
@@ -1098,7 +1166,7 @@ def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
     return worst, worst_name, low_cos
 
 
-def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
+def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1111,7 +1179,8 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
     run measures that noise floor itself: the CPU step again, on features
     scaled by 1 + 1e-6 * N(0, 1). The card must agree with the CPU within
     the slice test's bounds, or within twice the floor where the floor of
-    this model and scene is above them."""
+    this model and scene is above them. `init(model)` changes the weights
+    after the build, the same on both devices."""
     import numpy as np
     import torch
 
@@ -1128,7 +1197,7 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
         out = {}
         for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays),
                                 ("cpu_nudged", "cpu", nudged)):
-            model, step = _train_setup(cfg, dev, seed=1, recipe=recipe)
+            model, step = _train_setup(cfg, dev, seed=1, recipe=recipe, init=init)
             res = step(make_point_batch(data, 1, device=dev), torch.Generator().manual_seed(5))
             # (a parameter the step does not reach, as Utonia's mask token, has no gradient)
             out[name] = (float(res["loss"]), {n: p.grad.float().cpu().numpy()
@@ -1156,8 +1225,8 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train"):
 def write_scannet_scenes(root: str) -> dict:
     """Synthetic scenes in ScanNet's preprocessed layout, one directory of
     .npy files a scene (`coord`, `color` as uint8, `normal`, `segment20`,
-    `instance`): a 6 m room of RAW_POINTS points, the benchmark's scene
-    before its voxelisation. Returns the points a split."""
+    `segment200`, `instance`): a 6 m room of RAW_POINTS points, the
+    benchmark's scene before its voxelisation. Returns the points a split."""
     sizes = {}
     for split, seeds in SCANNET_SEEDS.items():
         for seed in seeds:
@@ -1179,6 +1248,8 @@ def write_scannet_scene(root: str, split: str, seed: int, points: int = RAW_POIN
     np.save(os.path.join(d, "color.npy"), sc["color"].astype(np.uint8))
     np.save(os.path.join(d, "normal.npy"), sc["normal"])
     np.save(os.path.join(d, "segment20.npy"), sc["segment"].astype(np.int16))
+    # 200 classes: each of the 20 split by the object (instance) it belongs to
+    np.save(os.path.join(d, "segment200.npy"), (sc["segment"] * 10 + sc["instance"] % 10).astype(np.int16))
     np.save(os.path.join(d, "instance.npy"), sc["instance"].astype(np.int16))
     return len(sc["coord"])
 
@@ -1366,27 +1437,27 @@ def _median(values):
 
 def tester_path(device, card, work: str):
     """Phase 11: the ScanNet config's test section through the test CLI's
-    `main_worker`, on phase 10's weights and one of its val scenes."""
-    # one scene of the two: a data root that holds val scene 5 alone
+    `main_worker`, on phase 10's weights and val scene 5 at TESTER_POINTS."""
     test_root = os.path.join(work, "scannet_test")
-    os.makedirs(os.path.join(test_root, "val"))
-    os.symlink(os.path.join(work, "scannet", "val", TESTER_SCENE), os.path.join(test_root, "val", TESTER_SCENE))
+    raw = write_scannet_scene(test_root, "val", int(TESTER_SCENE[5:9]), TESTER_POINTS)
     models = os.path.join(work, "run", "model")
     weight = os.path.join(models, "model_best.pth")
     if not os.path.isfile(weight):
         weight = os.path.join(models, "model_last.pth")
     options = dict(TESTER_OPTIONS, weight=weight, **{"data.test.data_root": test_root})
     emit("tester_setup", config=SCANNET_CONFIG, options=dict(options, weight=os.path.relpath(weight, work)))
-    test_scene(device, card, work, "tester", SCANNET_CONFIG, TESTER_SCENE, RAW_POINTS, options)
+    test_scene(device, card, work, "tester", SCANNET_CONFIG, TESTER_SCENE, raw, options)
 
 
 def test_scene(device, card, work: str, phase: str, config: str, scene_name: str, raw_points: int,
-               options: dict):
+               options: dict, kernels=None, after=None):
     """A config's test section through the test CLI's `main_worker` on one
     scene, launch counters set to 0 just before and read just after:
-    nothing dropped, the preds finite at full resolution, their mass the
-    fragment points' count and every point voted by every view. Returns the
-    scene's stats."""
+    nothing dropped, the preds finite at full resolution and as wide as the
+    config's classes, their mass the fragment points' count and every point
+    voted by every view, each of `kernels` launched (by default PTv3's eval
+    kernels, attention alone for an ``enc_mode`` encoder). `after(tester,
+    pred)` runs before the tester goes. Returns the scene's stats."""
     import numpy as np
     import torch
 
@@ -1426,13 +1497,17 @@ def test_scene(device, card, work: str, phase: str, config: str, scene_name: str
          allAcc=result["allAcc"], launches=launches)
     if st["dropped"]:
         raise AssertionError(f"{phase}: {st['dropped']} points dropped by static capacities")
-    if pred.shape != (raw_points, NUM_CLASSES) or not np.isfinite(pred).all():
+    if pred.shape != (raw_points, cfg.data.num_classes) or not np.isfinite(pred).all():
         raise AssertionError(f"{phase}: pred of shape {pred.shape}, finite {np.isfinite(pred).all()}")
     if mass_err > 1e-4 or votes.min() < views * (1 - 1e-4):
         raise AssertionError(f"{phase}: votes off: mass {mass_err} relative, least {votes.min()} of {views} views")
-    for name in ("patch_attention",) if tester.model.backbone.enc_mode else EVAL_KERNELS:
+    if kernels is None:
+        kernels = ("patch_attention",) if tester.model.backbone.enc_mode else EVAL_KERNELS
+    for name in kernels:
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the tester ({phase})")
+    if after is not None:
+        after(tester, pred)
     del tester
     torch.cuda.empty_cache()
     return st
@@ -2012,11 +2087,327 @@ def utonia_path(device, card, work: str) -> dict:
     return result["0c"]
 
 
+def _run_checked(device, work: str, config: str, options: dict, tag: str, kernels=()):
+    """`_run_config`, then: 4 steps, the head as wide as the config's
+    classes, each of `kernels` launched."""
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, config, options, tag)
+    classes = trainer.cfg.data.num_classes
+    if len(steps) != 4:
+        raise AssertionError(f"{tag}: expected 4 steps, got {len(steps)}")
+    head = getattr(trainer.model, "seg_head", None)
+    if head is not None and head.out_features != classes:
+        raise AssertionError(f"{tag}: a head of {head.out_features} classes for {classes}")
+    for name in kernels:
+        if launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched by {tag}")
+    return trainer, steps, evals, launches, peak, seconds
+
+
+def scannet200_path(device, card, work: str):
+    """Phase 16: ScanNet200's PTv3 config through the training CLI's
+    `main_worker` on phase 10's scenes (their segment200.npy), then its test
+    section through the test CLI's `main_worker` on one val scene of
+    PROBE_TEST_POINTS raw points: the grouped path, 200-way preds, and the
+    benchmark submission refused with the list it lacks."""
+    import numpy as np
+    import torch
+
+    data_root = os.path.join(work, "scannet")
+    options = dict(DOWNSTREAM_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, SCANNET200_CONFIG, options, "s200",
+                                                                  TRAIN_KERNELS)
+    emit("scannet200", config=SCANNET200_CONFIG, options=options, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), classes=trainer.cfg.data.num_classes,
+         steps=len(steps), losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak,
+         peak_gb=peak / 1e9, val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches)
+    del trainer
+    torch.cuda.empty_cache()
+
+    test_root = os.path.join(work, "scannet200_test")
+    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PROBE_TEST_POINTS)
+    options = dict(TESTER_OPTIONS, weight=os.path.join(work, "s200", "model", "model_last.pth"), num_worker=0,
+                   **{"data.test.data_root": test_root})
+    refused = {}
+
+    def submission(tester, pred):
+        try:
+            tester.write_submission(os.path.join(work, "s200_test"), PROBE_TEST_SCENE, np.argmax(pred, axis=-1))
+        except NotImplementedError as e:
+            refused["message"] = str(e)
+
+    st = test_scene(device, card, work, "s200_test", SCANNET200_CONFIG, PROBE_TEST_SCENE, raw, options,
+                    after=submission)
+    emit("scannet200_submission", refused=bool(refused), message=refused.get("message"))
+    if st["groups"] is None:
+        raise AssertionError("ScanNet200 tester: the PTv3 config did not take the grouped path")
+    if "200 label ids" not in refused.get("message", ""):
+        raise AssertionError(f"ScanNet200 submission not refused with the missing list: {refused}")
+
+
+def _box_faces(lo, hi, bottom: bool = False) -> list:
+    """The faces of an axis-aligned box as (origin, u, v, normal): its top,
+    its four sides and, with `bottom`, its underside."""
+    import numpy as np
+
+    lo, hi = np.asarray(lo, float), np.asarray(hi, float)
+    d = hi - lo
+    ex, ey, ez = np.diag(d)
+    faces = [(lo + ez, ex, ey, (0, 0, 1)), (lo, ex, ez, (0, -1, 0)), (lo + ey, ex, ez, (0, 1, 0)),
+             (lo, ey, ez, (-1, 0, 0)), (lo + ex, ey, ez, (1, 0, 0))]
+    if bottom:
+        faces.append((lo, ex, ey, (0, 0, -1)))
+    return faces
+
+
+def write_s3dis_room(path: str, seed: int, points: int = S3DIS_ROOM_POINTS) -> dict:
+    """A synthetic office in S3DIS's preprocessed layout (`coord`, `color` as
+    float 0-255, `normal`, `segment` of S3DIS's 13 classes, `instance`, one
+    directory a room): floor, ceiling and four walls of a 5-7 x 4-6 x
+    2.8-3.2 m room, a door, a window and a board on the walls, a beam and a
+    column, tables with chairs, a bookcase, a sofa and clutter as box
+    surfaces, each a separate instance; `points` points spread by area with
+    2 mm of noise. Returns its points and its voxel counts at 2 and 4 cm
+    after the configs' CenterShift, as their GridSample makes them."""
+    import numpy as np
+
+    from pointcept_tpu_torch.datasets.transform import CenterShift, GridSample
+
+    rng = np.random.RandomState(seed)
+    lx, ly, lz = rng.uniform(5.0, 7.0), rng.uniform(4.0, 6.0), rng.uniform(2.8, 3.2)
+    cls = {name: i for i, name in enumerate(S3DIS_CLASSES)}
+    patches = [((0, 0, 0), (lx, 0, 0), (0, ly, 0), (0, 0, 1), cls["floor"]),
+               ((0, 0, lz), (lx, 0, 0), (0, ly, 0), (0, 0, -1), cls["ceiling"]),
+               ((0, 0, 0), (lx, 0, 0), (0, 0, lz), (0, 1, 0), cls["wall"]),
+               ((0, ly, 0), (lx, 0, 0), (0, 0, lz), (0, -1, 0), cls["wall"]),
+               ((0, 0, 0), (0, ly, 0), (0, 0, lz), (1, 0, 0), cls["wall"]),
+               ((lx, 0, 0), (0, ly, 0), (0, 0, lz), (-1, 0, 0), cls["wall"]),
+               ((0.8, 0.01, 0), (0.9, 0, 0), (0, 0, 2.1), (0, 1, 0), cls["door"]),
+               ((lx - 2.5, ly - 0.01, 0.9), (1.6, 0, 0), (0, 0, 1.3), (0, -1, 0), cls["window"]),
+               ((0.01, 1.0, 1.0), (0, 2.0, 0), (0, 0, 1.1), (1, 0, 0), cls["board"])]
+    boxes = [((0, ly / 2 - 0.15, lz - 0.4), (lx, ly / 2 + 0.15, lz), "beam"),
+             ((lx - 0.4, 0, 0), (lx, 0.4, lz), "column"),
+             ((lx - 0.45, 1.0, 0), (lx - 0.01, 2.8, 2.0), "bookcase"),
+             ((1.5, ly - 1.0, 0), (3.3, ly - 0.1, 0.8), "sofa")]
+    for t in range(int(rng.randint(2, 4))):
+        x0, y0 = 1.6 + 1.4 * t, rng.uniform(1.2, ly - 2.4)
+        boxes.append(((x0, y0, 0.72), (x0 + 1.2, y0 + 0.7, 0.76), "table"))
+        for c in range(2):
+            cx = x0 + 0.2 + 0.5 * c
+            boxes.append(((cx, y0 - 0.55, 0.0), (cx + 0.45, y0 - 0.1, 0.45), "chair"))
+    for _ in range(int(rng.randint(4, 8))):
+        x0, y0 = rng.uniform(0.5, lx - 0.8), rng.uniform(0.5, ly - 0.8)
+        size = rng.uniform(0.15, 0.5, 3)
+        boxes.append(((x0, y0, 0.0), (x0 + size[0], y0 + size[1], size[2]), "clutter"))
+    for lo, hi, name in boxes:
+        patches += [(o, u, v, n, cls[name]) for o, u, v, n in _box_faces(lo, hi, bottom=name in ("beam", "table"))]
+    area = np.array([np.linalg.norm(np.cross(u, v)) for _, u, v, _, _ in patches])
+    counts = rng.multinomial(points, area / area.sum())
+    owner = np.repeat(np.arange(len(patches)), counts)
+    origin, u, v, normal = (np.array([p[i] for p in patches], np.float64)[owner] for i in range(4))
+    st = rng.rand(points, 2)
+    coord = origin + st[:, :1] * u + st[:, 1:] * v + rng.normal(0, 0.002, (points, 3))
+    label = np.array([p[4] for p in patches])[owner]
+    base = rng.uniform(40, 215, (len(S3DIS_CLASSES), 3))
+    color = np.clip(base[label] + rng.normal(0, 12, (points, 3)), 0, 255)
+    os.makedirs(path)
+    for name, value in (("coord", coord.astype(np.float32)), ("color", color.astype(np.float32)),
+                        ("normal", normal.astype(np.float32)), ("segment", label.astype(np.int16)),
+                        ("instance", owner.astype(np.int16))):
+        np.save(os.path.join(path, f"{name}.npy"), value)
+    shifted = CenterShift(apply_z=True)(dict(coord=coord.astype(np.float32)))["coord"]
+    voxels = {f"{round(g * 100)}cm": len(GridSample(grid_size=g)._voxel_runs(shifted)[3]) for g in (0.02, 0.04)}
+    return dict(points=points, **voxels)
+
+
+def s3dis_path(device, card, work: str):
+    """Phase 17: the S3DIS SpUNet config through the training CLI's
+    `main_worker` on synthetic offices in S3DIS's layout: 4 steps and one
+    evaluation, each step's lr against PolyLR's formula; then its one-view
+    test section on the Area_5 room at a `point_capacity_test` set from the
+    room, its `record.npz` read by `tools/test_s3dis_6fold.py`; then the
+    tester refusing a room over its static capacities."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.utils.config import Config
+
+    root = os.path.join(work, "s3dis")
+    rooms = {}
+    for a, (area, n) in enumerate(S3DIS_ROOMS.items()):
+        for i in range(n):
+            rooms[f"{area}/office_{i + 1}"] = write_s3dis_room(os.path.join(root, area, f"office_{i + 1}"),
+                                                               100 + 10 * a + i)
+    val = rooms["Area_5/office_1"]
+    cfg = Config.fromfile(os.path.join(ROOT, S3DIS_CONFIG))
+    options = dict(S3DIS_OPTIONS, **{"data.train.data_root": root, "data.val.data_root": root})
+    emit("s3dis_setup", config=S3DIS_CONFIG, options=options, rooms=rooms,
+         point_capacity_val=cfg.point_capacity_val)
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, S3DIS_CONFIG, options, "s3dis")
+    rows = _metrics(os.path.join(work, "s3dis"))
+    total = len(rows)
+    base_lr = trainer.cfg.optimizer.lr
+    want = [base_lr * (1 - i / (total + 1)) ** 0.9 for i in range(total)]
+    lr_err = max(abs(r["lr"] - w) / w for r, w in zip(rows, want))
+    emit("s3dis", card=card, seconds=seconds, parameters=sum(p.numel() for p in trainer.model.parameters()),
+         steps=len(steps), losses=[st["loss"] for st in steps], lr=[r["lr"] for r in rows], lr_formula=want,
+         lr_max_rel_err=lr_err, **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9,
+         val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches,
+         scheduler=type(trainer.scheduler).__name__)
+    if lr_err > 1e-12:
+        raise AssertionError(f"s3dis: the lr of the steps {[r['lr'] for r in rows]} is not PolyLR's {want}")
+    if val["4cm"] > cfg.point_capacity_val:
+        raise AssertionError(f"s3dis: the val room's {val['4cm']} voxels exceed point_capacity_val")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # the test section: the whole room is each fragment (crop None)
+    capacity = -(-val["4cm"] // 4096) * 4096 + 4096
+    options = dict(weight=os.path.join(work, "s3dis", "model", "model_last.pth"), seed=0, num_worker=0,
+                   point_capacity_test=capacity, **{"data.test.data_root": root})
+    st = test_scene(device, card, work, "s3dis_test", S3DIS_CONFIG, "office_1", val["points"], options, kernels=())
+    tool = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "test_s3dis_6fold.py"), "--record-root",
+                           os.path.join(work, "s3dis_test")], cwd=ROOT, capture_output=True, text=True, timeout=120)
+    emit("s3dis_6fold", returncode=tool.returncode, stdout=tool.stdout.splitlines()[:2],
+         point_capacity_test=capacity, room=val, fragments=st["fragments"])
+    if tool.returncode != 0 or "6-fold result" not in tool.stdout:
+        print(tool.stderr[-2000:], file=sys.stderr)
+        raise AssertionError("tools/test_s3dis_6fold.py could not read the tester's record.npz")
+
+    # a room over the static capacities: the tester refuses it, at the
+    # fragment's size and at the pooled levels' drops
+    from pointcept_tpu_torch.engines.test import main_worker
+
+    refusals = {}
+    for tag, over in (("fragment", dict(point_capacity_test=val["4cm"] - 1024)),
+                      ("pooling", {"model.backbone.pool_capacity_factor": 0.15})):
+        cfg = default_config_parser(os.path.join(ROOT, S3DIS_CONFIG),
+                                    {**options, "save_path": os.path.join(work, f"s3dis_over_{tag}"), **over})
+        try:
+            # meant to raise: its log lines go to the log, and its tail is not printed
+            with open(os.path.join(work, "tester.log"), "a") as log, contextlib.redirect_stdout(log):
+                main_worker(cfg)
+        except (ValueError, RuntimeError) as e:
+            refusals[tag] = f"{type(e).__name__}: {e}"
+    emit("s3dis_over_capacity", refusals=refusals)
+    if "point_capacity_test" not in refusals.get("fragment", "") or \
+            "eval_overflow_tolerance" not in refusals.get("pooling", ""):
+        raise AssertionError(f"s3dis: a room over capacity was not refused: {refusals}")
+
+
+def scannetpp_path(device, card, work: str):
+    """Phase 18: ScanNet++'s PTv3 config through the training CLI's
+    `main_worker` on phase 10's scenes in ScanNet++'s layout: coord, color,
+    normal and instance linked, and a 1-d `segment.npy` of 100 classes."""
+    import numpy as np
+    import torch
+
+    src, root = os.path.join(work, "scannet"), os.path.join(work, "scannetpp")
+    for split in ("train", "val"):
+        for name in sorted(os.listdir(os.path.join(src, split))):
+            d = os.path.join(root, split, f"{int(name[5:9]):02x}c4b1ad05")
+            os.makedirs(d)
+            for asset in ("coord", "color", "normal", "instance"):
+                os.symlink(os.path.join(src, split, name, f"{asset}.npy"), os.path.join(d, f"{asset}.npy"))
+            seg = np.load(os.path.join(src, split, name, "segment20.npy")).astype(np.int32)
+            inst = np.load(os.path.join(src, split, name, "instance.npy")).astype(np.int32)
+            np.save(os.path.join(d, "segment.npy"), np.where(seg >= 0, seg * 5 + inst % 5, -1).astype(np.int16))
+    options = dict(DOWNSTREAM_OPTIONS, **{"data.train.data_root": root, "data.val.data_root": root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, SCANNETPP_CONFIG, options, "spp",
+                                                                  TRAIN_KERNELS)
+    emit("scannetpp", config=SCANNETPP_CONFIG, options=options, card=card, seconds=seconds,
+         classes=trainer.cfg.data.num_classes, steps=len(steps), losses=[st["loss"] for st in steps],
+         **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+         eval_ms_per_scene=evals["batch_ms"], launches=launches)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def lora_path(device, card, work: str):
+    """Phase 19: Concerto-large's LoRA fine-tune through the training CLI's
+    `main_worker` on phase 10's scenes, from a random PT-v3m2 encoder at the
+    large widths saved under ``student.backbone.`` in the reference's
+    checkpoint layout: the loaded keys, the frozen encoder bit for bit,
+    the adapters and the head moved, the attention launches a step; then
+    one small-depth LoRA step (f32, ``lora_b`` drawn nonzero so that every
+    adapter has a gradient) on the card against the CPU."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, LORA_CONFIG))
+    cfg.merge_from_dict(LORA_OPTIONS)
+    encoder = dict(cfg.model.backbone)
+    weight = os.path.join(work, "concerto_large_encoder.pth")
+    pretrained = build_model(encoder, device="cpu", generator=torch.Generator().manual_seed(11))
+    ckpt = {"backbone." + k: v for k, v in pretrained.state_dict().items()}
+    torch.save({"state_dict": {"student." + k: v for k, v in ckpt.items()}}, weight)
+    del pretrained
+    data_root = os.path.join(work, "scannet")
+    options = dict(DOWNSTREAM_OPTIONS, weight=weight, **LORA_OPTIONS,
+                   **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    emit("lora_setup", config=LORA_CONFIG, options=dict(options, weight="random encoder, seed 11"),
+         encoder_tensors=len(ckpt), lora_rank=cfg.model.lora_rank)
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, LORA_CONFIG, options, "lora")
+    model, run_cfg = trainer.model, trainer.cfg
+    info = trainer.comm_info.get("load_info", {})
+    adapters = {n for n in model.state_dict() if n.endswith((".lora_a", ".lora_b"))}
+    trainable = {n for n, p in model.named_parameters() if p.requires_grad}
+    head = {"seg_head.weight", "seg_head.bias"}
+    initial = build_model(apply_amp_policy(dict(run_cfg.model), run_cfg.enable_amp), device="cpu",
+                          generator=torch.Generator().manual_seed(run_cfg.shared_seed))
+    fresh = {n: p.detach() for n, p in initial.named_parameters() if n in adapters | head}
+    del initial
+    frozen_same, frozen_moved = _moved(model, ckpt, "backbone.")
+    _, trained_moved = _moved(model, fresh)
+    blocks, n = sum(run_cfg.model.backbone.enc_depths), len(steps)
+    fwd_per_step = (launches["patch_attention"] - len(evals["batch_ms"]) * blocks) / n
+    bwd_per_step = launches["patch_attention_bwd"] / n
+    grouped = sum(len(g["params"]) for g in trainer.optimizer.param_groups)
+    emit("lora", config=LORA_CONFIG, card=card, seconds=seconds, steps=n, losses=[st["loss"] for st in steps],
+         **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+         eval_ms_per_scene=evals["batch_ms"], launches=launches, attention_fwd_per_step=fwd_per_step,
+         attention_bwd_per_step=bwd_per_step, missing_keys=len(info.get("missing", [])),
+         unexpected_keys=len(info.get("unexpected", [])), adapters=len(adapters), trainable=len(trainable),
+         optimizer_tensors=grouped, frozen_unchanged=len(frozen_same), frozen_moved=len(frozen_moved),
+         trained_moved=len(trained_moved), parameters=sum(p.numel() for p in model.parameters()),
+         trainable_parameters=sum(p.numel() for p in model.parameters() if p.requires_grad))
+    if set(info.get("missing", [])) != adapters | head or info.get("unexpected"):
+        raise AssertionError(f"lora: loaded keys off: missing {sorted(info.get('missing', []))[:4]}, "
+                             f"unexpected {info.get('unexpected', [])[:4]}")
+    if trainable != adapters | head or grouped != len(trainable) or len(adapters) != 2 * blocks:
+        raise AssertionError(f"lora: trainable tensors {sorted(trainable - adapters)[:4]}, {len(adapters)} adapters")
+    if frozen_moved or len(frozen_same) != len([k for k in ckpt if k in dict(model.named_parameters())]):
+        raise AssertionError(f"lora: frozen encoder tensors moved, e.g. {frozen_moved[:3]}")
+    if set(trained_moved) != adapters | head:
+        raise AssertionError(f"lora: trainable tensors not updated: {sorted(adapters | head - set(trained_moved))[:4]}")
+    if fwd_per_step != blocks or bwd_per_step != blocks:
+        raise AssertionError(f"lora: {fwd_per_step} attention forwards and {bwd_per_step} backwards a step, "
+                             f"{blocks} blocks")
+    del trainer, model
+    torch.cuda.empty_cache()
+
+    def adapters_at_work(model):
+        gen = torch.Generator().manual_seed(12)
+        with torch.no_grad():
+            for name, p in model.named_parameters():
+                if name.endswith(".lora_b"):
+                    p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+
+    small = dict(cfg.model, backbone=dict(cfg.model.backbone, enc_depths=(1,) * 5, drop_path=0.0,
+                                          pool_capacity_factors=(0.5,) * 4))
+    recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=cfg.param_dicts, scheduler=dict(cfg.scheduler))
+    card_vs_cpu_train(device, [(False, small, recipe)], phase="lora_card_vs_cpu_train", init=adapters_at_work)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not os.path.isdir(os.path.join(ROOT, "pointcept_tpu_torch")):
+        print(f"chip_smoke: no pointcept_tpu_torch package beside {__file__}", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
     from pointcept_tpu_torch.ops.kernels import build
@@ -2057,6 +2448,10 @@ def main() -> int:
         sonata_path(device, card, work)
         downstream_path(device, card, work)
         utonia = utonia_path(device, card, work)
+        scannet200_path(device, card, work)
+        s3dis_path(device, card, work)
+        scannetpp_path(device, card, work)
+        lora_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -10,8 +10,10 @@ the collate) and Collect; for the tester, GridSample's test mode
 source `index`) and `return_inverse`, RandomRotateTargetAngle and Copy;
 for Sonata's pretraining, RandomColorJitter, RandomColorGrayScale,
 RandomColorDrop and MultiViewGenerator (global and local crops, each view
-augmented on its own). Each draws from `np.random` and `random` in the JAX version's order, so one
-seed gives the same arrays bit for bit.
+augmented on its own); for the indoor datasets' configs, ShufflePoint,
+RandomDropColor and RandomDropNormal. Each draws from `np.random` and
+`random` in the JAX version's order, so one seed gives the same arrays bit
+for bit.
 """
 
 from __future__ import annotations
@@ -153,6 +155,45 @@ class RandomDropout:
                 idx, data_dict["sampled_index"] = _keep_sampled(idx, data_dict)
             data_dict = index_operator(data_dict, idx)
         return data_dict
+
+
+@TRANSFORMS.register_module()
+class ShufflePoint:
+    """Every point-wise key in one random order (`np.random.shuffle`)."""
+
+    def __call__(self, data_dict):
+        shuffle_index = np.arange(data_dict["coord"].shape[0])
+        np.random.shuffle(shuffle_index)
+        return index_operator(data_dict, shuffle_index)
+
+
+class _RandomDropChannel:
+    """With probability `drop_application_ratio` (a `random.random()` draw),
+    zero the `key` rows of `drop_ratio` of the points, drawn without
+    replacement."""
+
+    key = ""
+
+    def __init__(self, drop_ratio=0.2, drop_application_ratio=0.5):
+        self.drop_ratio = drop_ratio
+        self.drop_application_ratio = drop_application_ratio
+
+    def __call__(self, data_dict):
+        if self.key in data_dict and random.random() < self.drop_application_ratio:
+            n = len(data_dict[self.key])
+            idx = np.random.choice(n, int(n * self.drop_ratio), replace=False)
+            data_dict[self.key][idx] = 0.0
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomDropColor(_RandomDropChannel):
+    key = "color"
+
+
+@TRANSFORMS.register_module()
+class RandomDropNormal(_RandomDropChannel):
+    key = "normal"
 
 
 def _keep_sampled(idx: np.ndarray, data_dict: dict):

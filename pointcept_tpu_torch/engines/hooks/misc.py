@@ -118,11 +118,26 @@ def _atomic_save(obj, path: str) -> None:
     os.replace(tmp, path)
 
 
+def _link_or_copy(src: str, dst: str) -> None:
+    """`dst` as a hard link of `src` (a copy where the file system has no
+    links), replaced atomically. `_atomic_save` replaces `src` by a new
+    file, so a link keeps the checkpoint it was made from, and no
+    checkpoint is written twice."""
+    tmp = dst + ".tmp"
+    if os.path.lexists(tmp):
+        os.remove(tmp)
+    try:
+        os.link(src, tmp)
+    except OSError:
+        shutil.copyfile(src, tmp)
+    os.replace(tmp, dst)
+
+
 @HOOKS.register_module()
 class CheckpointSaver(HookBase):
-    """After each epoch (after the evaluator): `model_last.pth`, its copy as
-    `model_best.pth` when the metric improved, and as `epoch_{n}.pth` every
-    `save_freq` epochs."""
+    """After each epoch (after the evaluator): `model_last.pth`, and as hard
+    links of it `model_best.pth` when the metric improved and
+    `epoch_{n}.pth` every `save_freq` epochs (the reference copies them)."""
 
     def __init__(self, save_freq=None):
         self.save_freq = save_freq
@@ -147,9 +162,9 @@ class CheckpointSaver(HookBase):
                           optimizer=trainer.optimizer.state_dict(), scheduler=trainer.scheduler.state_dict(),
                           best_metric_value=trainer.best_metric_value), last)
         if is_best:
-            shutil.copyfile(last, os.path.join(model_dir, "model_best.pth"))
+            _link_or_copy(last, os.path.join(model_dir, "model_best.pth"))
         if self.save_freq and (trainer.epoch + 1) % self.save_freq == 0:
-            shutil.copyfile(last, os.path.join(model_dir, f"epoch_{trainer.epoch + 1}.pth"))
+            _link_or_copy(last, os.path.join(model_dir, f"epoch_{trainer.epoch + 1}.pth"))
 
 
 def remap_state_dict(state_dict, keywords: str = "", replacement=None) -> "OrderedDict":

@@ -417,9 +417,18 @@ class SemSegTester(TesterBase):
 
     def write_submission(self, submit_dir: str, name: str, pred_label: np.ndarray):
         """The benchmark's submission file: ScanNet's label ids as text, or
-        the labels as .npy for the other ported datasets."""
+        the labels as .npy for the other ported datasets (ScanNet++ and
+        S3DIS among them, as the JAX writer). ScanNet200's needs the
+        benchmark's 200 label ids, which the repository does not hold: it
+        raises, where the JAX writer maps the 200-way preds through
+        ScanNet's 20 ids and fails on the first pred above 19."""
         ds_type = self.cfg.data.test.type
-        if ds_type in ("ScanNetDataset", "ScanNet200Dataset"):
+        if ds_type == "ScanNet200Dataset":
+            raise NotImplementedError(
+                "SemSegTester: the ScanNet200 submission needs the benchmark's 200 label ids (VALID_CLASS_IDS_200, "
+                "from the ScanNet label mapping tsv that pointcept_tpu/datasets/preprocessing/scannet/"
+                "preprocess_scannet.py:26-27 names); the repository does not hold that list")
+        if ds_type == "ScanNetDataset":
             np.savetxt(os.path.join(submit_dir, f"{name}.txt"),
                        type(self.test_dataset).class2id[pred_label].reshape([-1, 1]), fmt="%d")
         elif ds_type in ("SemanticKITTIDataset", "NuScenesDataset"):

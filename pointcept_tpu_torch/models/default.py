@@ -9,6 +9,7 @@ import torch
 from torch import nn
 
 from ..utils.logger import get_root_logger
+from ..utils.optimizer import freeze_except
 from .builder import MODELS
 from .losses import build_criteria
 from .modules import Linear
@@ -98,3 +99,25 @@ class DefaultSegmentorV2(nn.Module):
             if pb.segment is not None:
                 result["loss"] = self.criteria(logits, pb.segment)
         return result
+
+
+@MODELS.register_module("DefaultLORASegmentorV2")
+class DefaultLORASegmentorV2(DefaultSegmentorV2):
+    """LoRA fine-tuning of a pretrained encoder (reference
+    `models/default.py:99`, PEFT LoRA on the attention's qkv; counterpart
+    of the JAX package's class of the same name): `DefaultSegmentorV2` with
+    ``lora_rank`` put into the backbone's config, and every backbone tensor
+    but the adapters' (``lora_a``, ``lora_b``) frozen in the model, as PEFT
+    freezes it: ``requires_grad=False``, so no optimizer group holds them
+    and their weights stay as loaded. The seg head stays trainable. The
+    freezing holds whatever the config's optimizer block says: the LoRA
+    configs' schedule block replaces ``optimizer`` with ``_delete_=True``
+    and drops its ``trainable_keywords``, where the JAX package, which
+    freezes through the optimizer, then trains every tensor. A
+    `trainable_keywords` that is present narrows the trainable set further
+    and never widens it. The frozen encoder's norms still update their
+    running statistics in train mode, as the reference's do."""
+
+    def __init__(self, backbone=None, lora_rank: int = 16, **kwargs):
+        super().__init__(backbone=dict(backbone, lora_rank=lora_rank), **kwargs)
+        freeze_except(self.backbone, ("lora",))

@@ -123,9 +123,14 @@ class MLP(nn.Module):
 def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from an explicit generator: every matrix and conv weight
     (and weight norm's direction ``weight_v``) uniform in +-1/sqrt(fan_in),
-    biases zero, norms identity. Parameters are drawn on the CPU in module
-    order, so a seed gives the same weights on every device."""
+    biases zero, norms identity, a LoRA adapter's ``lora_a`` N(0, 0.02) and
+    its ``lora_b`` zero. Parameters are drawn on the CPU in module order, so
+    a seed gives the same weights on every device."""
     for m in module.modules():
+        a = getattr(m, "lora_a", None)
+        if isinstance(a, nn.Parameter):
+            a.copy_(torch.randn(a.shape, generator=generator) * 0.02)
+            m.lora_b.zero_()
         w = getattr(m, "weight", None)
         v = getattr(m, "weight_v", None)
         if isinstance(v, nn.Parameter):

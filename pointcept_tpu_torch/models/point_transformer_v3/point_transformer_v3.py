@@ -54,8 +54,14 @@ positions may be shifted (``shift_coords``), jittered per axis
 attention call from the caller's generator. Its head dims are multiples of
 6 (Utonia's is 18).
 
-Not ported: PDNorm, RPE, LoRA, attention and projection dropout, host
-geometry and the scene-blocked layout. Each raises when asked for.
+``lora_rank`` (m1, m2 and m3; `DefaultLORASegmentorV2`) adds a low-rank
+adapter to each attention's qkv, as the JAX package computes it:
+``qkv + (x @ lora_a) @ lora_b`` with ``lora_a [C, r]`` drawn N(0, 0.02)
+and ``lora_b [r, 3C]`` made at zero, no scaling and no dropout, before RoPE
+and the patch partition.
+
+Not ported: PDNorm, RPE, attention and projection dropout, host geometry
+and the scene-blocked layout. Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -103,13 +109,13 @@ class SubMConv(nn.Module):
 
 
 class SerializedAttention(nn.Module):
-    """qkv projection, patch attention, output projection; with `rope` (a
-    dict of ``base`` and the optional train-time ``shift``, ``jitter`` and
-    ``rescale`` of the positions) q and k are rotated by the points'
-    coordinates first."""
+    """qkv projection (with `lora_rank`, plus its low-rank adapter), patch
+    attention, output projection; with `rope` (a dict of ``base`` and the
+    optional train-time ``shift``, ``jitter`` and ``rescale`` of the
+    positions) q and k are rotated by the points' coordinates first."""
 
     def __init__(self, channels, num_heads, patch_size, qkv_bias=True, qk_scale=None,
-                 compute_dtype=None, rope: Optional[dict] = None):
+                 compute_dtype=None, rope: Optional[dict] = None, lora_rank: int = 0):
         super().__init__()
         self.num_heads = num_heads
         self.patch_size = patch_size
@@ -117,6 +123,9 @@ class SerializedAttention(nn.Module):
         self.rope = rope
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, compute_dtype=compute_dtype)
         self.proj = Linear(channels, channels, compute_dtype=compute_dtype)
+        if lora_rank > 0:
+            self.lora_a = nn.Parameter(torch.empty(channels, lora_rank))
+            self.lora_b = nn.Parameter(torch.zeros(lora_rank, 3 * channels))
 
     def rope_positions(self, coord: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
         """The RoPE positions: the coordinates, in train mode shifted by one
@@ -149,6 +158,8 @@ class SerializedAttention(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         slot_to_point, point_to_slot = partition
         qkv = self.qkv(feat)
+        if hasattr(self, "lora_a"):
+            qkv = qkv + (feat @ self.lora_a.to(feat.dtype)) @ self.lora_b.to(feat.dtype)
         if self.rope is not None:
             n, h = qkv.shape[0], self.num_heads
             qkv4 = qkv.reshape(n, 3, h, -1)
@@ -181,7 +192,7 @@ class Block(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False,
-                 layer_scale=None, rope=None):
+                 layer_scale=None, rope=None, lora_rank=0):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
@@ -194,7 +205,8 @@ class Block(nn.Module):
             LayerNorm(c),
         ])
         self.norm1 = nn.ModuleList([LayerNorm(c)])
-        self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype, rope)
+        self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype, rope,
+                                        lora_rank)
         self.norm2 = nn.ModuleList([LayerNorm(c)])
         self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
 
@@ -410,7 +422,7 @@ def up_cast(pb: PointBatch, skips: list, levels: int) -> PointBatch:
 
 _UNSUPPORTED = dict(
     pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
-    lora_rank=0, attn_drop=0.0, proj_drop=0.0,
+    attn_drop=0.0, proj_drop=0.0,
 )
 
 
@@ -459,6 +471,7 @@ class PointTransformerV3(nn.Module):
         embed_mode: Optional[str] = None,
         mask_token: bool = False,
         layer_scale: Optional[float] = None,
+        lora_rank: int = 0,
         # config-parity options without effect (attention is always fused,
         # its softmax always f32; PDNorm is not ported)
         enable_flash: bool = True,
@@ -532,7 +545,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
-                    layer_scale=layer_scale, rope=rope,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
@@ -545,7 +558,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
-                    layer_scale=layer_scale, rope=rope,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank,
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = enc_channels[-1] if enc_mode else dec_ch[0]

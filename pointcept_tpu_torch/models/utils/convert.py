@@ -18,7 +18,9 @@ up-cast's width, and PT-v3m3's RoPE holds no parameters.
 PT-v3m2 adds the linear stem (``embedding/stem_linear`` ->
 ``embedding.stem.linear``), ``embedding/mask_token`` ->
 ``embedding.mask_token`` and the LayerScale gammas (a block's ``ls1_gamma``
--> ``ls1.0.gamma``), the names `convert_state_dict` maps back. A Sonata
+-> ``ls1.0.gamma``), the names `convert_state_dict` maps back. A LoRA
+adapter (``attn/lora_a [C, r]``, ``attn/lora_b [r, 3C]``) keeps its arrays
+as ``attn.lora_a`` and ``attn.lora_b`` of its block. A Sonata
 tree (top-level ``teacher_backbone``) maps by `SONATA_ROOTS`: the student's
 subtrees to ``student.*``, the teacher's to ``teacher.*`` (the reference
 model's two ModuleDicts); a head's ``Dense_0``/``Dense_1`` to ``mlp.0`` and
@@ -142,6 +144,10 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
         if leaf in ("ls1_gamma", "ls2_gamma"):
             kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)", path).groups()
             sd[f"backbone.{kind}.{kind}{s}.block{i}.{leaf[:3]}.0.gamma"] = value
+            continue
+        if leaf in ("lora_a", "lora_b"):
+            kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)/attn", path).groups()
+            sd[f"backbone.{kind}.{kind}{s}.block{i}.attn.{leaf}"] = value
             continue
         module = _torch_module(path)
         if leaf == "kernel":

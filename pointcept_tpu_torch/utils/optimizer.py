@@ -33,6 +33,19 @@ def param_groups(model: nn.Module, base_lr: float,
     return groups
 
 
+def freeze_except(model: nn.Module, keywords: Sequence[str]) -> None:
+    """`trainable_keywords` with the reference's meaning: every parameter
+    whose name holds none of `keywords` stops requiring gradients, so no
+    param group holds it and no update (AdamW's decay included) moves it,
+    where the JAX package's ``optax.masked`` still applies the raw
+    gradients of the frozen tensors. A parameter already frozen stays
+    frozen."""
+    keywords = (keywords,) if isinstance(keywords, str) else tuple(keywords)
+    for name, p in model.named_parameters():
+        if not any(k in name for k in keywords):
+            p.requires_grad_(False)
+
+
 def build_optimizer(cfg: dict, model: nn.Module,
                     param_dicts: Optional[Sequence[dict]] = None) -> torch.optim.Optimizer:
     """``cfg = dict(type="AdamW", lr=..., weight_decay=..., betas=..., eps=...)``
@@ -41,15 +54,18 @@ def build_optimizer(cfg: dict, model: nn.Module,
     groups of `param_groups`. The JAX package's SGD chains
     ``add_decayed_weights -> trace(momentum, nesterov) -> lr``: the decay is
     added to the gradient and the trace starts at zero, which is torch's SGD
-    with dampening 0. Other optimizer types are not ported."""
+    with dampening 0. ``trainable_keywords`` freezes the model's other
+    parameters first (`freeze_except`). Other optimizer types are not
+    ported."""
     cfg = dict(cfg)
     otype = cfg.pop("type")
     if otype not in ("AdamW", "SGD"):
         raise NotImplementedError(f"build_optimizer: {otype} is not ported")
     base_lr = float(cfg.pop("lr"))
     cfg.pop("params", None)
-    if cfg.pop("trainable_keywords", None):
-        raise NotImplementedError("build_optimizer: trainable_keywords is not ported")
+    keywords = cfg.pop("trainable_keywords", None)
+    if keywords:
+        freeze_except(model, keywords)
     if otype == "SGD":
         if cfg.pop("dampening", 0.0):
             raise NotImplementedError("build_optimizer: SGD dampening is not ported")

@@ -1,7 +1,8 @@
 """LR schedule builder (counterpart of `pointcept_tpu/utils/scheduler.py`):
 per-step `torch.optim.lr_scheduler.OneCycleLR`, which
-tests/test_torch_parity.py holds against the JAX package's pure schedule.
-Other LR schedules are not ported. `CosineScheduler` schedules the
+tests/test_torch_parity.py holds against the JAX package's pure schedule,
+and `PolyLR` (tests/test_torch_port_indoor.py). Other LR schedules are not
+ported. `CosineScheduler` schedules the
 hyperparameters of SSL models (`SonataHook`)."""
 
 from __future__ import annotations
@@ -33,13 +34,25 @@ class CosineScheduler:
         return value
 
 
+def poly_lr(optimizer: torch.optim.Optimizer, total_steps: int, power: float = 0.9):
+    """PolyLR: each param group's lr times ``(1 - step / (total_steps + 1)) **
+    power`` at step `step` (the JAX package's ``base_lr`` is the optimizer's
+    lr, and its `param_dicts` groups take the same factor of their own)."""
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer, lambda step: (1 - step / (total_steps + 1)) ** power)
+
+
 def build_scheduler(cfg: dict, optimizer: torch.optim.Optimizer, total_steps: int):
-    """``cfg = dict(type="OneCycleLR", max_lr=..., pct_start=..., ...)``; a
+    """``cfg = dict(type="PolyLR", power=0.9)``, or
+    ``cfg = dict(type="OneCycleLR", max_lr=..., pct_start=..., ...)``; a
     `max_lr` list gives each param group its own peak (group order of
     `build_optimizer`). Momentum is not cycled: the JAX package's schedule
     accepts `cycle_momentum` and ignores it, and the port keeps its numbers."""
     cfg = dict(cfg)
     stype = cfg.pop("type")
+    if stype == "PolyLR":
+        cfg.pop("base_lr", None)  # the optimizer's groups hold their lrs
+        return poly_lr(optimizer, total_steps, **cfg)
     if stype != "OneCycleLR":
         raise NotImplementedError(f"build_scheduler: {stype} is not ported")
     cfg.pop("cycle_momentum", None)

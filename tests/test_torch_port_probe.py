@@ -277,8 +277,9 @@ def test_jax_trainable_keywords_moves_frozen_tensors():
     """Fault 2: JAX's ``trainable_keywords`` wraps the optimizer in
     `optax.masked`, which passes the updates of the unmasked (frozen)
     tensors through unchanged: a frozen weight of 1.0 with gradient 0.5
-    becomes 1.5 (moved by its raw gradient at lr 1). The port refuses
-    ``trainable_keywords`` (LoRA is not ported)."""
+    becomes 1.5 (moved by its raw gradient at lr 1). The port freezes the
+    other tensors in the model instead: the same step leaves its backbone
+    weight as it was (tests/test_torch_port_lora.py)."""
     params = {"backbone": {"w": jnp.ones((2,))}, "seg_head": {"w": jnp.ones((2,))}}
     grads = jax.tree_util.tree_map(lambda x: jnp.full_like(x, 0.5), params)
     tx = jax_build_optimizer(dict(type="AdamW", lr=1e-3, weight_decay=0.0, trainable_keywords=("seg_head",)),
@@ -287,8 +288,15 @@ def test_jax_trainable_keywords_moves_frozen_tensors():
     new = optax.apply_updates(params, updates)
     np.testing.assert_allclose(np.asarray(new["backbone"]["w"]), 1.5)
     assert np.all(np.asarray(new["seg_head"]["w"]) < 1.0)
-    with pytest.raises(NotImplementedError, match="trainable_keywords"):
-        build_optimizer(dict(type="AdamW", lr=1e-3, trainable_keywords=("seg_head",)), torch.nn.Linear(2, 2))
+    model = torch.nn.ModuleDict(dict(backbone=torch.nn.Linear(2, 2), seg_head=torch.nn.Linear(2, 2)))
+    before = model.backbone.weight.detach().clone()
+    optimizer = build_optimizer(dict(type="AdamW", lr=1e-3, weight_decay=0.0, trainable_keywords=("seg_head",)),
+                                model)
+    assert not model.backbone.weight.requires_grad and model.seg_head.weight.requires_grad
+    for p in model.parameters():
+        p.grad = torch.full_like(p, 0.5)
+    optimizer.step()
+    assert torch.equal(model.backbone.weight, before)
 
 
 # ------------------------------------------------------------ checkpoint loading

@@ -176,7 +176,7 @@ def test_labelled_batch_and_training_mode_raise(ref):
     assert np.isfinite(res["loss"].item())
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
     for option in (dict(enable_rpe=True), dict(pdnorm_bn=True), dict(rope_base=10000.0),
-                   dict(proj_drop=0.1), dict(attn_drop=0.1), dict(lora_rank=4)):
+                   dict(proj_drop=0.1), dict(attn_drop=0.1), dict(scene_blocked=True)):
         bad = dict(_cfg(False), backbone=dict(_cfg(False)["backbone"], **option))
         with pytest.raises(NotImplementedError):
             build_model(bad, device="cpu")

@@ -218,7 +218,40 @@ def test_trainer_and_cli_raise_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [dict(enable_wandb=True), dict(grad_accum_steps=2),
-                                    {"optimizer.type": "Lamb"}, {"scheduler.type": "PolyLR"}])
+                                    {"optimizer.type": "Lamb"}, {"scheduler.type": "MultiStepLR"}])
 def test_unported_options_raise_at_build(tmp_path, option):
     with pytest.raises((NotImplementedError, KeyError)):
         _port_trainer(tmp_path, **option)
+
+
+def test_checkpoint_saver_links_best_and_epoch_files(tmp_path):
+    """`model_best.pth` and `epoch_{n}.pth` are hard links of the
+    `model_last.pth` they were made from: a later epoch's `model_last.pth`
+    replaces its own file and leaves them holding their epoch."""
+    from types import SimpleNamespace
+
+    from pointcept_tpu_torch.engines.hooks import CheckpointSaver
+    from pointcept_tpu_torch.utils.config import Config
+    from pointcept_tpu_torch.utils.logger import get_root_logger
+
+    model = torch.nn.Linear(2, 2)
+    optimizer = torch.optim.SGD(model.parameters(), lr=0.1)
+    trainer = SimpleNamespace(model=model, optimizer=optimizer, cfg=Config(dict(save_path=str(tmp_path))),
+                              scheduler=torch.optim.lr_scheduler.LambdaLR(optimizer, lambda s: 1.0), epoch=0,
+                              best_metric_value=-np.inf, logger=get_root_logger(), comm_info={})
+    saver = CheckpointSaver(save_freq=1)
+    saver.trainer = trainer
+    model_dir = tmp_path / "model"
+    for epoch, metric in ((0, 0.5), (1, 0.1)):
+        trainer.epoch = epoch
+        trainer.comm_info["current_metric_value"] = metric
+        with torch.no_grad():
+            model.weight.fill_(float(epoch))
+        saver.after_epoch()
+    load = lambda name: torch.load(model_dir / name, weights_only=False)  # noqa: E731
+    assert load("model_last.pth")["epoch"] == 2 and load("epoch_2.pth")["epoch"] == 2
+    assert load("model_best.pth")["epoch"] == 1 and load("epoch_1.pth")["epoch"] == 1
+    assert float(load("model_best.pth")["state_dict"]["weight"][0, 0]) == 0.0
+    assert os.path.samefile(model_dir / "model_best.pth", model_dir / "epoch_1.pth")
+    assert os.path.samefile(model_dir / "model_last.pth", model_dir / "epoch_2.pth")
+    assert sorted(os.listdir(model_dir)) == ["epoch_1.pth", "epoch_2.pth", "model_best.pth", "model_last.pth"]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata|probe|utonia] [--fused] [--requests N]
+    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata|probe|utonia|lora] [--fused] [--requests N]
                                         [--train]
                                         [--out DIR]
 
@@ -19,7 +19,10 @@ and `--model utonia`: the train step of Sonata's linear probe
 (`semseg-sonata-v1m1-0a-scannet-lin.py`, frozen encoder, random weights)
 and of Utonia's fine-tune (`semseg-utonia-v1m1-0c-scannet-ft.py`, RoPE,
 head dim 18, ``in_channels=6``) at phase 14's and 15's geometry (the same
-scenes through the configs' train pipeline). It prints JSON lines: the calls that make the host wait for the
+scenes through the configs' train pipeline); `--model lora`: the train step
+of Concerto-large's LoRA fine-tune
+(`semseg-ptv3-large-v1m1-0f-scannet-ft-lora.py`, rank 16, the encoder
+frozen, random weights, ``in_channels=6``) at phase 19's geometry. It prints JSON lines: the calls that make the host wait for the
 card in one request or step, the device's busy time per request or step and
 its idle share of the same work run without the profiler, the device time
 by category (the port's kernels, convs, matmuls, sorts, gathers and
@@ -68,7 +71,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
     ap.add_argument("--train", action="store_true", help="profile the train step")
-    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata", "probe", "utonia"), default="ptv3")
+    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata", "probe", "utonia", "lora"), default="ptv3")
     ap.add_argument("--fused", action="store_true", help="PTv3 with block_conv_fused=True")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
@@ -194,6 +197,7 @@ CONFIG_STEPS = {
     "sonata": lambda cs: (cs.SONATA_CONFIG, {}, cs.SONATA_OPTIONS["point_capacity"]),
     "probe": lambda cs: (cs.DOWNSTREAM_CONFIGS[0][1], {}, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
     "utonia": lambda cs: (cs.UTONIA_CONFIGS[1][1], cs.UTONIA_OPTIONS, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
+    "lora": lambda cs: (cs.LORA_CONFIG, cs.LORA_OPTIONS, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
 }
 
 
