@@ -139,9 +139,29 @@ each printing JSON lines:
    the steps, every adapter and the head moved, 24 attention forwards and
    backwards a step; then one small-depth LoRA step on the card against the
    CPU (f32);
-20. one {"kernels": [...]} line (launches: the training paths', PTv3's for
-   its four kernels and SpUNet's for the fused block conv's two; the D = 18
-   rows: phase 15's fine-tune).
+20. SemanticKITTI's PTv3 config (`configs/semantic_kitti/semseg-pt-v3m1-0-base.py`)
+   on HDL-64E scans written by casting the sensor's rays against a street
+   (`lidar_scan`, `write_kitti`: sequences 00-01 train, 08 val, 11 test) at
+   phase 14's cuts and two scans a card: 4 steps, one evaluation, the
+   geometry of two scans (the depth they serialize at, each pooled level's
+   clusters against its capacity, no patch holding both scans), its test
+   section (4 rotation views, the grouped path) on the val scan, then the
+   test split's submission read back (uint32 `.label` files of raw ids);
+21. nuScenes' PTv3 config on HDL-32E sweeps in the info layout: two epochs
+   of 2 steps, the second resumed through the CLI with the same loss bits,
+   its test section on the val sweep and the lidarseg submission of the
+   test split (`<lidar token>_lidarseg.bin` of classes 1-16 and
+   `test/submission.json`);
+22. Waymo's PTv3 config on two-return top-lidar frames at 262,144 rows a
+   frame (524,288 a step): 4 steps, one evaluation;
+23. Utonia's nuScenes fine-tune (PT-v3m3, head dim 18) and Concerto-large's
+   SemanticKITTI linear probe (frozen encoder, bit for bit after the steps)
+   at serialize_depth 11, from random encoders saved under
+   `student.backbone.` and `in_channels=4`, on phases 20-21's scans;
+24. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+   its four kernels and SpUNet's for the fused block conv's two, phases
+   20-23's added to the attention rows; the D = 18 rows: phase 15's
+   fine-tune and phase 23's Utonia fine-tune).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -360,6 +380,59 @@ LORA_OPTIONS = {"model.backbone.in_channels": 6}
 # step, forward and backward)
 LORA_ATTENTION = ((0, 64, 4, 3), (4, 768, 48, 3))
 LORA_POOL = (0.5, 0.5, 0.5, 0.5)
+# phases 20-23: outdoor lidar scans, written by casting the rays of each
+# dataset's sensor from its public specification (beams, elevation span,
+# azimuth steps a turn, returns, mounting height, range) against a street of
+# primitives (`street`): the ring pattern, dense near the sensor and sparse
+# far away, is what decides how far pooling shrinks a scan
+LIDARS = {
+    "kitti": dict(beams=64, elevation=(2.0, -24.9), steps=2000, returns=1, height=1.73, max_range=120.0),
+    "nuscenes": dict(beams=32, elevation=(10.67, -30.67), steps=1090, returns=1, height=1.84, max_range=100.0),
+    "waymo": dict(beams=64, elevation=(2.4, -17.6), steps=2650, returns=2, height=2.2, max_range=75.0),
+}
+# each dataset's raw label ids of the street's classes (SemanticKITTI's
+# semantic-kitti.yaml ids, the nuScenes lidarseg categories, Waymo's 1-22)
+LIDAR_LABELS = {
+    "kitti": dict(road=40, lane=40, curb=48, sidewalk=48, terrain=72, building=50, car=10, moving_car=252, pole=80,
+                  vegetation=70, trunk=71, person=30, unlabeled=0),
+    "nuscenes": dict(road=24, lane=24, curb=26, sidewalk=26, terrain=27, building=28, car=17, moving_car=17,
+                     pole=28, vegetation=30, trunk=30, person=2, unlabeled=0),
+    "waymo": dict(road=18, lane=19, curb=17, sidewalk=22, terrain=21, building=14, car=1, moving_car=1, pole=10,
+                  vegetation=15, trunk=16, person=7, unlabeled=0),
+}
+REFLECTIVITY = dict(road=0.12, lane=0.7, curb=0.25, sidewalk=0.22, terrain=0.18, building=0.3, car=0.45,
+                    moving_car=0.45, pole=0.4, vegetation=0.2, trunk=0.15, person=0.25)
+# phase 20-22's configs, and the street seeds of each sequence or split:
+# SemanticKITTI sequences 00-01 (train), 08 (val), 11 (test, no labels);
+# nuScenes and Waymo splits as their configs name them
+KITTI_CONFIG = "configs/semantic_kitti/semseg-pt-v3m1-0-base.py"
+NUSCENES_CONFIG = "configs/nuscenes/semseg-pt-v3m1-0-base.py"
+WAYMO_CONFIG = "configs/waymo/semseg-pt-v3m1-0-base.py"
+KITTI_FRAMES = {"00": (1, 2), "01": (3, 4), "08": (5,), "11": (6,)}
+NUSCENES_SPLITS = {"train": (1, 2, 3, 4), "val": (5,), "test": (6,)}
+WAYMO_SPLITS = {"train": (1, 2, 3, 4), "val": (5,)}
+# phase 14's cuts (batch 2, 4 steps, one evaluation); the capacities hold
+# two scans a card (the configs' are per chip, one scan each): KITTI
+# 262,144, nuScenes 131,072, Waymo 524,288 rows a step
+OUTDOOR_OPTIONS = dict(batch_size=2, epoch=2, eval_epoch=1, num_worker=4, seed=0)
+OUTDOOR_CAPACITY = {"kitti": 262144, "nuscenes": 131072, "waymo": 524288}
+# the pooling factors the KITTI and nuScenes phases run at: the configs' own
+# (0.4 and 0.45 at every level) drop points of two sensor-pattern scans at
+# levels 2-4 (level 1 too for KITTI); Waymo's 0.45 keep every point
+OUTDOOR_POOL = {"kitti": (0.5, 0.5, 0.5, 0.5), "nuscenes": (0.55, 0.55, 0.55, 0.55)}
+# phase 23: Utonia's nuScenes fine-tune (PT-v3m3, head dim 18) and
+# Concerto-large's SemanticKITTI linear probe (PT-v3m2 at 64-768, frozen),
+# both at serialize_depth 11, on random encoders saved under
+# `student.backbone.`; their in_channels=9 over the 4 channels (coord,
+# strength) the data section collects
+OUTDOOR_PROBES = (("utonia_4c", "configs/utonia/semseg-utonia-v1m1-4c-nuscenes-ft.py", "nuscenes"),
+                  ("concerto_4a", "configs/concerto/semseg-ptv3-large-v1m1-kitti-4a-lin.py", "kitti"))
+OUTDOOR_PROBE_OPTIONS = {"model.backbone.in_channels": 4}
+# the attention at the outdoor shapes: Waymo's stage 0 at two scans of
+# 262,144 rows (encoder C 32 / H 2 and decoder C 64 / H 4) and nuScenes'
+# stage 4 (C 512, H 32), launches a step, forward and backward
+OUTDOOR_ATTENTION = (("waymo", 0, 32, 2, 2), ("waymo", 0, 64, 4, 2), ("nuscenes", 4, 512, 32, 2))
+OUTDOOR_ATTENTION_POOL = {"waymo": (0.45,) * 4, "nuscenes": OUTDOOR_POOL["nuscenes"]}
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -665,12 +738,16 @@ def attention_cases(device, gen, exp_rate):
     cases += [("utonia", 2, stage, c, h, n) for stage, c, h, n in UTONIA_ATTENTION]
     # Concerto-large's LoRA fine-tune (two scenes a step), forward and backward
     cases += [("lora", 2, stage, c, h, n) for stage, c, h, n in LORA_ATTENTION]
+    # the outdoor configs (two scans a step), forward and backward
+    cases += [(path, 2, stage, c, h, n) for path, stage, c, h, n in OUTDOOR_ATTENTION]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
                else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LORA_POOL) if path == "lora"
+               else _patches(OUTDOOR_CAPACITY[path], stage, scenes, OUTDOOR_ATTENTION_POOL[path])
+               if path in OUTDOOR_ATTENTION_POOL
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
                else o["capacity"] // o["k"] + scenes if stage == "D=8" else scenes * CAPACITY // 128 + 2)
         d = c // h
@@ -1166,7 +1243,7 @@ def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
     return worst, worst_name, low_cos
 
 
-def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None):
+def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1180,13 +1257,14 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None):
     scaled by 1 + 1e-6 * N(0, 1). The card must agree with the CPU within
     the slice test's bounds, or within twice the floor where the floor of
     this model and scene is above them. `init(model)` changes the weights
-    after the build, the same on both devices."""
+    after the build, the same on both devices. `capacity`, `extent`: the
+    scene's points and size."""
     import numpy as np
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
 
-    arrays = scene(100, capacity=16384, extent=2.4, labelled=True)
+    arrays = scene(100, capacity=capacity, extent=extent, labelled=True)
     nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
         *arrays["feat"].shape).astype(np.float32)))
     vanishing = set()
@@ -1339,26 +1417,7 @@ def trainer_path(device, card, work: str, bare_step_ms: float):
     del trainer
     torch.cuda.empty_cache()
 
-    # the second epoch again, through the CLI, resumed from epoch 1
-    resumed = os.path.join(work, "resumed")
-    argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
-            os.path.join(ROOT, SCANNET_CONFIG), "--options"]
-    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
-                                          weight=os.path.join(first, "model", "epoch_1.pth")).items()]
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], file=sys.stderr)
-        print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"the training CLI exited with {proc.returncode}")
-    want = [r["loss"] for r in rows if r["epoch"] == 2]
-    got = [r["loss"] for r in _metrics(resumed)]
-    identical = got == want
-    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want)) if len(got) == len(want) else float("inf")
-    emit("trainer_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=identical,
-         max_rel_diff=rel)
-    if not (identical or rel < 1e-3):
-        raise AssertionError(f"resumed epoch 2 losses {got} differ from the first run's {want}")
+    _resume_bits(work, SCANNET_CONFIG, options, first, "trainer")
     steady_state(device, card, work, dict(options, **STEADY_OPTIONS), bare_step_ms)
 
 
@@ -1708,23 +1767,7 @@ def sonata_path(device, card, work: str):
     del trainer
     torch.cuda.empty_cache()
 
-    # the second epoch again, through the CLI, resumed from epoch 1
-    resumed = os.path.join(work, "sonata_resumed")
-    argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
-            os.path.join(ROOT, SONATA_CONFIG), "--options"]
-    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
-                                          weight=os.path.join(first, "model", "epoch_1.pth")).items()]
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
-        print(proc.stdout[-4000:], file=sys.stderr)
-        print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"the training CLI exited with {proc.returncode}")
-    want = [[r[k] for k in losses] for r in rows if r["epoch"] == 2]
-    got = [[r[k] for k in losses] for r in _metrics(resumed)]
-    emit("sonata_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=got == want)
-    if got != want:
-        raise AssertionError(f"sonata: resumed epoch 2 losses {got} differ from the first run's {want}")
+    _resume_bits(work, SONATA_CONFIG, options, first, "sonata", losses)
 
     # the steady state: one epoch of STEADY_STEPS steps
     save = os.path.join(work, "sonata_steady")
@@ -2400,6 +2443,529 @@ def lora_path(device, card, work: str):
     card_vs_cpu_train(device, [(False, small, recipe)], phase="lora_card_vs_cpu_train", init=adapters_at_work)
 
 
+def street(seed: int, height: float) -> dict:
+    """A street of primitives around a sensor at the origin, `height` above
+    the ground: facades of 6-20 m on both sides at 10-52 m, blocks across the
+    street at 42-75 m with the street open between them, a far block at
+    106-114 m (past 102.4 m, the extent of 2,048 cells of 5 cm), cars in
+    four lanes (some moving), poles, trees (trunks and crowns) and people on
+    the sidewalks. Boxes (lo, hi, class, instance id), crowns as spheres."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    g = -height
+    boxes, spheres = [], []
+    for side in (-1.0, 1.0):
+        x = -75.0 + rng.uniform(0, 5)
+        while x < 75.0:
+            length, near, depth, top = rng.uniform(8, 25), rng.uniform(10, 22), rng.uniform(8, 30), rng.uniform(6, 20)
+            y0, y1 = sorted((side * near, side * (near + depth)))
+            boxes.append(((x, y0, g), (x + length, y1, g + top), "building", 0))
+            x += length + rng.uniform(2, 8)
+        near = rng.uniform(42, 60)
+        for y0, y1 in ((-60.0, -11.0), (11.0, 60.0)):
+            boxes.append(((side * near if side > 0 else side * (near + 15), y0, g),
+                          (side * (near + 15) if side > 0 else side * near, y1, g + rng.uniform(8, 25)),
+                          "building", 0))
+    boxes.append(((106.0, -30.0, g), (114.0, 30.0, g + 30.0), "building", 0))
+    inst = 1
+    for _ in range(14):
+        x, lane = rng.uniform(-38, 38), rng.choice([-5.3, -2.0, 2.0, 5.3])
+        cls = "moving_car" if abs(lane) < 3 and rng.rand() < 0.5 else "car"
+        boxes.append(((x, lane - 0.9, g), (x + rng.uniform(4.0, 4.8), lane + 0.9, g + rng.uniform(1.4, 1.7)), cls,
+                      inst))
+        inst += 1
+    for side in (-1.0, 1.0):
+        for x in np.arange(-36.0, 37.0, 12.0) + rng.uniform(-2, 2):
+            boxes.append(((x - 0.12, side * 7.3 - 0.12, g), (x + 0.12, side * 7.3 + 0.12, g + 7.0), "pole", 0))
+        for x in np.arange(-40.0, 41.0, 6.0) + rng.uniform(-2, 2):
+            y, r = side * rng.uniform(8.0, 9.5), rng.uniform(1.4, 2.4)
+            boxes.append(((x - 0.2, y - 0.2, g), (x + 0.2, y + 0.2, g + 2.5), "trunk", 0))
+            spheres.append(((x, y, g + 2.5 + 0.7 * r), r))
+        for _ in range(3):
+            x, y = rng.uniform(-25, 25), side * rng.uniform(4.6, 6.6)
+            boxes.append(((x - 0.25, y - 0.25, g), (x + 0.25, y + 0.25, g + 1.75), "person", inst))
+            inst += 1
+    return dict(lo=np.array([b[0] for b in boxes]), hi=np.array([b[1] for b in boxes]),
+                box_class=np.array([b[2] for b in boxes], dtype=object),
+                box_instance=np.array([b[3] for b in boxes]), center=np.array([c for c, _ in spheres]),
+                radius=np.array([r for _, r in spheres]), ground=g)
+
+
+def _ground_class(x, y):
+    """Road (its centre line dashed as lane marking), curb, sidewalk, terrain
+    by the distance from the street's axis."""
+    import numpy as np
+
+    ay = np.abs(y)
+    cls = np.full(x.shape, "terrain", dtype=object)
+    cls[ay < 7.0] = "sidewalk"
+    cls[(ay >= 4.0) & (ay < 4.15)] = "curb"
+    cls[ay < 4.0] = "road"
+    cls[(ay < 0.12) & (np.floor(x / 3.0) % 2 == 0)] = "lane"
+    return cls
+
+
+def _cast(scene: dict, dirs, max_range: float, chunk: int = 4096):
+    """The nearest and the next hit of each ray from the origin within
+    `max_range`: (t1, primitive 1, t2, primitive 2), primitives numbered
+    boxes, spheres, then the ground; t inf where none."""
+    import numpy as np
+
+    n = len(dirs)
+    t1, t2, p1, p2 = np.full(n, np.inf), np.full(n, np.inf), np.full(n, -1), np.full(n, -1)
+    lo, hi = scene["lo"].astype(np.float32), scene["hi"].astype(np.float32)
+    center = scene["center"].astype(np.float32)
+    c2 = (center ** 2).sum(1) - scene["radius"].astype(np.float32) ** 2
+    for a in range(0, n, chunk):
+        d = dirs[a:a + chunk].astype(np.float32)
+        inv = 1.0 / np.where(d == 0, np.float32(1e-12), d)
+        ta, tb = lo[None] * inv[:, None], hi[None] * inv[:, None]
+        tmin = np.minimum(ta, tb).max(axis=2)
+        tmax = np.maximum(ta, tb).min(axis=2)
+        t_box = np.where((tmax >= tmin) & (tmin > 0.05), tmin, np.inf)
+        dc = d @ center.T
+        disc = dc ** 2 - c2[None]
+        t_sph = np.where(disc > 0, dc - np.sqrt(np.maximum(disc, 0)), np.inf)
+        t_sph = np.where(t_sph > 0.05, t_sph, np.inf)
+        down = d[:, 2] < 0
+        t_gnd = np.where(down, scene["ground"] / np.where(down, d[:, 2], -1.0), np.inf)
+        t = np.concatenate([t_box, t_sph, t_gnd[:, None].astype(np.float32)], axis=1)
+        t = np.where(t <= max_range, t, np.inf)
+        rows = np.arange(len(d))
+        first = t.argmin(axis=1)
+        t1[a:a + chunk], p1[a:a + chunk] = t[rows, first], first
+        t[rows, first] = np.inf
+        second = t.argmin(axis=1)
+        t2[a:a + chunk], p2[a:a + chunk] = t[rows, second], second
+    return t1, p1, t2, p2
+
+
+def lidar_scan(sensor: str, seed: int) -> dict:
+    """One scan of `sensor` (a key of LIDARS) in the street of `seed`: the
+    beams evenly over the elevation span, the azimuth steps of a turn from a
+    random phase, 2% of the rays lost, 1.5 cm range noise; two-return
+    sensors add the return behind each crown hit (foliage lets part of the
+    beam through). Returns coord [N, 3] float32, strength in [0, 1] (the
+    class's reflectivity, falling with range), the dataset's raw label ids
+    (1% of them the unlabelled id), instance ids and the ring of each
+    point."""
+    import numpy as np
+
+    spec = LIDARS[sensor]
+    rng = np.random.RandomState(seed + 7919)
+    sc = street(seed, spec["height"])
+    el = np.deg2rad(np.linspace(spec["elevation"][0], spec["elevation"][1], spec["beams"]))
+    az = np.linspace(0, 2 * np.pi, spec["steps"], endpoint=False) + rng.uniform(0, 2 * np.pi / spec["steps"])
+    e, a = np.meshgrid(el, az, indexing="ij")
+    dirs = np.stack([np.cos(e) * np.cos(a), np.cos(e) * np.sin(a), np.sin(e)], -1).reshape(-1, 3)
+    ring = np.repeat(np.arange(spec["beams"]), spec["steps"])
+    t1, p1, t2, p2 = _cast(sc, dirs, spec["max_range"])
+    nb, ns = len(sc["lo"]), len(sc["radius"])
+    keep = np.isfinite(t1) & (rng.rand(len(t1)) > 0.02)
+    t, p, rays = [t1[keep]], [p1[keep]], [np.nonzero(keep)[0]]
+    if spec["returns"] == 2:
+        second = keep & np.isfinite(t2) & (p1 >= nb) & (p1 < nb + ns)
+        t, p, rays = t + [t2[second]], p + [p2[second]], rays + [np.nonzero(second)[0]]
+    t, p, rays = np.concatenate(t), np.concatenate(p), np.concatenate(rays)
+    t = t + rng.normal(0, 0.015, t.shape)
+    coord = (dirs[rays] * t[:, None]).astype(np.float32)
+    cls = np.full(len(p), "vegetation", dtype=object)
+    box = p < nb
+    cls[box] = sc["box_class"][p[box]]
+    ground = p == nb + ns
+    cls[ground] = _ground_class(coord[ground, 0], coord[ground, 1])
+    reflectivity = np.array([REFLECTIVITY[c] for c in cls])
+    strength = np.clip(reflectivity * (1 - t / (2 * spec["max_range"])) + rng.normal(0, 0.03, len(t)), 0, 1)
+    labels = LIDAR_LABELS[sensor]
+    raw = np.array([labels[c] for c in cls], dtype=np.int64)
+    raw[rng.rand(len(raw)) < 0.01] = labels["unlabeled"]
+    return dict(coord=coord, strength=strength.astype(np.float32), raw=raw,
+                instance=np.where(box, sc["box_instance"][np.where(box, p, 0)], 0), ring=ring[rays])
+
+
+def lidar_scans(sensor: str, seeds) -> list:
+    """`lidar_scan` of each seed, four at a time (numpy frees the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(4) as pool:
+        return list(pool.map(lambda seed: lidar_scan(sensor, seed), seeds))
+
+
+def write_kitti(root: str, frames: dict, labelled=("00", "01", "08")) -> dict:
+    """HDL-64E scans in SemanticKITTI's layout: ``dataset/sequences/<seq>/
+    velodyne/<frame>.bin`` (float32 x, y, z, remission) and, for the
+    `labelled` sequences, ``labels/<frame>.label`` (uint32: instance << 16 |
+    semantic id). `frames`: sequence -> street seeds. Returns the points of
+    each scan by name."""
+    import numpy as np
+
+    sizes = {}
+    for seq, seeds in frames.items():
+        base = os.path.join(root, "dataset", "sequences", seq)
+        os.makedirs(os.path.join(base, "velodyne"))
+        if seq in labelled:
+            os.makedirs(os.path.join(base, "labels"))
+        for i, sc in enumerate(lidar_scans("kitti", seeds)):
+            np.concatenate([sc["coord"], sc["strength"][:, None]], 1).astype(np.float32).tofile(
+                os.path.join(base, "velodyne", f"{i:06d}.bin"))
+            if seq in labelled:
+                ((sc["instance"].astype(np.uint32) << 16) | sc["raw"].astype(np.uint32)).tofile(
+                    os.path.join(base, "labels", f"{i:06d}.label"))
+            sizes[f"{seq}_{i:06d}"] = len(sc["coord"])
+    return sizes
+
+
+def write_nuscenes(root: str, splits: dict, sweeps: int = 10) -> dict:
+    """HDL-32E sweeps in nuScenes' info layout: ``raw/samples/LIDAR_TOP/
+    <name>.pcd.bin`` (float32 x, y, z, intensity 0-255, ring), lidarseg
+    labels ``raw/lidarseg/v1.0-trainval/<token>_lidarseg.bin`` (uint8 of
+    the 32 categories; none for the test split) and
+    ``info/nuscenes_infos_{sweeps}sweeps_{split}.pkl``. `splits`: split ->
+    street seeds. Returns the points of each sweep by name."""
+    import pickle
+
+    import numpy as np
+
+    sizes = {}
+    for sub in ("raw/samples/LIDAR_TOP", "raw/lidarseg/v1.0-trainval", "info"):
+        os.makedirs(os.path.join(root, sub), exist_ok=True)
+    for split, seeds in splits.items():
+        infos = []
+        for seed, sc in zip(seeds, lidar_scans("nuscenes", seeds)):
+            name = f"n008-2018-08-01-15-16-36-0400__LIDAR_TOP__{1533151603547590 + seed}"
+            token = f"{seed:032x}"
+            lidar_path = f"samples/LIDAR_TOP/{name}.pcd.bin"
+            np.concatenate([sc["coord"], sc["strength"][:, None] * 255, sc["ring"][:, None]], 1).astype(
+                np.float32).tofile(os.path.join(root, "raw", lidar_path))
+            info = dict(lidar_path=lidar_path, lidar_token=token, token=f"{seed + 1:032x}")
+            if split != "test":
+                info["gt_segment_path"] = f"lidarseg/v1.0-trainval/{token}_lidarseg.bin"
+                sc["raw"].astype(np.uint8).tofile(os.path.join(root, "raw", info["gt_segment_path"]))
+            infos.append(info)
+            sizes[name] = len(sc["coord"])
+        with open(os.path.join(root, "info", f"nuscenes_infos_{sweeps}sweeps_{split}.pkl"), "wb") as f:
+            pickle.dump(infos, f)
+    return sizes
+
+
+def write_waymo(root: str, splits: dict) -> dict:
+    """Two-return top-lidar frames in the Waymo preprocessing's layout:
+    ``<split>/<segment>/<frame>/{coord,strength,segment}.npy`` (segment
+    0-22, 0 undefined). `splits`: split -> street seeds, one frame of a
+    segment each. Returns the points of each frame by name."""
+    import numpy as np
+
+    sizes = {}
+    for split, seeds in splits.items():
+        for seed, sc in zip(seeds, lidar_scans("waymo", seeds)):
+            segment = f"segment-{10017090168044687777 + seed}_6380_000_6400_000"
+            d = os.path.join(root, split, segment, "1550083467346370")
+            os.makedirs(d)
+            np.save(os.path.join(d, "coord.npy"), sc["coord"])
+            np.save(os.path.join(d, "strength.npy"), sc["strength"][:, None])
+            np.save(os.path.join(d, "segment.npy"), sc["raw"].astype(np.int32))
+            sizes[f"{segment}_1550083467346370"] = len(sc["coord"])
+    return sizes
+
+
+def _pool_chain(capacity: int, factors) -> list:
+    """PT-v3's static pooled capacities (`_pooled_capacity`) down the levels."""
+    caps, cap = [], capacity
+    for f in factors:
+        cap = -(-max(math.ceil(cap * f), 128) // 128) * 128
+        caps.append(cap)
+    return caps
+
+
+def outdoor_geometry(device, backbone, cfg, capacity: int, own_factors) -> dict:
+    """The PT-v3 `backbone`'s geometry on two scans of the config's train
+    pipeline (its first two samples, numpy and python seeded 0), as the
+    train forward builds it with every order encoded: the depth the batch
+    serializes at, the grid's bits, each pooled level's clusters against its
+    capacity at the run's factors and at the config's own (`own_factors`),
+    the points dropped, and the patches of any stage and order whose rows
+    hold points of both scans."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.datasets import build_dataset, point_collate_fn
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.models.point_transformer_v3.point_transformer_v3 import pooling_geometry
+    from pointcept_tpu_torch.models.utils.structure import PointBatch, serialization_depth
+
+    np.random.seed(0)
+    random.seed(0)
+    dataset = _quiet(lambda: build_dataset(cfg.data.train), os.path.join(cfg.save_path, "geometry.log"))
+    pb = make_point_batch(point_collate_fn([dataset[0], dataset[1]], capacity), 2, device=device)
+    grid_bits, orders = pb.grid_depth, backbone.order
+    depth = serialization_depth(backbone.serialize_depth, pb)
+    own = _pool_chain(capacity, own_factors)
+    levels, mixed, cap = [], 0, pb.capacity
+    with torch.no_grad():
+        pb = pb.serialize(orders=orders, depth=depth)
+        for s in range(len(backbone.enc_depths)):
+            if s > 0:
+                cap = backbone._pooled_capacity(cap, s)
+                g = pooling_geometry(pb, backbone.stride[s - 1], cap, orders, tuple(range(len(orders))),
+                                     identity_order0=s > 1)
+                pb = PointBatch(coord=torch.zeros((cap, 3), device=device), feat=None, grid_coord=g["grid"],
+                                batch=g["batch"], serialized_keys=g["keys"], serialized_order=g["order"],
+                                serialized_inverse=g["inverse"], serialized_depth=g["depth"], num_scenes=2)
+                clusters = int((g["batch"] >= 0).sum())
+                levels.append(dict(clusters=clusters, capacity=cap, dropped=int(g["overflow"]),
+                                   config_capacity=own[s - 1], config_drops=clusters > own[s - 1]))
+            k = backbone.enc_patch_size[s]
+            for oi in range(len(orders)):
+                slot_to_point, _ = pb.patch_partition(oi, k)
+                b = pb.batch[slot_to_point.long()].reshape(-1, k)
+                mixed += int((b.amin(1) != b.amax(1)).sum())
+    out = dict(rows=capacity, grid_bits=grid_bits, depth=depth, serialize_depth=backbone.serialize_depth,
+               levels=levels, mixed_patches=mixed)
+    if mixed or any(lv["dropped"] for lv in levels):
+        raise AssertionError(f"outdoor geometry: {mixed} patches hold two scans, drops "
+                             f"{[lv['dropped'] for lv in levels]}")
+    return out
+
+
+def _attention_per_step(launches: dict, steps: int, evals: dict, blocks: int, evaluations: int = 1) -> tuple:
+    """Attention forwards and backwards a train step: every val forward of
+    each of the `evaluations` attends once a block."""
+    return ((launches["patch_attention"] - evaluations * len(evals["batch_ms"]) * blocks) / steps,
+            launches["patch_attention_bwd"] / steps)
+
+
+def _outdoor_run(device, card, work: str, config: str, options: dict, tag: str, own_factors, evaluations=1):
+    """`_run_checked` of an outdoor PT-v3m1 config with both attention
+    kernels launched, its step times, peak, attention launches a step and
+    geometry (`outdoor_geometry`) emitted; returns (trainer, steps, evals,
+    launches)."""
+    trainer, steps, evals, launches, peak, seconds = _run_checked(
+        device, work, config, options, tag, ("patch_attention", "patch_attention_bwd"))
+    bb = trainer.cfg.model.backbone
+    blocks = sum(bb.enc_depths) + sum(bb.dec_depths)
+    fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks, evaluations)
+    geometry = outdoor_geometry(device, trainer.model.backbone, trainer.cfg, trainer.cfg.point_capacity,
+                                own_factors)
+    emit(tag, config=config, options=options, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), classes=trainer.cfg.data.num_classes,
+         steps=len(steps), losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak,
+         peak_gb=peak / 1e9, val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches,
+         attention_fwd_per_step=fwd, attention_bwd_per_step=bwd, geometry=geometry)
+    if fwd != blocks or bwd != blocks:
+        raise AssertionError(f"{tag}: {fwd} attention forwards and {bwd} backwards a step, {blocks} blocks")
+    return trainer, steps, evals, launches
+
+
+def _outdoor_test(device, card, work: str, phase: str, config: str, root: str, name: str, raw: int,
+                  options: dict, kernels=("patch_attention",)):
+    """`test_scene` of an outdoor config's test section on scan `name`."""
+    st = test_scene(device, card, work, phase, config, name, raw, dict(options, num_worker=0, seed=0,
+                                                                      **{"data.test.data_root": root}),
+                    kernels=kernels)
+    if st["groups"] is None:
+        raise AssertionError(f"{phase}: the PT-v3m1 config did not take the grouped path")
+    return st
+
+
+def kitti_path(device, card, work: str) -> dict:
+    """Phase 20: SemanticKITTI's PTv3 config through the training CLI's
+    `main_worker` on HDL-64E scans (sequences 00-01 train, 08 val), its
+    test section (4 rotation views, the grouped path) on the val scan, then
+    the test split's submission (sequence 11, no labels): one `.label` a
+    frame, uint32, raw ids in `learning_map_inv`'s image."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.datasets.semantic_kitti import SemanticKITTIDataset
+    from pointcept_tpu_torch.utils.config import Config
+
+    root = os.path.join(work, "kitti")
+    sizes = write_kitti(root, KITTI_FRAMES)
+    cap = OUTDOOR_CAPACITY["kitti"]
+    options = dict(OUTDOOR_OPTIONS, point_capacity=cap, point_capacity_val=cap,
+                   **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["kitti"],
+                      "data.train.data_root": root, "data.val.data_root": root})
+    emit("kitti_setup", config=KITTI_CONFIG, options=options, raw_points=sizes)
+    own = Config.fromfile(os.path.join(ROOT, KITTI_CONFIG)).model.backbone.pool_capacity_factors
+    trainer, steps, evals, launches = _outdoor_run(device, card, work, KITTI_CONFIG, options, "kitti",
+                                                   own)
+    result = dict(trainer=launches)
+    del trainer
+    torch.cuda.empty_cache()
+    test = dict(weight=os.path.join(work, "kitti", "model", "model_last.pth"), point_capacity_test=cap // 2,
+                **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["kitti"]})
+    _outdoor_test(device, card, work, "kitti_test", KITTI_CONFIG, root, "08_000000", sizes["08_000000"], test)
+    test = dict(test, **{"data.test.split": "test", "data.test.submit": True})
+    _outdoor_test(device, card, work, "kitti_submit", KITTI_CONFIG, root, "11_000000", sizes["11_000000"], test)
+    label = os.path.join(work, "kitti_submit", "result", "submit", "sequences", "11", "predictions", "000000.label")
+    ids = np.fromfile(label, dtype=np.uint32)
+    allowed = set(SemanticKITTIDataset.get_learning_map_inv(-1).values()) - {-1}
+    files = sorted(os.listdir(os.path.dirname(label)))
+    emit("kitti_submission", files=files, points=int(ids.size), ids=sorted(int(v) for v in np.unique(ids)))
+    if files != ["000000.label"] or ids.size != sizes["11_000000"] or not set(np.unique(ids).tolist()) <= allowed:
+        raise AssertionError(f"kitti submission: {files}, {ids.size} ids for {sizes['11_000000']} points, "
+                             f"ids {np.unique(ids)[:8]}")
+    return result
+
+
+def _resume_bits(work: str, config: str, options: dict, first: str, tag: str, keys=("loss",)):
+    """The second epoch again through the training CLI, resumed from
+    `first`'s epoch_1.pth: its losses (`keys` of metrics.jsonl) against the
+    straight run's, bit for bit."""
+    rows = _metrics(first)
+    resumed = os.path.join(work, f"{tag}_resumed")
+    argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
+            os.path.join(ROOT, config), "--options"]
+    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
+                                          weight=os.path.join(first, "model", "epoch_1.pth")).items()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        print(proc.stdout[-4000:], file=sys.stderr)
+        print(proc.stderr[-4000:], file=sys.stderr)
+        raise AssertionError(f"the training CLI exited with {proc.returncode}")
+    want = [[r[k] for k in keys] for r in rows if r["epoch"] == 2]
+    got = [[r[k] for k in keys] for r in _metrics(resumed)]
+    emit(f"{tag}_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=got == want)
+    if got != want:
+        raise AssertionError(f"{tag}: resumed epoch 2 losses {got} differ from the first run's {want}")
+
+
+def nuscenes_path(device, card, work: str) -> dict:
+    """Phase 21: nuScenes' PTv3 config through the training CLI's
+    `main_worker` on HDL-32E sweeps in the info layout (two epochs of 2
+    steps, an evaluation and a checkpoint each), its second epoch resumed
+    through the CLI (the same loss bits), its test section on the val
+    sweep, then the test split's lidarseg submission: one uint8
+    ``<lidar token>_lidarseg.bin`` a sweep of the challenge's classes 1-16,
+    and ``test/submission.json``."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.utils.config import Config
+
+    root = os.path.join(work, "nuscenes")
+    sizes = write_nuscenes(root, NUSCENES_SPLITS)
+    names = sorted(sizes)
+    cap = OUTDOOR_CAPACITY["nuscenes"]
+    options = dict(OUTDOOR_OPTIONS, point_capacity=cap, point_capacity_val=cap, eval_epoch=2,
+                   **{"hooks.4.save_freq": 1, "model.backbone.pool_capacity_factors": OUTDOOR_POOL["nuscenes"],
+                      "data.train.data_root": root, "data.val.data_root": root})
+    emit("nuscenes_setup", config=NUSCENES_CONFIG, options=options, raw_points=sizes)
+    own = Config.fromfile(os.path.join(ROOT, NUSCENES_CONFIG)).model.backbone.pool_capacity_factors
+    trainer, steps, evals, launches = _outdoor_run(device, card, work, NUSCENES_CONFIG, options,
+                                                   "nuscenes", own, evaluations=2)
+    result = dict(trainer=launches)
+    del trainer
+    torch.cuda.empty_cache()
+    _resume_bits(work, NUSCENES_CONFIG, options, os.path.join(work, "nuscenes"), "nuscenes")
+    test = dict(weight=os.path.join(work, "nuscenes", "model", "model_last.pth"), point_capacity_test=cap,
+                **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["nuscenes"]})
+    val_name = [n for n in names if n.endswith(str(1533151603547590 + NUSCENES_SPLITS["val"][0]))][0]
+    test_name = [n for n in names if n.endswith(str(1533151603547590 + NUSCENES_SPLITS["test"][0]))][0]
+    _outdoor_test(device, card, work, "nuscenes_test", NUSCENES_CONFIG, root, val_name, sizes[val_name], test)
+    test = dict(test, **{"data.test.split": "test", "data.test.submit": True})
+    _outdoor_test(device, card, work, "nuscenes_submit", NUSCENES_CONFIG, root, test_name, sizes[test_name], test)
+    submit = os.path.join(work, "nuscenes_submit", "result", "submit")
+    token = f"{NUSCENES_SPLITS['test'][0]:032x}"
+    files = sorted(os.listdir(os.path.join(submit, "lidarseg", "test")))
+    preds = np.fromfile(os.path.join(submit, "lidarseg", "test", f"{token}_lidarseg.bin"), dtype=np.uint8)
+    with open(os.path.join(submit, "test", "submission.json")) as f:
+        meta = json.load(f)["meta"]
+    emit("nuscenes_submission", files=files, points=int(preds.size), classes=sorted(int(v) for v in np.unique(preds)),
+         meta=meta)
+    if (files != [f"{token}_lidarseg.bin"] or preds.size != sizes[test_name] or preds.min() < 1 or preds.max() > 16
+            or not meta["use_lidar"]):
+        raise AssertionError(f"nuscenes submission: {files}, {preds.size} preds for {sizes[test_name]} points, "
+                             f"classes {np.unique(preds)}")
+    return result
+
+
+def waymo_path(device, card, work: str) -> dict:
+    """Phase 22: Waymo's PTv3 config through the training CLI's
+    `main_worker` on two-return top-lidar frames at the config's 262,144
+    rows a frame: 4 steps of two frames (524,288 rows), one evaluation."""
+    import torch
+
+    from pointcept_tpu_torch.utils.config import Config
+
+    root = os.path.join(work, "waymo")
+    sizes = write_waymo(root, WAYMO_SPLITS)
+    cap = OUTDOOR_CAPACITY["waymo"]
+    options = dict(OUTDOOR_OPTIONS, point_capacity=cap, **{"data.train.data_root": root,
+                                                           "data.val.data_root": root})
+    emit("waymo_setup", config=WAYMO_CONFIG, options=options, raw_points=sizes)
+    own = Config.fromfile(os.path.join(ROOT, WAYMO_CONFIG)).model.backbone.pool_capacity_factors
+    trainer, steps, evals, launches = _outdoor_run(device, card, work, WAYMO_CONFIG, options, "waymo", own)
+    if trainer.cfg.point_capacity != 2 * trainer.cfg.point_capacity_val:
+        raise AssertionError(f"waymo: {trainer.cfg.point_capacity} rows a step")
+    del trainer
+    torch.cuda.empty_cache()
+    return dict(trainer=launches)
+
+
+def outdoor_probe_path(device, card, work: str) -> dict:
+    """Phase 23: Utonia's nuScenes fine-tune (PT-v3m3, head dim 18, both
+    attention kernels, every tensor trained) and Concerto-large's
+    SemanticKITTI linear probe (the encoder frozen: its tensors the
+    checkpoint's bit for bit after the steps, no attention backward), each
+    from a random encoder saved under ``student.backbone.`` and at
+    ``in_channels=4``, on phases 20-21's scans at serialize_depth 11, with
+    the geometry of two scans (no patch holding both). Returns the launches
+    of each."""
+    import torch
+
+    from pointcept_tpu_torch.models import build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    result = {}
+    for seed, (tag, config, sensor) in enumerate(OUTDOOR_PROBES, start=21):
+        cfg = Config.fromfile(os.path.join(ROOT, config))
+        cfg.merge_from_dict(OUTDOOR_PROBE_OPTIONS)
+        weight = os.path.join(work, f"{tag}_encoder.pth")
+        pretrained = build_model(dict(cfg.model.backbone), device="cpu", generator=torch.Generator().manual_seed(seed))
+        ckpt = {"backbone." + k: v for k, v in pretrained.state_dict().items()}
+        torch.save({"state_dict": {"student." + k: v for k, v in ckpt.items()}}, weight)
+        del pretrained
+        root, cap = os.path.join(work, sensor), OUTDOOR_CAPACITY[sensor]
+        options = dict(OUTDOOR_OPTIONS, weight=weight, point_capacity=cap, point_capacity_val=cap,
+                       **OUTDOOR_PROBE_OPTIONS, **{"data.train.data_root": root, "data.val.data_root": root})
+        trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, config, options, tag,
+                                                                      ("patch_attention",))
+        model, bb = trainer.model, trainer.cfg.model.backbone
+        info = trainer.comm_info.get("load_info", {})
+        blocks = sum(bb.enc_depths)
+        fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks)
+        same, moved = _moved(model, ckpt, "backbone.")
+        d = sorted({c // h for c, h in zip(bb.enc_channels, bb.enc_num_head)})
+        geometry = outdoor_geometry(device, model.backbone, trainer.cfg, cap, bb.get("pool_capacity_factors",
+                                                                                     (0.5,) * 4))
+        emit(tag, config=config, options=dict(options, weight=f"random encoder, seed {seed}"), card=card,
+             seconds=seconds, head_dims=d, steps=len(steps), losses=[st["loss"] for st in steps],
+             **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+             eval_ms_per_scene=evals["batch_ms"], launches=launches, attention_fwd_per_step=fwd,
+             attention_bwd_per_step=bwd, missing_keys=info.get("missing", []), encoder_unchanged=len(same),
+             encoder_moved=len(moved), parameters=sum(p.numel() for p in model.parameters()), geometry=geometry)
+        if set(info.get("missing", [])) != {"seg_head.weight", "seg_head.bias"}:
+            raise AssertionError(f"{tag}: missing keys {info.get('missing')}")
+        frozen = bool(trainer.cfg.model.get("freeze_backbone", False))
+        want_bwd = 0 if frozen else blocks
+        if fwd != blocks or bwd != want_bwd:
+            raise AssertionError(f"{tag}: {fwd} attention forwards and {bwd} backwards a step, {blocks} blocks")
+        if frozen and (moved or not same):
+            raise AssertionError(f"{tag}: frozen encoder tensors moved, e.g. {moved[:3]}")
+        # (the mask token: no patch mask in a fine-tune, no gradient)
+        if not frozen and [n for n in same if n != "backbone.embedding.mask_token"]:
+            raise AssertionError(f"{tag}: {len(same)} encoder tensors not updated, e.g. {same[:3]}")
+        result[tag] = launches
+        del trainer, model
+        torch.cuda.empty_cache()
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2435,8 +3001,9 @@ def main() -> int:
     card_vs_cpu(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
     spunet, _ = train_path(device, card, SPUNET_MODEL, SPUNET_RECIPE, SPUNET_TRAIN_KERNELS,
                            phase="spunet_train_path")
+    # at half the scene (8,192 points, 1.7 m): its CPU steps took 112 s of the time limit at 16,384
     card_vs_cpu_train(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL), SPUNET_RECIPE)],
-                      phase="spunet_card_vs_cpu_train")
+                      phase="spunet_card_vs_cpu_train", capacity=8192, extent=1.7)
     launches.update({name: spunet[name] for name in ("tap_conv_fwd", "tap_conv_dw")})
 
     work = os.path.join(ROOT, "build", "chip_smoke_trainer")
@@ -2452,6 +3019,8 @@ def main() -> int:
         s3dis_path(device, card, work)
         scannetpp_path(device, card, work)
         lora_path(device, card, work)
+        outdoor = [kitti_path(device, card, work), nuscenes_path(device, card, work), waymo_path(device, card, work)]
+        probes = outdoor_probe_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -2478,7 +3047,9 @@ def main() -> int:
     # launched by phase 15's fine-tune
     for name in ("patch_attention", "patch_attention_bwd"):
         sources[f"{name}[D=18]"], replaces[f"{name}[D=18]"] = sources[name], replaces[name]
-        launches[f"{name}[D=18]"] = utonia[name]
+        launches[f"{name}[D=18]"] = utonia[name] + probes["utonia_4c"][name]
+        # phases 20-23 at D = 16: the outdoor PTv3 configs' train runs and Concerto's probe
+        launches[name] += sum(run["trainer"][name] for run in outdoor) + probes["concerto_4a"][name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

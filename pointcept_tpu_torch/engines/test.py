@@ -43,7 +43,7 @@ import torch
 from ..datasets import build_dataset
 from ..datasets.utils import collate_fn, pad_to_point_batch
 from ..models import apply_amp_policy, build_model
-from ..models.utils.structure import PointBatch
+from ..models.utils.structure import PointBatch, grid_bits
 from ..utils.device import resolve_device
 from ..utils.logger import get_root_logger
 from ..utils.misc import AverageMeter, intersection_and_union, make_dirs
@@ -159,7 +159,9 @@ class TesterBase:
         self.logger.info("=> Building model ...")
         self.model = model if model is not None else self.build_model()
         self.logger.info("=> Building test dataset & loader ...")
-        self.test_dataset = build_dataset(dict(cfg.data.test))
+        # `submit` asks the tester for the benchmark's files; no dataset takes it
+        # (the JAX tester passes it on, and its dataset refuses the keyword)
+        self.test_dataset = build_dataset({k: v for k, v in dict(cfg.data.test).items() if k != "submit"})
         self._fragment_batch()  # refuse a batch below 1 before any scene is built
 
     def build_model(self):
@@ -287,7 +289,7 @@ class SemSegTester(TesterBase):
                 grid_b[s * cap : s * cap + n] = grid
                 batch_b[s * cap : s * cap + n] = s
             template = PointBatch(coord=grid_b.float() * grid_size, feat=None, grid_coord=grid_b,
-                                  batch=batch_b, num_scenes=b)
+                                  batch=batch_b, num_scenes=b, grid_depth=grid_bits(g["grid"]))
             t0 = timer.mark()
             with torch.no_grad():
                 geom = model.backbone.build_geometry(template)
@@ -363,6 +365,8 @@ class SemSegTester(TesterBase):
         if self.cfg.data.test.get("submit", False):
             submit_dir = os.path.join(self.result_dir, "submit")
             make_dirs(submit_dir)
+            if self.cfg.data.test.type in NUSCENES_TYPES:
+                write_nuscenes_meta(submit_dir)
         record = {}
         n_scenes = len(self.test_dataset)
         self.scene_stats = []
@@ -416,12 +420,19 @@ class SemSegTester(TesterBase):
         return dict(mIoU=float(m_iou), mAcc=float(m_acc), allAcc=float(all_acc))
 
     def write_submission(self, submit_dir: str, name: str, pred_label: np.ndarray):
-        """The benchmark's submission file: ScanNet's label ids as text, or
-        the labels as .npy for the other ported datasets (ScanNet++ and
-        S3DIS among them, as the JAX writer). ScanNet200's needs the
-        benchmark's 200 label ids, which the repository does not hold: it
-        raises, where the JAX writer maps the 200-way preds through
-        ScanNet's 20 ids and fails on the first pred above 19."""
+        """The benchmark's submission file: ScanNet's label ids as text;
+        SemanticKITTI's ``sequences/<seq>/predictions/<frame>.label`` (raw
+        ids through `learning_map_inv`, uint32); nuScenes' lidarseg
+        ``lidarseg/test/<lidar token>_lidarseg.bin`` (the challenge's class
+        ids 1-16, uint8; `write_nuscenes_meta` writes its
+        ``test/submission.json``); or the labels as .npy for the other
+        ported datasets (ScanNet++ and S3DIS among them, as the JAX writer).
+        ScanNet200's needs the benchmark's 200 label ids, which the
+        repository does not hold: it raises, where the JAX writer maps the
+        200-way preds through ScanNet's 20 ids and fails on the first pred
+        above 19. The JAX writer's nuScenes files are named by the lidar
+        file's stem and hold the 32-category ids, which the challenge's
+        validator refuses."""
         ds_type = self.cfg.data.test.type
         if ds_type == "ScanNet200Dataset":
             raise NotImplementedError(
@@ -431,10 +442,36 @@ class SemSegTester(TesterBase):
         if ds_type == "ScanNetDataset":
             np.savetxt(os.path.join(submit_dir, f"{name}.txt"),
                        type(self.test_dataset).class2id[pred_label].reshape([-1, 1]), fmt="%d")
-        elif ds_type in ("SemanticKITTIDataset", "NuScenesDataset"):
-            raise NotImplementedError(f"SemSegTester: the {ds_type} submission is not ported")
+        elif ds_type in KITTI_TYPES:
+            sequence_name, frame_name = name.split("_")
+            pred_dir = os.path.join(submit_dir, "sequences", sequence_name, "predictions")
+            make_dirs(pred_dir)
+            inv = self.test_dataset.learning_map_inv
+            lut = np.array([inv[i] for i in range(len(inv) - 1)], dtype=np.uint32)
+            lut[pred_label].tofile(os.path.join(pred_dir, f"{frame_name}.label"))
+        elif ds_type in NUSCENES_TYPES:
+            lidarseg_dir = os.path.join(submit_dir, "lidarseg", "test")
+            make_dirs(lidarseg_dir)
+            token = self.test_dataset.lidar_token(name)
+            (pred_label.astype(np.int64) + 1).astype(np.uint8).tofile(
+                os.path.join(lidarseg_dir, f"{token}_lidarseg.bin"))
         else:
             np.save(os.path.join(submit_dir, f"{name}_pred.npy"), pred_label)
+
+
+KITTI_TYPES = ("SemanticKITTIDataset", "SemanticKITTIColorNormalDataset")
+NUSCENES_TYPES = ("NuScenesDataset", "NuScenesColorNormalDataset")
+
+
+def write_nuscenes_meta(submit_dir: str):
+    """The lidarseg challenge's ``test/submission.json``: the inputs the
+    method used (lidar only)."""
+    import json
+
+    make_dirs(os.path.join(submit_dir, "test"))
+    meta = dict(meta=dict(use_camera=False, use_lidar=True, use_radar=False, use_map=False, use_external=False))
+    with open(os.path.join(submit_dir, "test", "submission.json"), "w") as f:
+        json.dump(meta, f, indent=4)
 
 
 def main_worker(cfg, device: Optional[str] = None):

@@ -29,7 +29,7 @@ from torch import nn
 
 from ..datasets import DataLoader, build_dataset, point_collate_fn
 from ..models import apply_amp_policy, build_model
-from ..models.utils.structure import PointBatch
+from ..models.utils.structure import PointBatch, grid_bits
 from ..utils.config import Config
 from ..utils.device import resolve_device
 from ..utils.events import EventStorage, ExceptionWriter
@@ -53,7 +53,8 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
     """Collated arrays (numpy or tensors) -> PointBatch on `device` (the GPU
     unless the caller names another; raises when no GPU is present and none
     is named), from the keys ``{prefix}coord``, ... Copies from pinned host
-    tensors do not wait for the card."""
+    tensors do not wait for the card. The grid's depth (`grid_bits`) is
+    read from the collated grid while it is still on the host."""
     device = resolve_device(device)
     return PointBatch(
         coord=_put(arrays, prefix + "coord", torch.float32, device),
@@ -63,6 +64,7 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
         segment=_put(arrays, prefix + "segment", torch.int32, device),
         origin_coord=_put(arrays, prefix + "origin_coord", torch.float32, device),
         num_scenes=num_scenes,
+        grid_depth=grid_bits(arrays.get(prefix + "grid_coord")),
     )
 
 

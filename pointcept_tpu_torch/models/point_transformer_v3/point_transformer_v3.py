@@ -81,7 +81,7 @@ from ...ops.segment_ops import segment_reduce, sorted_segment_mean
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
 from ..builder import MODELS
 from ..modules import DropPath, LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
-from ..utils.structure import PointBatch
+from ..utils.structure import PointBatch, serialization_depth
 
 
 def _round_up(x: int, m: int) -> int:
@@ -590,7 +590,7 @@ class PointTransformerV3(nn.Module):
         return t
 
     def _stage_ctx(self, pb: PointBatch, stage: int, patch_size: int, nbr5, stage0_tables, diag,
-                   shuffled: bool, ident0: bool):
+                   shuffled: bool, ident0: bool, depth: int):
         if self.conv_engine == "block" and pb.capacity >= self.block_engine_min_points:
             nbr3 = (stage0_tables if stage == 0 and stage0_tables is not None
                     else self._block_tables(pb, stage, diag, shuffled, ident0))
@@ -598,8 +598,7 @@ class PointTransformerV3(nn.Module):
             # the stage-0 k3 map is a column subset of the stem's k5 map
             nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=pb.device).long()]
         else:
-            nbr3 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
-                                           self.serialize_depth - stage, 3)
+            nbr3 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, depth - stage, 3)
         parts = {oi: pb.patch_partition(oi, patch_size)
                  for oi in self._used_orders(stage, shuffled)}
         return dict(nbr3=nbr3, parts=parts)
@@ -623,8 +622,9 @@ class PointTransformerV3(nn.Module):
         num_stages = len(self.enc_depths)
         diag = {"block_overflow": [], "pool_overflow": []}
         pb = pb.with_grid_coord(self.grid_size).replace(feat=None)
+        depth = serialization_depth(self.serialize_depth, pb)
         used0 = self._used_orders(0, False)
-        pb = pb.serialize(orders=self.order, depth=self.serialize_depth, sort_indices=used0, key_orders=used0)
+        pb = pb.serialize(orders=self.order, depth=depth, sort_indices=used0, key_orders=used0)
         perm0 = unsort = None
         if self.sorted_layout:
             perm0, inv0 = pb.serialized_order[0], pb.serialized_inverse[0]
@@ -634,7 +634,7 @@ class PointTransformerV3(nn.Module):
         if self.conv_engine == "block":
             stage0_tables = nbr5 = self._block_tables(pb, 0, diag, False, self.sorted_layout)
         else:
-            nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, self.serialize_depth, 5)
+            nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, depth, 5)
         pb0, stages, pools = pb, [], []
         cap = pb.capacity
         for s in range(num_stages):
@@ -651,7 +651,7 @@ class PointTransformerV3(nn.Module):
                     serialized_depth=g["depth"], num_scenes=pb.num_scenes,
                 )
             stages.append(self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag, False,
-                                          s > 0 or self.sorted_layout))
+                                          s > 0 or self.sorted_layout, depth))
         overflow = torch.zeros((), dtype=torch.int32, device=pb.device)
         for v in (v for vs in diag.values() for v in vs):
             overflow = overflow + v
@@ -688,12 +688,12 @@ class PointTransformerV3(nn.Module):
             sorted_ok, unsort, nbr5 = self.sorted_layout, geom["unsort"], geom["nbr5"]
         else:
             pb = pb.with_grid_coord(self.grid_size)
+            depth = serialization_depth(self.serialize_depth, pb)
             if shuffled:
-                pb = pb.serialize(orders=self.order, depth=self.serialize_depth, generator=generator)
+                pb = pb.serialize(orders=self.order, depth=depth, generator=generator)
             else:
                 used0 = self._used_orders(0, False)
-                pb = pb.serialize(orders=self.order, depth=self.serialize_depth,
-                                  sort_indices=used0, key_orders=used0)
+                pb = pb.serialize(orders=self.order, depth=depth, sort_indices=used0, key_orders=used0)
             # enc_mode keeps the caller's order: its skips are read by point
             sorted_ok = self.sorted_layout and not shuffled and not self.enc_mode
             unsort = None
@@ -716,8 +716,7 @@ class PointTransformerV3(nn.Module):
                 # the stem's and stage 0's tables (a linear stem needs none)
                 stage0_tables = nbr5 = self._block_tables(pb, 0, diag, shuffled, ident0(0))
             elif self.embed_mode == "conv":
-                nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask,
-                                               self.serialize_depth, 5)
+                nbr5 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, depth, 5)
         pb = self.embedding(pb, nbr5, patch_mask)
 
         skips = []
@@ -738,7 +737,7 @@ class PointTransformerV3(nn.Module):
                 skips.append((skip_pb, cluster, ctx))
             ctx = (geom["stages"][s] if geom is not None
                    else self._stage_ctx(pb, s, self.enc_patch_size[s], nbr5, stage0_tables, diag,
-                                        shuffled, ident0(s)))
+                                        shuffled, ident0(s), depth))
             for i in range(self.enc_depths[s]):
                 pb = getattr(stage, f"block{i}")(pb, ctx["nbr3"], ctx["parts"][i % s_orders],
                                                  generator=generator)

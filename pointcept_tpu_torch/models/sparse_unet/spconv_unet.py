@@ -37,7 +37,7 @@ from ...ops.sparse_conv import (
 )
 from ..builder import MODELS
 from ..modules import MaskedBatchNorm
-from ..utils.structure import PointBatch
+from ..utils.structure import PointBatch, serialization_depth
 
 
 def _round_up(x: int, m: int) -> int:
@@ -227,7 +227,7 @@ class SpUNetBase(nn.Module):
         convs: block tables or a gather rule map), ``strided[s]`` the maps
         from level s to s+1 (`build_strided_maps`), and the diagnostics."""
         diag = {"block_overflow": [], "pool_overflow": []}
-        depth = self.serialize_depth
+        depth = serialization_depth(self.serialize_depth, pb)
         grid = torch.clamp(pb.grid_coord, 0, (1 << depth) - 1)
         kb, mask = pb.key_batch(), pb.mask
         cap = pb.capacity

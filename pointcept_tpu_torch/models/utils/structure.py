@@ -11,9 +11,34 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ...ops import serialization as ser
+
+
+def grid_bits(grid_coord) -> int:
+    """Bits of the largest grid coordinate of a host array (numpy or a CPU
+    tensor), 0 for an empty one or one on the card (which would need a
+    host wait): the least depth at which the grid serializes unclamped."""
+    if grid_coord is None or (torch.is_tensor(grid_coord) and grid_coord.device.type != "cpu"):
+        return 0
+    a = grid_coord.numpy() if torch.is_tensor(grid_coord) else np.asarray(grid_coord)
+    return int(a.max()).bit_length() if a.size else 0
+
+
+def serialization_depth(serialize_depth: int, pb: "PointBatch") -> int:
+    """The depth a batch serializes at: the config's `serialize_depth`, or
+    more where the batch's grid reaches past ``2**serialize_depth`` cells
+    (the reference takes the depth from the data, `Point.serialization`;
+    the JAX package clamps every coordinate into its static depth instead,
+    so voxels past it collapse onto the grid's face). Equal to the config's
+    wherever the grid fits it, so in range the keys are the JAX package's."""
+    depth = max(serialize_depth, pb.grid_depth)
+    if depth > 16:
+        raise ValueError(f"serialize_depth={serialize_depth}: the batch's grid reaches {(1 << pb.grid_depth) - 1} "
+                         f"cells or more ({pb.grid_depth} bits), past the 16 bits a key holds")
+    return depth
 
 
 def order_permutation(num_orders: int, generator: torch.Generator) -> torch.Tensor:
@@ -35,6 +60,7 @@ class PointBatch:
     serialized_depth: int = 0
     num_scenes: int = 1
     origin_coord: Optional[torch.Tensor] = None  # [N, 3] float32 pre-augmentation coords (SSL)
+    grid_depth: int = 0  # bits of the largest grid coordinate (`grid_bits`), 0 = not known
 
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)

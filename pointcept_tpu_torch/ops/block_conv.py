@@ -132,7 +132,7 @@ def build_block_tables(
         bdepth,
         "z",
     )
-    jpos = lex_lookup(block_keys, q, bdepth).reshape(26, m)
+    jpos = lex_lookup(block_keys, q).reshape(26, m)
     res = torch.where(jpos >= 0, jpos, m).to(torch.int32)
     self_col = torch.where(block_valid, torch.arange(m, dtype=torch.int32, device=dev), m)[None, :]
     nbr = torch.cat([res[:CENTER27], self_col, res[CENTER27:]], dim=0).T.contiguous()  # [m, 27]

@@ -4,8 +4,9 @@ Counterpart of `pointcept_tpu/ops/serialization.py`. Public functions keep the
 JAX package's layout: codes are int32 key triples ``(batch, hi, lo)`` —
 ``hi`` holds the curve bits above bit 30, ``lo`` the low 30 bits — so that
 tests compare like with like. Sorts fold a triple into one int64
-(`fold_keys`) and run one stable `torch.sort`, which gives the lexicographic
-order of the triples.
+(`fold_keys`: the batch id above bit 48, the code below it) and run one
+stable `torch.sort`, which gives the lexicographic order of the triples for
+every code of coordinates below 2**16.
 
 Orders: ``z``, ``z-trans`` (x/y swapped), ``hilbert``, ``hilbert-trans``.
 Morton bit layout: per level the x bit is most significant,
@@ -23,6 +24,8 @@ ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 
 # Sentinel batch id for padding slots: sorts after every real scene.
 BATCH_SENTINEL = 2**22
+# code bits of a folded key: the Morton interleave of three 16-bit coordinates
+FOLD_BITS = 48
 
 
 def _part1by2_10(v: torch.Tensor) -> torch.Tensor:
@@ -100,27 +103,28 @@ def key_shift_right(keys: torch.Tensor, bits: int) -> torch.Tensor:
     return torch.stack([b, new_hi, new_lo], dim=-1)
 
 
-def fold_keys(keys: torch.Tensor, depth: int) -> torch.Tensor:
-    """Key triples -> int64 with the same order: ``batch << 3*depth | code``.
+def fold_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Key triples -> int64 with the same order: ``batch << 48 | code``.
 
-    Batch ids at or above the sentinel are remapped just below the int64
-    limit, so the fold stays order-preserving at every depth <= 16 (real
-    batch ids must stay below that limit: 2**15 - 2 at depth 16)."""
-    bits = 3 * depth
-    bmax = (1 << (63 - bits)) - 1
+    The batch id sits above every code the encoders make of coordinates
+    below 2**16 (48 bits: 18 in ``hi``, 30 in ``lo``), whatever `depth` the
+    keys were encoded at: a code beyond ``3 * depth`` bits (a coordinate
+    past ``2**depth``) must not reach the batch's bits, or one scene's keys
+    would sort among another's. Batch ids at or above the sentinel are
+    remapped just below the int64 limit (real batch ids stay below 2**15 - 2)."""
+    bmax = (1 << (63 - FOLD_BITS)) - 1
     b = keys[..., 0].to(torch.int64)
-    if bmax - 1 < BATCH_SENTINEL + 1:
-        b = torch.where(b >= BATCH_SENTINEL, b - BATCH_SENTINEL + (bmax - 1), b)
+    b = torch.where(b >= BATCH_SENTINEL, b - BATCH_SENTINEL + (bmax - 1), b)
     code = (keys[..., 1].to(torch.int64) << 30) | keys[..., 2].to(torch.int64)
-    return (b << bits) | code
+    return (b << FOLD_BITS) | code
 
 
-def argsort_keys(keys: torch.Tensor, depth: int) -> torch.Tensor:
+def argsort_keys(keys: torch.Tensor, depth: Optional[int] = None) -> torch.Tensor:
     """Lexicographic argsort of key triples [N, 3] -> order [N] int32.
 
     Stable, so ties (padding rows only: valid keys are unique) keep their
-    input order."""
-    return torch.sort(fold_keys(keys, depth), stable=True).indices.to(torch.int32)
+    input order. `depth`: the JAX package's signature; the fold needs none."""
+    return torch.sort(fold_keys(keys), stable=True).indices.to(torch.int32)
 
 
 def invert_order(order: torch.Tensor) -> torch.Tensor:

@@ -32,12 +32,12 @@ def kernel_offsets(kernel_size: int) -> np.ndarray:
     return np.array(list(itertools.product(r, r, r)), dtype=np.int32)
 
 
-def lex_lookup(table_keys: torch.Tensor, query_keys: torch.Tensor, depth: int) -> torch.Tensor:
+def lex_lookup(table_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
     """Positions of query key triples [M, 3] in lexicographically sorted table
     triples [T, 3]; -1 where absent. Keys the query side can match are unique
     in the table (only padding rows repeat, and no query carries their batch)."""
-    t = ser.fold_keys(table_keys, depth)
-    q = ser.fold_keys(query_keys, depth)
+    t = ser.fold_keys(table_keys)
+    q = ser.fold_keys(query_keys)
     pos = torch.searchsorted(t, q)
     safe = torch.clamp(pos, max=t.shape[0] - 1)
     hit = (pos < t.shape[0]) & (t[safe] == q)
@@ -57,16 +57,14 @@ def build_subm_neighbor_map(
     dev = grid_coord.device
     lim = (1 << depth) - 1
     keys = ser.encode(torch.clamp(grid_coord, 0, lim), key_batch, depth, "z")
-    table = ser.fold_keys(keys, depth)
+    table = ser.fold_keys(keys)
     table, point_idx = torch.sort(table, stable=True)
     r = torch.arange(kernel_size, dtype=torch.int32, device=dev) - (kernel_size - 1) // 2
     offs = torch.cartesian_prod(r, r, r)  # kernel_offsets, computed on the card
     qg = grid_coord[None, :, :] + offs[:, None, :]  # [k^3, N, 3]
     in_range = ((qg >= 0) & (qg <= lim)).all(dim=-1) & mask[None, :]
     qb = torch.where(in_range, key_batch[None, :].to(torch.int32), QUERY_VOID)
-    q = ser.fold_keys(
-        ser.encode(torch.clamp(qg, 0, lim).reshape(-1, 3), qb.reshape(-1), depth, "z"), depth
-    )
+    q = ser.fold_keys(ser.encode(torch.clamp(qg, 0, lim).reshape(-1, 3), qb.reshape(-1), depth, "z"))
     pos = torch.searchsorted(table, q)
     safe = torch.clamp(pos, max=n - 1)
     hit = (pos < n) & (table[safe] == q)

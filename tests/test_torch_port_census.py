@@ -10,8 +10,11 @@ departure at build time is checked apart.
 CONFIGS: the 58 configs whose types the indoor datasets, their transforms
 and PolyLR complete (ScanNet200, ScanNet++, S3DIS and Structured3D across
 PT-v3, SpUNet, MinkUNet and the Sonata, Utonia and Concerto probes, and
-Utonia's ScanNet `nocolor` / `nonormal` configs), and the 12 Concerto-large
-LoRA configs."""
+Utonia's ScanNet `nocolor` / `nonormal` configs), the 12 Concerto-large
+LoRA configs, and the 25 configs the outdoor datasets complete
+(SemanticKITTI, nuScenes and Waymo across PT-v3, SpUNet and MinkUNet, the
+18 Utonia outdoor probes and fine-tunes, Concerto-large's three outdoor
+linear probes), whose models are also built on the meta device."""
 
 from pathlib import Path
 
@@ -91,16 +94,32 @@ INDOOR = [
     "utonia/semseg-utonia-v1m1-3c-s3dis-ft.py",
 ]
 LORA = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/concerto").glob("semseg-*lora*.py"))
-CONFIGS = INDOOR + LORA
+OUTDOOR = [
+    "concerto/semseg-ptv3-large-v1m1-kitti-4a-lin.py",
+    "concerto/semseg-ptv3-large-v1m1-nuscenes-5a-lin.py",
+    "concerto/semseg-ptv3-large-v1m1-waymo-6a-lin.py",
+    "nuscenes/semseg-pt-v3m1-0-base.py",
+    "nuscenes/semseg-spunet-v1m1-0-base.py",
+    "semantic_kitti/semseg-minkunet34c-0-base.py",
+    "semantic_kitti/semseg-pt-v3m1-0-base.py",
+    "semantic_kitti/semseg-spunet-v1m1-0-base.py",
+    "waymo/semseg-pt-v3m1-0-base.py",
+    "waymo/semseg-spunet-v1m1-0-base.py",
+] + [f"utonia/semseg-utonia-v1m1-{tag}.py" for tag in (
+    "4a-nuscenes-lin", "4b-nuscenes-dec", "4c-nuscenes-ft", "4d-nuscenes-nocolor-lin", "4e-nuscenes-nocolor-dec",
+    "4f-nuscenes-nocolor-ft", "4g-nuscenes-nonormal-lin", "4h-nuscenes-nonormal-dec", "4i-nuscenes-nonormal-ft",
+    "5a-waymo-lin", "5b-waymo-dec", "5c-waymo-ft", "6a-kitti-lin", "6b-kitti-dec", "6c-kitti-ft")]
+CONFIGS = INDOOR + LORA + OUTDOOR
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
 KNOWN_EXCEPTIONS = {
     "s3dis/semseg-pt-v3m1-1-rpe.py": "enable_rpe=True: PT-v3m1's relative position encoding is not ported "
                                      "(ROADMAP queue 1 item 7); the model raises when built",
-    "utonia/": "in_channels=9 over the 6 channels the data section collects: the stem raises at the first "
-               "forward, run with model.backbone.in_channels=6 (ROADMAP queue 3 item 5, fault 5)",
-    "concerto/": "in_channels=9 over 6 data channels, as Utonia's (the same override)",
+    "utonia/": "in_channels=9 over the 6 channels the data section collects (4 outdoors: coord, strength): "
+               "the stem raises at the first forward, run with model.backbone.in_channels=6 (or 4) (ROADMAP "
+               "queue 3 item 5, fault 5)",
+    "concerto/": "in_channels=9 over 6 data channels (4 outdoors), as Utonia's (the same override)",
     "sonata/semseg-sonata-v1m1-": "backbone_out_channels=1328 where the up-cast gives 1,232: the head takes "
                                   "the up-cast's width and the difference is logged (queue 3 item 5, fault 4)",
 }
@@ -127,7 +146,7 @@ def _known(path: str, name: str) -> bool:
 
 
 def test_census_counts():
-    assert len(INDOOR) == 58 and len(LORA) == 12 and len(set(CONFIGS)) == 70
+    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(set(CONFIGS)) == 95
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -145,3 +164,14 @@ def test_rpe_config_raises_on_its_option():
     assert cfg.model.backbone.enable_rpe
     with torch.device("meta"), pytest.raises(NotImplementedError, match="enable_rpe"):
         MODELS.build(apply_amp_policy(dict(cfg.model), cfg.enable_amp))
+
+
+@pytest.mark.parametrize("path", OUTDOOR)
+def test_outdoor_model_builds(path):
+    """Each outdoor config's model builds (on the meta device), at the
+    configs' in_channels: the 9 of Utonia's and Concerto's probes over the
+    4 data channels (coord, strength) refuse only at the first forward."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.enable_amp))
+    assert sum(p.numel() for p in model.parameters()) > 1e6

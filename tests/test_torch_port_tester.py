@@ -396,9 +396,17 @@ def test_full_resolution_mapping_and_submission(tmp_path):
     assert 0.0 <= result["allAcc"] <= 1.0
     tester.write_submission(str(tmp_path), "scene", pred.argmax(-1))
     np.testing.assert_array_equal(np.load(tmp_path / "scene_pred.npy"), pred.argmax(-1))
+    # SemanticKITTI's: one uint32 .label a frame, the raw ids of learning_map_inv
+    from pointcept_tpu_torch.datasets.semantic_kitti import SemanticKITTIDataset
+
     cfg.data.test.type = "SemanticKITTIDataset"
-    with pytest.raises(NotImplementedError, match="SemanticKITTIDataset"):
-        tester.write_submission(str(tmp_path), "scene", pred.argmax(-1))
+    inv = SemanticKITTIDataset.get_learning_map_inv(-1)
+    tester.test_dataset = SemanticKITTIDataset.__new__(SemanticKITTIDataset)
+    tester.test_dataset.learning_map_inv = inv
+    labels = pred.argmax(-1) % 19
+    tester.write_submission(str(tmp_path), "08_000000", labels)
+    ids = np.fromfile(tmp_path / "sequences" / "08" / "predictions" / "000000.label", dtype=np.uint32)
+    np.testing.assert_array_equal(ids, [inv[int(v)] for v in labels])
 
 
 # ---------------------------------------------------------------- errors

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time of the port's main paths goes, on one CUDA card.
 
-    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata|probe|utonia|lora] [--fused] [--requests N]
+    python3 tools/torch_port_profile.py [--model ptv3|spunet|sonata|probe|utonia|lora|kitti|waymo] [--fused]
+                                        [--requests N]
                                         [--train]
                                         [--out DIR]
 
@@ -22,7 +23,10 @@ head dim 18, ``in_channels=6``) at phase 14's and 15's geometry (the same
 scenes through the configs' train pipeline); `--model lora`: the train step
 of Concerto-large's LoRA fine-tune
 (`semseg-ptv3-large-v1m1-0f-scannet-ft-lora.py`, rank 16, the encoder
-frozen, random weights, ``in_channels=6``) at phase 19's geometry. It prints JSON lines: the calls that make the host wait for the
+frozen, random weights, ``in_channels=6``) at phase 19's geometry; `--model kitti` and `--model waymo`: the
+train step of the SemanticKITTI and Waymo PTv3 configs at phases 20 and 22's
+geometry (two ray-cast scans a step through the config's train pipeline,
+262,144 and 524,288 rows; KITTI at phase 20's pooling factors). It prints JSON lines: the calls that make the host wait for the
 card in one request or step, the device's busy time per request or step and
 its idle share of the same work run without the profiler, the device time
 by category (the port's kernels, convs, matmuls, sorts, gathers and
@@ -71,7 +75,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--requests", type=int, default=4, help="requests or train steps profiled")
     ap.add_argument("--train", action="store_true", help="profile the train step")
-    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata", "probe", "utonia", "lora"), default="ptv3")
+    ap.add_argument("--model", choices=("ptv3", "spunet", "sonata", "probe", "utonia", "lora", "kitti", "waymo"),
+                    default="ptv3")
     ap.add_argument("--fused", action="store_true", help="PTv3 with block_conv_fused=True")
     ap.add_argument("--out", default=os.path.join(ROOT, "build", "profile"))
     args = ap.parse_args()
@@ -198,7 +203,29 @@ CONFIG_STEPS = {
     "probe": lambda cs: (cs.DOWNSTREAM_CONFIGS[0][1], {}, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
     "utonia": lambda cs: (cs.UTONIA_CONFIGS[1][1], cs.UTONIA_OPTIONS, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
     "lora": lambda cs: (cs.LORA_CONFIG, cs.LORA_OPTIONS, cs.DOWNSTREAM_OPTIONS["point_capacity"]),
+    "kitti": lambda cs: (cs.KITTI_CONFIG, {"model.backbone.pool_capacity_factors": cs.OUTDOOR_POOL["kitti"]},
+                         cs.OUTDOOR_CAPACITY["kitti"]),
+    "waymo": lambda cs: (cs.WAYMO_CONFIG, {}, cs.OUTDOOR_CAPACITY["waymo"]),
 }
+# the outdoor steps' scans: the street seeds of their train splits
+OUTDOOR_SEEDS = {"kitti": lambda cs: cs.KITTI_FRAMES["00"] + cs.KITTI_FRAMES["01"],
+                 "waymo": lambda cs: cs.WAYMO_SPLITS["train"]}
+
+
+def outdoor_sample(cs, sensor: str, seed: int) -> dict:
+    """A ray-cast scan (`chip_smoke.lidar_scan`) as its dataset's `get_data`
+    gives it: KITTI's labels through the learning map, Waymo's strength
+    through tanh and its labels shifted to 0-21."""
+    import numpy as np
+
+    from pointcept_tpu_torch.datasets.semantic_kitti import SemanticKITTIDataset, map_labels
+
+    sc = cs.lidar_scan(sensor, seed)
+    if sensor == "kitti":
+        return dict(coord=sc["coord"], strength=sc["strength"][:, None],
+                    segment=map_labels(sc["raw"], SemanticKITTIDataset.get_learning_map(-1)))
+    return dict(coord=sc["coord"], strength=np.tanh(sc["strength"][:, None]),
+                segment=sc["raw"].astype(np.int32) - 1)
 
 
 def config_step(cs, device, model_name: str, batches: int):
@@ -229,20 +256,24 @@ def _config(cs, model_name: str):
 
 def config_batches(cs, model_name: str, batches: int) -> list:
     """`batches` batches of the config's train pipeline, two synthetic
-    scenes each (phase 10's), collated into its capacity; raises where the
-    collate would subsample."""
+    scenes each (phase 10's, or the outdoor steps' scans), collated into
+    its capacity; raises where the collate would subsample."""
     import numpy as np
 
     from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
 
     cfg, capacity = _config(cs, model_name)
     pipeline = Compose(list(cfg.data.train.transform))
-    seeds = cs.SCANNET_SEEDS["train"]
+    outdoor = model_name in OUTDOOR_SEEDS
+    seeds = OUTDOOR_SEEDS[model_name](cs) if outdoor else cs.SCANNET_SEEDS["train"]
     data = []
     for b in range(batches):
         np.random.seed(b)
         samples = []
         for s in (seeds[(2 * b) % len(seeds)], seeds[(2 * b + 1) % len(seeds)]):
+            if outdoor:
+                samples.append(pipeline(outdoor_sample(cs, model_name, s)))
+                continue
             sc = synthesize_scene(s, num_points=cs.RAW_POINTS, num_classes=cs.NUM_CLASSES, extent=6.0)
             samples.append(pipeline(dict(coord=sc["coord"], color=sc["color"].astype(np.float32),
                                          normal=sc["normal"], segment=sc["segment"].astype(np.int32))))
