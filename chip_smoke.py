@@ -158,10 +158,27 @@ each printing JSON lines:
    SemanticKITTI linear probe (frozen encoder, bit for bit after the steps)
    at serialize_depth 11, from random encoders saved under
    `student.backbone.` and `in_channels=4`, on phases 20-21's scans;
-24. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+24. Point Prompt Training: PTv3's PPT-extreme config
+   (`configs/scannet/semseg-pt-v3m1-1-ppt-extreme.py`: PPT-v1m1 over PT-v3m1
+   at 48-512 with decoupled PDNorm on every norm, the block engine) through
+   `main_worker` and `MultiDatasetTrainer` on synthetic Structured3D rooms
+   (the config's loop 2) and phase 10's ScanNet scenes at phase 14's cuts:
+   6 steps in the pattern Structured3D, Structured3D, ScanNet, the loader's
+   length its steps, 30 attention forwards and backwards a step, nothing
+   dropped at any pooling; bare steps of each condition, after which only
+   that condition's norms moved and only its row of the context table has a
+   gradient; the test section on a 102,400-point ScanNet val scene (the
+   grouped path, every forward at ScanNet); then one small-depth step on
+   the card against the CPU (f32);
+25. the SpUNet PPT config (`configs/scannet/semseg-ppt-v1m1-0-sc-st-spunet.py`:
+   SpUNet-v1m3, adaptive PDNorm, SGD) on the same data: 4 steps, one
+   evaluation, the same per-condition checks and the modulation's
+   gradient;
+26. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two, phases
-   20-23's added to the attention rows; the D = 18 rows: phase 15's
-   fine-tune and phase 23's Utonia fine-tune).
+   20-24's added to the attention rows and phase 24's to the fill and the
+   take-back; the D = 18 rows: phase 15's fine-tune and phase 23's Utonia
+   fine-tune).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -433,6 +450,35 @@ OUTDOOR_PROBE_OPTIONS = {"model.backbone.in_channels": 4}
 # stage 4 (C 512, H 32), launches a step, forward and backward
 OUTDOOR_ATTENTION = (("waymo", 0, 32, 2, 2), ("waymo", 0, 64, 4, 2), ("nuscenes", 4, 512, 32, 2))
 OUTDOOR_ATTENTION_POOL = {"waymo": (0.45,) * 4, "nuscenes": OUTDOOR_POOL["nuscenes"]}
+# phases 24-25: Point Prompt Training, Structured3D (the config's loop 2)
+# with ScanNet: PTv3's PPT-extreme config (PT-v3m1 48-512, depths 3/3/3/6/3
+# and 3/3/3/3, decoupled PDNorm on every norm, the block engine) and the
+# SpUNet PPT config (SpUNet-v1m3, adaptive PDNorm, the gather engine), both
+# under PPT-v1m1, at phase 14's cuts: batch 2, 262,144 rows, epoch 2 over
+# eval_epoch 1 (the concat's loop 2: the Structured3D loader's batches
+# decide the epoch), one evaluation on one ScanNet val scene. Phase 24's
+# four Structured3D rooms give 4 // 2 * 3 = 6 steps (S3D, S3D, ScanNet
+# twice), phase 25's three 3 // 2 * 3 + 1 = 4
+PPT_CONFIG = "configs/scannet/semseg-pt-v3m1-1-ppt-extreme.py"
+PPT_SPUNET_CONFIG = "configs/scannet/semseg-ppt-v1m1-0-sc-st-spunet.py"
+PPT_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_val=262144, epoch=2, eval_epoch=1,
+                   num_worker=4, seed=0)
+PPT_S3D_SEEDS = (20, 21, 22, 23)
+PPT_STEPS = {PPT_CONFIG: 6, PPT_SPUNET_CONFIG: 4}
+# the first pooling's capacity raised from the configs' 0.4 (PT-v3) and 0.5
+# (SpUNet's one factor) to 0.65: two rooms cropped at SphereCrop's 0.8 and
+# subsampled into 262,144 rows keep 0.41-0.56 of their rows at stride 2
+# (phase 24's `geometry`), where the configs' capacities are per chip for
+# one room; the later levels keep 0.2-0.28 and fit the configs' 0.4
+PPT_POOL_OPTIONS = {PPT_CONFIG: {"model.backbone.pool_capacity_factors": (0.65, 0.4, 0.4, 0.4)},
+                    PPT_SPUNET_CONFIG: {"model.backbone.pool_capacity_factor": 0.65}}
+PPT_PATTERN = ("Structured3D", "Structured3D", "ScanNet")
+S3D_CLASSES = 25
+# PPT-extreme's attention at its new widths: stage 0 (C 48, H 3) and stage 4
+# (C 512, H 32) of a step's two scenes of 262,144 rows at its pooling 0.4,
+# (stage, C, H, launches a step, forward and backward)
+PPT_ATTENTION = ((0, 48, 3, 3), (4, 512, 32, 3))
+PPT_POOL = (0.4, 0.4, 0.4, 0.4)
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -740,12 +786,15 @@ def attention_cases(device, gen, exp_rate):
     cases += [("lora", 2, stage, c, h, n) for stage, c, h, n in LORA_ATTENTION]
     # the outdoor configs (two scans a step), forward and backward
     cases += [(path, 2, stage, c, h, n) for path, stage, c, h, n in OUTDOOR_ATTENTION]
+    # PPT-extreme (two scenes a step), forward and backward
+    cases += [("ppt", 2, stage, c, h, n) for stage, c, h, n in PPT_ATTENTION]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
                else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LORA_POOL) if path == "lora"
+               else _patches(PPT_OPTIONS["point_capacity"], stage, scenes, PPT_POOL) if path == "ppt"
                else _patches(OUTDOOR_CAPACITY[path], stage, scenes, OUTDOOR_ATTENTION_POOL[path])
                if path in OUTDOOR_ATTENTION_POOL
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
@@ -1243,7 +1292,8 @@ def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
     return worst, worst_name, low_cos
 
 
-def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4):
+def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
+                      condition=None):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1258,13 +1308,13 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
     the slice test's bounds, or within twice the floor where the floor of
     this model and scene is above them. `init(model)` changes the weights
     after the build, the same on both devices. `capacity`, `extent`: the
-    scene's points and size."""
+    scene's points and size; `condition`: the batch's (PPT)."""
     import numpy as np
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
 
-    arrays = scene(100, capacity=capacity, extent=extent, labelled=True)
+    arrays = dict(scene(100, capacity=capacity, extent=extent, labelled=True), condition=condition)
     nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
         *arrays["feat"].shape).astype(np.float32)))
     vanishing = set()
@@ -1841,8 +1891,10 @@ def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
                                               drop_path=0.0, pool_capacity_factors=(0.75,) * 4))
     pipeline = Compose([t for t in cfg.data.train.transform])
     np.random.seed(0)
-    # the point density of phase 10's scenes (409,600 points in a 6 m room)
-    sample = synthesize_scene(100, num_points=20000, num_classes=NUM_CLASSES, extent=1.4)
+    # the point density of phase 10's scenes (409,600 points in a 6 m room),
+    # at half the scene this phase first had (20,000 points, 1.4 m: its CPU
+    # steps took 95-108 s of the time limit)
+    sample = synthesize_scene(100, num_points=10000, num_classes=NUM_CLASSES, extent=1.0)
     sample = pipeline(dict(coord=sample["coord"], color=sample["color"].astype(np.float32),
                            normal=sample["normal"]))
     need = max(int(sample["global_offset"][-1]), int(sample["local_offset"][-1]))
@@ -2679,8 +2731,9 @@ def _pool_chain(capacity: int, factors) -> list:
 
 
 def outdoor_geometry(device, backbone, cfg, capacity: int, own_factors) -> dict:
-    """The PT-v3 `backbone`'s geometry on two scans of the config's train
-    pipeline (its first two samples, numpy and python seeded 0), as the
+    """The PT-v3 `backbone`'s geometry on two scans (or rooms) of the
+    config's train pipeline (its first two samples, numpy and python seeded
+    0), as the
     train forward builds it with every order encoded: the depth the batch
     serializes at, the grid's bits, each pooled level's clusters against its
     capacity at the run's factors and at the config's own (`own_factors`),
@@ -2966,6 +3019,194 @@ def outdoor_probe_path(device, card, work: str) -> dict:
     return result
 
 
+def write_structured3d_rooms(root: str, seeds, points: int = RAW_POINTS) -> list:
+    """Synthetic rooms in Structured3D's preprocessed layout, one directory
+    of .npy files a room under ``root/train/scene_<seed>_room_0`` (`coord`,
+    `color` as uint8, `normal`, `segment` of its 25 classes, `instance`);
+    returns their points."""
+    from pointcept_tpu_torch.datasets import synthesize_scene
+
+    import numpy as np
+
+    sizes = []
+    for seed in seeds:
+        d = os.path.join(root, "train", f"scene_{seed:05d}_room_0")
+        os.makedirs(d)
+        sc = synthesize_scene(seed, num_points=points, num_classes=S3D_CLASSES, extent=6.0)
+        np.save(os.path.join(d, "coord.npy"), sc["coord"])
+        np.save(os.path.join(d, "color.npy"), sc["color"].astype(np.uint8))
+        np.save(os.path.join(d, "normal.npy"), sc["normal"])
+        np.save(os.path.join(d, "segment.npy"), sc["segment"].astype(np.int16))
+        np.save(os.path.join(d, "instance.npy"), sc["instance"].astype(np.int16))
+        sizes.append(len(sc["coord"]))
+    return sizes
+
+
+def _pd_norms(model):
+    """Every PDNorm of `model` with batch norms: (name, module)."""
+    from pointcept_tpu_torch.models.modules import PDNorm
+
+    return [(n, m) for n, m in model.named_modules() if isinstance(m, PDNorm) and m.norm_type == "bn" and m.decouple]
+
+
+def ppt_step_checks(trainer, device, batches) -> list:
+    """Bare train steps of the trainer's model and optimizer on `batches`
+    (one a condition): the running statistics of the batch's condition's
+    norms move and every other condition's stay bit for bit; the context
+    table's gradient is the batch's condition's row alone (none where no
+    norm is adaptive: the context is then read by nothing); an adaptive
+    PDNorm's modulation has a gradient. Rows: one a step. (The weights of
+    the other conditions' rows still move by SGD's momentum and weight
+    decay, which reach every row of a table: the check reads gradients.)"""
+    import torch
+
+    from pointcept_tpu_torch.engines import build_train_step, make_point_batch
+
+    model = trainer.model
+    step = build_train_step(model, trainer.optimizer, trainer.build_scheduler(), trainer.cfg.get("clip_grad"))
+    generator = torch.Generator(device=device)
+    norms = _pd_norms(model)
+    rows = []
+    for i, batch in enumerate(batches):
+        cond = batch["condition"]
+        before = {n: [(bn.running_mean.clone(), bn.running_var.clone()) for bn in getattr(m, m.decoupled_name)]
+                  for n, m in norms}
+        generator.manual_seed(i)
+        res = step(make_point_batch(batch, batch["num_scenes"], device=device), generator)
+        moved, kept, touched_other = 0, 0, []
+        for n, m in norms:
+            for j, (bn, (mean, var)) in enumerate(zip(getattr(m, m.decoupled_name), before[n])):
+                same = torch.equal(bn.running_mean, mean) and torch.equal(bn.running_var, var)
+                if j == m.conditions.index(cond):
+                    moved += int(not same)
+                else:
+                    kept += int(same)
+                    if not same:
+                        touched_other.append(f"{n}[{m.conditions[j]}]")
+        table = model.embedding_table.weight.grad
+        row = model.conditions.index(cond)
+        # (a model without adaptive norms reads no context: its table has no gradient)
+        nonzero_rows = [] if table is None else [i for i in range(table.shape[0]) if bool(table[i].abs().sum() > 0)]
+        modulation = [p.grad for n, p in model.named_parameters() if ".modulation." in n]
+        rows.append(dict(condition=cond, loss=float(res["loss"]), norms=len(norms), own_norms_moved=moved,
+                         other_norms_kept=kept, other_norms_touched=touched_other[:3], context_grad_rows=nonzero_rows,
+                         context_row=row, modulation_tensors=len(modulation),
+                         modulation_with_grad=sum(int(g is not None and bool(g.abs().sum() > 0)) for g in modulation)))
+    return rows
+
+
+def ppt_path(device, card, work: str, config: str, tag: str, s3d_rooms: int, test: bool) -> dict:
+    """Phases 24-25: a PPT config through the training CLI's `main_worker`
+    and `MultiDatasetTrainer` on synthetic Structured3D rooms (the first
+    `s3d_rooms` of PPT_S3D_SEEDS) and phase 10's ScanNet train scenes, one
+    evaluation on ScanNet val scene 5; then its loader's batches read again
+    for the ratio pattern and the length, and bare steps of one Structured3D
+    and one ScanNet batch (`ppt_step_checks`); with `test`, the config's
+    test section on a 102,400-point ScanNet val scene (the grouped path)
+    with the condition of every forward recorded. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.models.point_prompt_training import PointPromptTraining
+
+    scannet = os.path.join(work, "scannet")
+    s3d = os.path.join(work, "structured3d")
+    if not os.path.isdir(s3d):
+        write_structured3d_rooms(s3d, PPT_S3D_SEEDS)
+    s3d_root = os.path.join(work, f"structured3d_{s3d_rooms}")
+    os.makedirs(os.path.join(s3d_root, "train"))
+    for name in sorted(os.listdir(os.path.join(s3d, "train")))[:s3d_rooms]:
+        os.symlink(os.path.join(s3d, "train", name), os.path.join(s3d_root, "train", name))
+    val_root = os.path.join(work, "scannet_val1")
+    if not os.path.isdir(val_root):
+        os.makedirs(os.path.join(val_root, "val"))
+        os.symlink(os.path.join(scannet, "val", "scene0005_00"), os.path.join(val_root, "val", "scene0005_00"))
+    options = dict(PPT_OPTIONS, **PPT_POOL_OPTIONS[config],
+                   **{"data.train.datasets.0.data_root": s3d_root, "data.train.datasets.1.data_root": scannet,
+                      "data.val.data_root": val_root})
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, config, options, tag)
+    bb = trainer.cfg.model.backbone
+    geometry = None
+    if bb.type.startswith("PT-v3"):
+        # two Structured3D rooms of the train pipeline: each level's clusters at
+        # the run's capacities and the config's own
+        geometry = outdoor_geometry(device, trainer.model.backbone, trainer.cfg, trainer.cfg.point_capacity,
+                                    PPT_POOL)
+    loader = trainer.train_loader
+    loader.set_epoch(0)
+    conditions, firsts = [], {}
+    for batch in loader:
+        conditions.append(batch["condition"])
+        firsts.setdefault(batch["condition"], batch)
+    pattern = [PPT_PATTERN[i % len(PPT_PATTERN)] for i in range(len(conditions))]
+    checks = ppt_step_checks(trainer, device, [firsts["Structured3D"], firsts["ScanNet"]])
+    row = dict(config=config, options=options, card=card, seconds=seconds,
+               parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+               loader_len=len(loader), conditions=conditions, losses=[st["loss"] for st in steps],
+               **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
+               eval_ms_per_scene=evals["batch_ms"], launches=launches, step_checks=checks, geometry=geometry)
+    if bb.type.startswith("PT-v3"):
+        blocks = sum(bb.enc_depths) + sum(bb.dec_depths)
+        row["attention_fwd_per_step"], row["attention_bwd_per_step"] = _attention_per_step(
+            launches, len(steps), evals, blocks)
+    emit(tag, **row)
+    if len(steps) != PPT_STEPS[config] or len(loader) != len(steps) or conditions != pattern:
+        raise AssertionError(f"{tag}: {len(steps)} steps, loader length {len(loader)}, conditions {conditions}")
+    for ck in checks:
+        rows = [ck["context_row"]] if ck["modulation_tensors"] else []
+        if (ck["other_norms_touched"] or ck["own_norms_moved"] == 0 or ck["context_grad_rows"] != rows
+                or ck["modulation_with_grad"] != ck["modulation_tensors"]):
+            raise AssertionError(f"{tag}: the step of condition {ck['condition']} reached beyond it: {ck}")
+    if bb.type.startswith("PT-v3"):
+        if row["attention_fwd_per_step"] != blocks or row["attention_bwd_per_step"] != blocks:
+            raise AssertionError(f"{tag}: {row['attention_fwd_per_step']} attention forwards and "
+                                 f"{row['attention_bwd_per_step']} backwards a step, {blocks} blocks")
+        for name in TRAIN_KERNELS:
+            if launches[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched by {tag}")
+    weight = os.path.join(work, tag, "model", "model_last.pth")
+    del trainer, loader, firsts
+    torch.cuda.empty_cache()
+    if test:
+        test_root = os.path.join(work, "ppt_test")
+        raw = write_scannet_scene(test_root, "val", int(TESTER_SCENE[5:9]), TESTER_POINTS)
+        seen = []
+        forward = PointPromptTraining.forward
+
+        def recording(self, pb, *args, **kwargs):
+            seen.append(pb.condition)
+            return forward(self, pb, *args, **kwargs)
+
+        PointPromptTraining.forward = recording
+        try:
+            st = test_scene(device, card, work, f"{tag}_test", config, TESTER_SCENE, raw,
+                            dict(TESTER_OPTIONS, weight=weight, num_worker=0,
+                                 **{"data.test.data_root": test_root}))
+        finally:
+            PointPromptTraining.forward = forward
+        emit(f"{tag}_test_conditions", forwards=len(seen), conditions=sorted(set(seen)))
+        if st["groups"] is None or not seen or set(seen) != {"ScanNet"}:
+            raise AssertionError(f"{tag} tester: groups {st['groups']}, forwards' conditions {sorted(set(seen))}")
+    return launches
+
+
+def ppt_card_vs_cpu(device):
+    """Phase 24's card against the CPU: one train step of PPT-extreme at one
+    block a stage (PPT-v1m1, decoupled PDNorm on every norm), f32, at the
+    ScanNet condition, within phase 8's bounds, on a scene of 8,192 points
+    (1.7 m, phase 8's density; at phase 8's 16,384 its three steps took 54 s
+    of the time limit)."""
+    from pointcept_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, PPT_CONFIG))
+    backbone = dict(cfg.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, drop_path=0.0, amp=False,
+                    block_engine_min_points=4096, block_capacity_factor=(1 / 8,) * 5, pool_capacity_factors=(0.5,) * 4)
+    model = dict(cfg.model, backbone=backbone)
+    recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=list(cfg.param_dicts), scheduler=dict(cfg.scheduler))
+    card_vs_cpu_train(device, [(False, model, recipe)], phase="ppt_card_vs_cpu_train", capacity=8192, extent=1.7,
+                      condition="ScanNet")
+
+
 def main() -> int:
     import torch
 
@@ -3021,6 +3262,9 @@ def main() -> int:
         lora_path(device, card, work)
         outdoor = [kitti_path(device, card, work), nuscenes_path(device, card, work), waymo_path(device, card, work)]
         probes = outdoor_probe_path(device, card, work)
+        ppt = ppt_path(device, card, work, PPT_CONFIG, "ppt_extreme", s3d_rooms=4, test=True)
+        ppt_card_vs_cpu(device)
+        ppt_path(device, card, work, PPT_SPUNET_CONFIG, "ppt_spunet", s3d_rooms=3, test=False)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3048,8 +3292,12 @@ def main() -> int:
     for name in ("patch_attention", "patch_attention_bwd"):
         sources[f"{name}[D=18]"], replaces[f"{name}[D=18]"] = sources[name], replaces[name]
         launches[f"{name}[D=18]"] = utonia[name] + probes["utonia_4c"][name]
-        # phases 20-23 at D = 16: the outdoor PTv3 configs' train runs and Concerto's probe
-        launches[name] += sum(run["trainer"][name] for run in outdoor) + probes["concerto_4a"][name]
+        # phases 20-23 at D = 16: the outdoor PTv3 configs' train runs and Concerto's probe;
+        # phase 24's PPT-extreme run
+        launches[name] += (sum(run["trainer"][name] for run in outdoor) + probes["concerto_4a"][name]
+                           + ppt[name])
+    for name in ("block_fill", "take_back"):
+        launches[name] += ppt[name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -109,6 +109,22 @@ class Copy:
         return data_dict
 
 
+@TRANSFORMS.register_module("Add")
+@TRANSFORMS.register_module()
+class Update:
+    """Set keys to values (one class under both names, as the JAX
+    package's): the PPT configs' ``Add(keys_dict={"condition": ...})``
+    tags each sample with its dataset."""
+
+    def __init__(self, keys_dict=None):
+        self.keys_dict = keys_dict if keys_dict is not None else dict()
+
+    def __call__(self, data_dict):
+        for key, value in self.keys_dict.items():
+            data_dict[key] = value
+        return data_dict
+
+
 @TRANSFORMS.register_module()
 class ToTensor:
     """A no-op, as in the JAX package: arrays stay numpy until the collate,

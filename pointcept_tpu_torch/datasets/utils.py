@@ -19,7 +19,8 @@ def offset2batch_np(offset: np.ndarray) -> np.ndarray:
 
 def collate_fn(batch: List[dict]) -> dict:
     """Ragged concat along the point dim; the per-sample `offset` becomes
-    cumulative."""
+    cumulative. A string value is the first sample's; the samples'
+    ``condition`` (PPT: one dataset a batch) must agree, or it raises."""
     assert isinstance(batch[0], Mapping)
     out = {}
     for key in batch[0].keys():
@@ -35,6 +36,8 @@ def collate_fn(batch: List[dict]) -> dict:
         elif isinstance(vals[0], (int, float, np.integer, np.floating)):
             out[key] = np.asarray(vals)
         elif isinstance(vals[0], str):
+            if key == "condition" and len(set(vals)) > 1:
+                raise ValueError(f"collate: one batch mixes the conditions {sorted(set(vals))}")
             out[key] = vals[0]
         else:
             out[key] = vals
@@ -73,10 +76,11 @@ def mix3d(batch: dict) -> dict:
 def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = None,
                        drop_overflow: bool = True) -> Dict[str, np.ndarray]:
     """Pad a collated ragged batch into fixed-capacity PointBatch arrays
-    (coord/feat/grid_coord/batch/segment, and instance where present;
-    padding has batch -1, label -1). A batch of more points than `capacity`
-    is subsampled uniformly at random (`np.random.choice`, as the JAX
-    package's training collate), or raises without `drop_overflow`."""
+    (coord/feat/grid_coord/batch/segment, and instance and the batch's
+    ``condition`` where present; padding has batch -1, label -1). A batch
+    of more points than `capacity` is subsampled uniformly at random
+    (`np.random.choice`, as the JAX package's training collate), or raises
+    without `drop_overflow`."""
     offset = np.asarray(batch["offset"])
     n_total = int(offset[-1])
     b_ids = offset2batch_np(offset).astype(np.int32)
@@ -109,6 +113,8 @@ def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = N
         if key in batch:
             out[key] = np.full((n,), -1, np.int32)
             out[key][:eff] = _sel(np.asarray(batch[key]).reshape(-1).astype(np.int32))
+    if "condition" in batch:
+        out["condition"] = batch["condition"]
     out["num_scenes"] = num_scenes
     return out
 

@@ -22,7 +22,11 @@ row and the sums are the same bits run to run. The prediction comes to the
 host once a scene. Other backbones (an ``enc_mode`` PT-v3 among them: its
 skip chain has no shared geometry), or ``fragment_geometry_reuse=False``,
 run one forward a fragment. A backbone with RoPE reads each fragment's own
-coordinates, so its groups bring them beside the features.
+coordinates, so its groups bring them beside the features. Every forward
+carries the fragments' ``condition`` (the PPT configs' ``Add`` in
+`post_transform`), grouped or not: a Point Prompt Training wrapper over a
+PT-v3 decoder takes the grouped path too. (The JAX tester's forwards carry
+none, so a PPT model fails there on the first fragment.)
 
 Not ported: the JAX tester's wire, host geometry and dispatch/collect split
 (TPU workarounds), the host accumulation loop (``device_accumulate=False``
@@ -49,7 +53,7 @@ from ..utils.logger import get_root_logger
 from ..utils.misc import AverageMeter, intersection_and_union, make_dirs
 from ..utils.registry import Registry
 from .hooks.misc import remap_state_dict
-from .train import make_point_batch
+from .train import check_conditions, make_point_batch
 
 TESTERS = Registry("testers")
 
@@ -83,10 +87,10 @@ class SceneLoader:
     one index, then its fragments packed for the card (in the loader's
     workers; it holds no model, so it pickles small). With `grouped`, the
     fragments are keyed by their voxel grid (its bytes and length); each
-    group brings its grid once, its fragments' features ``[k, n, F]`` and
-    source indices ``[k, n]``, and with `with_coord` its fragments' coords
-    ``[k, n, 3]`` (PT-v3's logits read the grid, and coords only through
-    RoPE). Otherwise each fragment comes padded to `capacity`. A scene whose
+    group brings its grid once, its fragments' features ``[k, n, F]``,
+    source indices ``[k, n]`` and condition, and with `with_coord` its
+    fragments' coords ``[k, n, 3]`` (PT-v3's logits read the grid, and
+    coords only through RoPE). Otherwise each fragment comes padded to `capacity`. A scene whose
     pred is cached in `result_dir` is not packed."""
 
     def __init__(self, dataset, capacity: int, grouped: bool, result_dir: str, with_coord: bool = False):
@@ -123,15 +127,16 @@ class SceneLoader:
             n = f["coord"].shape[0]
             self._check_size(n)
             grid = np.ascontiguousarray(f["grid_coord"], np.int32)
-            key = (hashlib.blake2b(grid.tobytes(), digest_size=16).hexdigest(), n)
-            g = groups.setdefault(key, dict(grid=grid, feat=[], index=[], coord=[]))
+            key = (hashlib.blake2b(grid.tobytes(), digest_size=16).hexdigest(), n, f.get("condition"))
+            g = groups.setdefault(key, dict(grid=grid, feat=[], index=[], coord=[], condition=f.get("condition")))
             g["feat"].append(np.asarray(f["feat"], np.float32))
             g["index"].append(np.asarray(f["index"]).astype(np.int32))
             if self.with_coord:
                 g["coord"].append(np.asarray(f["coord"], np.float32))
         return [dict(grid=torch.from_numpy(g["grid"]), feat=torch.from_numpy(np.stack(g["feat"])),
                      index=torch.from_numpy(np.stack(g["index"])),
-                     coord=torch.from_numpy(np.stack(g["coord"])) if self.with_coord else None)
+                     coord=torch.from_numpy(np.stack(g["coord"])) if self.with_coord else None,
+                     condition=g["condition"])
                 for g in groups.values()]
 
     def _pad(self, fragment) -> dict:
@@ -139,7 +144,7 @@ class SceneLoader:
         self._check_size(fragment["coord"].shape[0])
         arrays = pad_to_point_batch(collate_fn([fragment]), self.capacity, num_scenes=1)
         arrays.pop("num_scenes")
-        arrays = {k: torch.from_numpy(v) for k, v in arrays.items()}
+        arrays = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v for k, v in arrays.items()}
         arrays["index"] = torch.from_numpy(index)
         return arrays
 
@@ -154,6 +159,7 @@ class TesterBase:
         self.device = resolve_device(device)
         self.cfg = cfg
         self.verbose = verbose
+        check_conditions(cfg)
         make_dirs(cfg.save_path)
         self.logger = get_root_logger(log_file=os.path.join(cfg.save_path, "test.log"), file_mode="a")
         self.logger.info("=> Building model ...")
@@ -199,14 +205,14 @@ class TesterBase:
 
     def _fragment_geometry_ok(self) -> bool:
         """The grouped path: a PT-v3 backbone with its decoder under
-        `DefaultSegmentorV2`, unless ``fragment_geometry_reuse`` is off. An
-        ``enc_mode`` backbone (the linear probes and fine-tunes) takes the
-        per-fragment path: `build_geometry` serves the decoder path only (the
+        `DefaultSegmentorV2` or a Point Prompt Training wrapper, unless
+        ``fragment_geometry_reuse`` is off. An ``enc_mode`` backbone (the
+        linear probes and fine-tunes) takes the per-fragment path: `build_geometry` serves the decoder path only (the
         JAX tester sends it to the grouped path, where it fails)."""
         if not self.cfg.get("fragment_geometry_reuse", True):
             return False
         model_cfg = dict(self.cfg.model)
-        if model_cfg.get("type") != "DefaultSegmentorV2":
+        if model_cfg.get("type") not in ("DefaultSegmentorV2", "PPT-v1m1", "PPT-v1m2", "PPT-v1m3"):
             return False
         bb = dict(model_cfg.get("backbone") or {})
         return str(bb.get("type", "")).startswith("PT-v3") and not bb.get("enc_mode", False)
@@ -289,7 +295,8 @@ class SemSegTester(TesterBase):
                 grid_b[s * cap : s * cap + n] = grid
                 batch_b[s * cap : s * cap + n] = s
             template = PointBatch(coord=grid_b.float() * grid_size, feat=None, grid_coord=grid_b,
-                                  batch=batch_b, num_scenes=b, grid_depth=grid_bits(g["grid"]))
+                                  batch=batch_b, num_scenes=b, grid_depth=grid_bits(g["grid"]),
+                                  condition=g.get("condition"))
             t0 = timer.mark()
             with torch.no_grad():
                 geom = model.backbone.build_geometry(template)

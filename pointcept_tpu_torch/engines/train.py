@@ -9,6 +9,12 @@ epoch loop compressed by `eval_epoch`), so the hooks port one to one. The
 JAX trainer's host geometry (`host_geometry`, `geometry_plan`) is not
 ported: the port builds the geometry on the device and ignores the key.
 
+Point Prompt Training's `MultiDatasetTrainer` takes its train batches from
+`MultiDatasetDataloader` (the sub-datasets interleaved by ratio, one
+dataset a batch); each batch's ``condition`` goes into its PointBatch, and
+a config whose pipelines add a condition the model does not know is refused
+before anything is built.
+
 Self-distillation models (Sonata) train through the same step: their
 multi-view batches go in as `make_view_inputs`, the hyperparameters a hook
 schedules (``comm_info["model_hyper"]``) go to the forward, and after the
@@ -28,6 +34,7 @@ import torch
 from torch import nn
 
 from ..datasets import DataLoader, build_dataset, point_collate_fn
+from ..datasets.dataloader import MultiDatasetDataloader
 from ..models import apply_amp_policy, build_model
 from ..models.utils.structure import PointBatch, grid_bits
 from ..utils.config import Config
@@ -49,12 +56,14 @@ def _put(arrays, key: str, dtype, device):
     return torch.as_tensor(np.asarray(a) if not torch.is_tensor(a) else a).to(device, dtype, non_blocking=True)
 
 
-def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None, prefix: str = "") -> PointBatch:
+def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None, prefix: str = "",
+                     condition: Optional[str] = None) -> PointBatch:
     """Collated arrays (numpy or tensors) -> PointBatch on `device` (the GPU
     unless the caller names another; raises when no GPU is present and none
     is named), from the keys ``{prefix}coord``, ... Copies from pinned host
     tensors do not wait for the card. The grid's depth (`grid_bits`) is
-    read from the collated grid while it is still on the host."""
+    read from the collated grid while it is still on the host. The batch's
+    `condition` (PPT) is the argument's, else the arrays' ``condition``."""
     device = resolve_device(device)
     return PointBatch(
         coord=_put(arrays, prefix + "coord", torch.float32, device),
@@ -65,6 +74,7 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
         origin_coord=_put(arrays, prefix + "origin_coord", torch.float32, device),
         num_scenes=num_scenes,
         grid_depth=grid_bits(arrays.get(prefix + "grid_coord")),
+        condition=condition if condition is not None else arrays.get("condition"),
     )
 
 
@@ -210,12 +220,15 @@ class TrainerBase:
 @TRAINERS.register_module("DefaultTrainer")
 class Trainer(TrainerBase):
     """The config-driven trainer on one device (the GPU unless `device`
-    names another; raises when no GPU is present and none is named)."""
+    names another; raises when no GPU is present and none is named). A
+    config whose pipelines add a condition its model does not know
+    (`check_conditions`) is refused before anything is built."""
 
     def __init__(self, cfg: Config, device=None):
         super().__init__()
         self.device = resolve_device(device)
         self.cfg = cfg
+        check_conditions(cfg)
         for key, off in (("enable_wandb", False), ("grad_accum_steps", 1)):
             if cfg.get(key, off) not in (off, None):
                 raise NotImplementedError(f"Trainer: {key}={cfg.get(key)!r} is not ported")
@@ -350,6 +363,49 @@ class Trainer(TrainerBase):
             if out[name] > 0:
                 self.logger.warning(f"{name}={out[name]} points dropped by static capacity in eval")
         return out
+
+
+def _pipeline_conditions(data_cfg) -> list:
+    """The conditions a dataset config's pipeline adds (``Add`` / ``Update``
+    of ``condition``), over the datasets of a `ConcatDataset`."""
+    data_cfg = dict(data_cfg)
+    if data_cfg.get("type") == "ConcatDataset":
+        return [c for d in data_cfg["datasets"] for c in _pipeline_conditions(d)]
+    test_cfg = dict(data_cfg.get("test_cfg") or {})
+    steps = [dict(t) for t in list(data_cfg.get("transform") or []) + list(test_cfg.get("post_transform") or [])]
+    return [t["keys_dict"]["condition"] for t in steps
+            if t.get("type") in ("Add", "Update") and "condition" in (t.get("keys_dict") or {})]
+
+
+def check_conditions(cfg) -> None:
+    """Refuse a config whose data pipelines add a condition that its model
+    (a PPT wrapper's ``conditions``) does not know, naming both lists: the
+    outdoor PPT configs inherit the indoor data of their ``_base_`` and keep
+    its ScanNet / Structured3D conditions under SemanticKITTI / nuScenes /
+    Waymo models."""
+    known = dict(cfg.model).get("conditions")
+    if known is None:
+        return
+    added = [c for part in ("train", "val", "test") if part in cfg.data for c in _pipeline_conditions(cfg.data[part])]
+    unknown = sorted({c for c in added if c not in tuple(known)})
+    if unknown:
+        raise ValueError(f"the data pipelines add the conditions {sorted(set(added))}, the model knows "
+                         f"{tuple(known)}: {unknown} would raise at the first forward")
+
+
+@TRAINERS.register_module("MultiDatasetTrainer")
+class MultiDatasetTrainer(Trainer):
+    """Point Prompt Training's trainer (reference `engines/train.py`,
+    `MultiDatasetTrainer`): train batches from `MultiDatasetDataloader`,
+    one dataset (condition) a batch, the sub-datasets interleaved by their
+    `loop` ratios; everything else the `Trainer`'s."""
+
+    def build_train_loader(self):
+        return MultiDatasetDataloader(
+            build_dataset(dict(self.cfg.data.train)), batch_size_per_gpu=self.cfg.batch_size,
+            num_worker_per_gpu=self.cfg.get("num_worker", 0),
+            collate_fn=partial(point_collate_fn, capacity=self.capacity, mix_prob=self.cfg.get("mix_prob", 0.0)),
+            seed=int(self.cfg.get("shared_seed", self.cfg.seed)), pin_memory=self.device.type == "cuda")
 
 
 def main_worker(cfg, device=None):

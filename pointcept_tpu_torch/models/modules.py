@@ -80,6 +80,89 @@ class LayerNorm(nn.Module):
         return y.to(x.dtype)
 
 
+class PDNorm(nn.Module):
+    """Prompt-driven normalisation (reference
+    `point_prompt_training/prompt_driven_normalization.py:8`; counterpart of
+    `PDNorm` in `pointcept_tpu/models/modules.py`): one `MaskedBatchNorm`
+    (``norm_type="bn"``, eps 1e-3, momentum 0.01) or `LayerNorm` (``"ln"``)
+    a condition (`decouple`) or one shared norm, and with `adaptive`
+    ``y * (1 + scale) + shift`` from ``Linear(SiLU(context))`` (``[1,
+    context_channels]``, one context a batch).
+
+    Only the batch's condition's norm runs, in train and in eval mode: the
+    other conditions' running statistics stay bit for bit (the JAX package
+    also runs them in eval mode, as dead code). Names are the reference's:
+    ``norm.{i}`` decoupled, ``norm`` shared, ``modulation.1``; SpUNet-v1m3's
+    `PDBatchNorm` names them ``bns.{i}`` and ``bn``."""
+
+    decoupled_name = shared_name = "norm"
+
+    def __init__(self, channels: int, conditions, norm_type: str = "bn", decouple: bool = True,
+                 adaptive: bool = False, context_channels: int = 256):
+        super().__init__()
+        if norm_type not in ("bn", "ln"):
+            raise ValueError(f"PDNorm: norm_type must be 'bn' or 'ln', got {norm_type!r}")
+        self.conditions = tuple(conditions)
+        self.norm_type = norm_type
+        self.decouple = decouple
+        self.adaptive = adaptive
+
+        def make():
+            return MaskedBatchNorm(channels) if norm_type == "bn" else LayerNorm(channels)
+
+        if decouple:
+            setattr(self, self.decoupled_name, nn.ModuleList([make() for _ in self.conditions]))
+        else:
+            setattr(self, self.shared_name, make())
+        if adaptive:
+            self.modulation = nn.Sequential(nn.SiLU(), Linear(context_channels, 2 * channels))
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None, condition: Optional[str] = None,
+                context: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if self.decouple:
+            if condition not in self.conditions:
+                raise ValueError(f"PDNorm: the batch's condition {condition!r} is not among the model's "
+                                 f"conditions {self.conditions}")
+            norm = getattr(self, self.decoupled_name)[self.conditions.index(condition)]
+        else:
+            norm = getattr(self, self.shared_name)
+        y = norm(x, mask) if self.norm_type == "bn" else norm(x)
+        if self.adaptive:
+            if context is None:
+                raise ValueError("PDNorm: adaptive normalisation needs the batch's context embedding")
+            shift, scale = self.modulation(context).chunk(2, dim=-1)
+            y = y * (1.0 + scale) + shift
+        return y.to(x.dtype)
+
+
+class PDBatchNorm(PDNorm):
+    """SpUNet-v1m3's PDNorm (reference `spconv_unet_v1m3_pdnorm.py:25`):
+    batch norms named ``bns.{i}`` (decoupled) or ``bn``."""
+
+    decoupled_name, shared_name = "bns", "bn"
+
+    def __init__(self, channels: int, conditions, decouple: bool = True, adaptive: bool = False,
+                 context_channels: int = 256):
+        super().__init__(channels, conditions, "bn", decouple, adaptive, context_channels)
+
+
+def make_norm(kind: str, channels: int, pd: Optional[dict] = None) -> nn.Module:
+    """A ``"bn"`` (`MaskedBatchNorm`) or ``"ln"`` (`LayerNorm`) norm, or its
+    `PDNorm` where `pd` (dict of ``bn``, ``ln``, ``conditions``,
+    ``decouple``, ``adaptive``) asks for one of that kind."""
+    if pd is not None and pd.get(kind):
+        return PDNorm(channels, pd["conditions"], kind, pd["decouple"], pd["adaptive"])
+    return MaskedBatchNorm(channels) if kind == "bn" else LayerNorm(channels)
+
+
+def apply_norm(norm: nn.Module, x: torch.Tensor, pb, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`norm` on `x` (a `MaskedBatchNorm` over `mask`'s rows); a `PDNorm`
+    also reads the condition and context of the batch `pb`."""
+    if isinstance(norm, PDNorm):
+        return norm(x, mask, pb.condition, pb.context)
+    return norm(x, mask) if isinstance(norm, MaskedBatchNorm) else norm(x)
+
+
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """flax `nn.gelu`: the tanh approximation."""
     return F.gelu(x, approximate="tanh")
@@ -124,13 +207,17 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Random init from an explicit generator: every matrix and conv weight
     (and weight norm's direction ``weight_v``) uniform in +-1/sqrt(fan_in),
     biases zero, norms identity, a LoRA adapter's ``lora_a`` N(0, 0.02) and
-    its ``lora_b`` zero. Parameters are drawn on the CPU in module order, so
-    a seed gives the same weights on every device."""
+    its ``lora_b`` zero, a PPT wrapper's trainable ``class_embedding`` N(0,
+    0.02) and its context table N(0, 1). Parameters are drawn on the CPU in
+    module order, so a seed gives the same weights on every device."""
     for m in module.modules():
         a = getattr(m, "lora_a", None)
         if isinstance(a, nn.Parameter):
             a.copy_(torch.randn(a.shape, generator=generator) * 0.02)
             m.lora_b.zero_()
+        emb = getattr(m, "class_embedding", None)
+        if isinstance(emb, nn.Parameter):
+            emb.copy_(torch.randn(emb.shape, generator=generator) * 0.02)
         w = getattr(m, "weight", None)
         v = getattr(m, "weight_v", None)
         if isinstance(v, nn.Parameter):
@@ -139,6 +226,8 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
         elif isinstance(m, (MaskedBatchNorm, LayerNorm)):
             m.weight.fill_(1.0)
             m.bias.fill_(0.0)
+        elif isinstance(m, nn.Embedding):
+            w.copy_(torch.randn(w.shape, generator=generator))
         elif isinstance(w, nn.Parameter) and w.dim() >= 2:
             fan_in = w.shape[1] if isinstance(m, nn.Linear) else w[..., 0].numel()
             bound = fan_in**-0.5

@@ -60,8 +60,17 @@ adapter to each attention's qkv, as the JAX package computes it:
 and ``lora_b [r, 3C]`` made at zero, no scaling and no dropout, before RoPE
 and the patch partition.
 
-Not ported: PDNorm, RPE, attention and projection dropout, host geometry
-and the scene-blocked layout. Each raises when asked for.
+PDNorm (``pdnorm_bn``, ``pdnorm_ln``: the Point Prompt Training
+backbones) replaces the norms the JAX package's `apply_bn` / `apply_ln`
+cover (the stem's, the blocks' cpe, norm1 and norm2, the pooling's and the
+unpooling's two) by `PDNorm`s of ``pdnorm_conditions``, decoupled
+(``pdnorm_decouple``) and adaptive (``pdnorm_adaptive``) as asked; each reads
+the batch's ``condition`` and ``context``, which pooling and unpooling carry.
+``pdnorm_affine`` is accepted and, as in the JAX package, without effect
+(the norms are affine).
+
+Not ported: RPE, attention and projection dropout, host geometry and the
+scene-blocked layout. Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -80,7 +89,7 @@ from ...ops.pointrope import point_rope
 from ...ops.segment_ops import segment_reduce, sorted_segment_mean
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
 from ..builder import MODELS
-from ..modules import DropPath, LayerNorm, Linear, MaskedBatchNorm, MLP, gelu
+from ..modules import DropPath, Linear, MLP, apply_norm, gelu, make_norm
 from ..utils.structure import PointBatch, serialization_depth
 
 
@@ -192,7 +201,7 @@ class Block(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False,
-                 layer_scale=None, rope=None, lora_rank=0):
+                 layer_scale=None, rope=None, lora_rank=0, pd=None):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
@@ -202,12 +211,12 @@ class Block(nn.Module):
             self.ls2 = nn.ModuleList([LayerScale(c, layer_scale)])
         self.cpe = nn.ModuleList([
             SubMConv(c, c, 3, bias=True, fused=fused), Linear(c, c, compute_dtype=compute_dtype),
-            LayerNorm(c),
+            make_norm("ln", c, pd),
         ])
-        self.norm1 = nn.ModuleList([LayerNorm(c)])
+        self.norm1 = nn.ModuleList([make_norm("ln", c, pd)])
         self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype, rope,
                                         lora_rank)
-        self.norm2 = nn.ModuleList([LayerNorm(c)])
+        self.norm2 = nn.ModuleList([make_norm("ln", c, pd)])
         self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
 
     def forward(self, pb: PointBatch, nbr3, partition, cpe_feat=None,
@@ -217,15 +226,15 @@ class Block(nn.Module):
         # unpooling, and trained weights depend on that.
         feat = pb.feat
         cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
-        feat = feat + self.cpe[2](self.cpe[1](cpe))
-        x = self.norm1[0](feat) if self.pre_norm else feat
+        feat = feat + apply_norm(self.cpe[2], self.cpe[1](cpe), pb)
+        x = apply_norm(self.norm1[0], feat, pb) if self.pre_norm else feat
         feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition, pb.coord, generator)), generator)
         if not self.pre_norm:
-            feat = self.norm1[0](feat)
-        x = self.norm2[0](feat) if self.pre_norm else feat
+            feat = apply_norm(self.norm1[0], feat, pb)
+        x = apply_norm(self.norm2[0], feat, pb) if self.pre_norm else feat
         feat = feat + self.drop_path(self._scale("ls2", self.mlp[0](x)), generator)
         if not self.pre_norm:
-            feat = self.norm2[0](feat)
+            feat = apply_norm(self.norm2[0], feat, pb)
         return pb.replace(feat=feat)
 
     def _scale(self, name: str, x: torch.Tensor) -> torch.Tensor:
@@ -309,11 +318,11 @@ class SerializedPooling(nn.Module):
     """Grid pooling by shifted curve codes into a static `out_capacity`
     (clusters beyond it are dropped and counted). Names: proj, norm.0."""
 
-    def __init__(self, in_channels, out_channels, stride=2, compute_dtype=None):
+    def __init__(self, in_channels, out_channels, stride=2, compute_dtype=None, pd=None):
         super().__init__()
         self.stride = stride
         self.proj = Linear(in_channels, out_channels, compute_dtype=compute_dtype)
-        self.norm = nn.ModuleList([MaskedBatchNorm(out_channels)])
+        self.norm = nn.ModuleList([make_norm("bn", out_channels, pd)])
 
     def forward(self, pb: PointBatch, out_capacity: int, orders, needed, identity_order0: bool,
                 generator: Optional[torch.Generator] = None, geom: Optional[dict] = None):
@@ -335,9 +344,9 @@ class SerializedPooling(nn.Module):
             coord=coord, feat=feat, grid_coord=g["grid"], batch=g["batch"],
             segment=g["segment"], serialized_keys=g["keys"], serialized_order=g["order"],
             serialized_inverse=g["inverse"], serialized_depth=g["depth"],
-            num_scenes=pb.num_scenes, origin_coord=origin,
+            num_scenes=pb.num_scenes, origin_coord=origin, condition=pb.condition, context=pb.context,
         )
-        out = out.replace(feat=gelu(self.norm[0](feat, out.mask)))
+        out = out.replace(feat=gelu(apply_norm(self.norm[0], feat, out, out.mask)))
         if generator is not None:
             out = out.shuffle_orders_(generator)
         return out, g["cluster_of_point"], g["overflow"]
@@ -346,20 +355,20 @@ class SerializedPooling(nn.Module):
 class SerializedUnpooling(nn.Module):
     """proj + skip add by cluster. Names: proj.{0,1}, proj_skip.{0,1}."""
 
-    def __init__(self, in_channels, skip_channels, out_channels, compute_dtype=None):
+    def __init__(self, in_channels, skip_channels, out_channels, compute_dtype=None, pd=None):
         super().__init__()
         self.proj = nn.ModuleList([
-            Linear(in_channels, out_channels, compute_dtype=compute_dtype), MaskedBatchNorm(out_channels)
+            Linear(in_channels, out_channels, compute_dtype=compute_dtype), make_norm("bn", out_channels, pd)
         ])
         self.proj_skip = nn.ModuleList([
             Linear(skip_channels, out_channels, compute_dtype=compute_dtype),
-            MaskedBatchNorm(out_channels),
+            make_norm("bn", out_channels, pd),
         ])
 
     def forward(self, pb: PointBatch, skip_pb: PointBatch, cluster: torch.Tensor):
         m = pb.capacity
-        x = gelu(self.proj[1](self.proj[0](pb.feat), pb.mask))
-        skip = gelu(self.proj_skip[1](self.proj_skip[0](skip_pb.feat), skip_pb.mask))
+        x = gelu(apply_norm(self.proj[1], self.proj[0](pb.feat), pb, pb.mask))
+        skip = gelu(apply_norm(self.proj_skip[1], self.proj_skip[0](skip_pb.feat), skip_pb, skip_pb.mask))
         up = x[torch.clamp(cluster, max=m - 1).long()]
         up = torch.where((cluster < m)[:, None], up, torch.zeros((), dtype=up.dtype, device=up.device))
         # the second output, the skip branch alone, feeds the next block's cpe
@@ -373,7 +382,7 @@ class Embedding(nn.Module):
     replaces the features of the points of the caller's `patch_mask`."""
 
     def __init__(self, in_channels, embed_channels, fused=False, mode="conv", mask_token=False,
-                 compute_dtype=None):
+                 compute_dtype=None, pd=None):
         super().__init__()
         if mode not in ("conv", "linear"):
             raise NotImplementedError(f"Embedding: mode {mode!r} is not ported")
@@ -382,10 +391,10 @@ class Embedding(nn.Module):
         self.stem = nn.Module()
         if mode == "conv":
             self.stem.conv = SubMConv(in_channels, embed_channels, 5, bias=False, fused=fused)
-            self.stem.norm = MaskedBatchNorm(embed_channels)
+            self.stem.norm = make_norm("bn", embed_channels, pd)
         else:
             self.stem.linear = Linear(in_channels, embed_channels, compute_dtype=compute_dtype)
-            self.stem.norm = LayerNorm(embed_channels)
+            self.stem.norm = make_norm("ln", embed_channels, pd)
         self.mask_token = nn.Parameter(torch.zeros(1, embed_channels)) if mask_token else None
 
     def forward(self, pb: PointBatch, nbr5, patch_mask: Optional[torch.Tensor] = None) -> PointBatch:
@@ -395,9 +404,9 @@ class Embedding(nn.Module):
             raise ValueError(f"PT-v3 stem: in_channels={self.in_channels} but the batch's features have "
                              f"{pb.feat.shape[1]} channels")
         if self.mode == "conv":
-            feat = gelu(self.stem.norm(self.stem.conv(pb.feat, nbr5), pb.mask))
+            feat = gelu(apply_norm(self.stem.norm, self.stem.conv(pb.feat, nbr5), pb, pb.mask))
         else:
-            feat = gelu(self.stem.norm(self.stem.linear(pb.feat)))
+            feat = gelu(apply_norm(self.stem.norm, self.stem.linear(pb.feat), pb))
         if self.mask_token is not None and patch_mask is not None:
             feat = torch.where(patch_mask[:, None], self.mask_token.to(feat.dtype), feat)
         return pb.replace(feat=feat)
@@ -420,10 +429,7 @@ def up_cast(pb: PointBatch, skips: list, levels: int) -> PointBatch:
     return pb
 
 
-_UNSUPPORTED = dict(
-    pdnorm_bn=False, pdnorm_ln=False, enable_rpe=False, scene_blocked=False,
-    attn_drop=0.0, proj_drop=0.0,
-)
+_UNSUPPORTED = dict(enable_rpe=False, scene_blocked=False, attn_drop=0.0, proj_drop=0.0)
 
 
 @MODELS.register_module("PT-v3m1")
@@ -472,15 +478,17 @@ class PointTransformerV3(nn.Module):
         mask_token: bool = False,
         layer_scale: Optional[float] = None,
         lora_rank: int = 0,
+        pdnorm_bn: bool = False,
+        pdnorm_ln: bool = False,
+        pdnorm_decouple: bool = True,
+        pdnorm_adaptive: bool = False,
+        pdnorm_conditions: Sequence[str] = ("ScanNet", "S3DIS", "Structured3D"),
         # config-parity options without effect (attention is always fused,
-        # its softmax always f32; PDNorm is not ported)
+        # its softmax always f32; the norms are always affine, as in the JAX package)
         enable_flash: bool = True,
         upcast_attention: bool = False,
         upcast_softmax: bool = False,
-        pdnorm_decouple: bool = True,
-        pdnorm_adaptive: bool = False,
         pdnorm_affine: bool = True,
-        pdnorm_conditions: Sequence[str] = ("ScanNet", "S3DIS", "Structured3D"),
         rope_base: Optional[float] = None,
         shift_coords: Optional[float] = None,
         jitter_coords: Optional[float] = None,
@@ -534,31 +542,35 @@ class PointTransformerV3(nn.Module):
         dec_dp = np.linspace(0, drop_path, sum(dec_depths)).tolist()
 
         fused = block_conv_fused
-        self.embedding = Embedding(in_channels, enc_channels[0], fused, embed_mode, mask_token, dt)
+        pd = None
+        if pdnorm_bn or pdnorm_ln:
+            pd = dict(bn=pdnorm_bn, ln=pdnorm_ln, conditions=tuple(pdnorm_conditions), decouple=pdnorm_decouple,
+                      adaptive=pdnorm_adaptive)
+        self.embedding = Embedding(in_channels, enc_channels[0], fused, embed_mode, mask_token, dt, pd)
         self.enc = nn.Module()
         for s in range(n):
             stage = nn.Module()
             if s > 0:
                 stage.down = SerializedPooling(enc_channels[s - 1], enc_channels[s],
-                                               stride=stride[s - 1], compute_dtype=dt)
+                                               stride=stride[s - 1], compute_dtype=dt, pd=pd)
             for i in range(enc_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
-                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
         self.dec = nn.Module()
         for s in reversed(range(0 if enc_mode else n - 1)):
             stage = nn.Module()
-            stage.up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], compute_dtype=dt)
+            stage.up = SerializedUnpooling(dec_ch[s + 1], enc_channels[s], dec_ch[s], compute_dtype=dt, pd=pd)
             dp_slice = dec_dp[sum(dec_depths[:s]) : sum(dec_depths[: s + 1])][::-1]
             for i in range(dec_depths[s]):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
-                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd,
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = enc_channels[-1] if enc_mode else dec_ch[0]
@@ -684,7 +696,8 @@ class PointTransformerV3(nn.Module):
                 p = geom["perm0"].long()
                 feat, coord = feat[p], coord[p]
                 segment = None if segment is None else segment[p]
-            pb = geom["pb0"].replace(feat=feat, coord=coord, segment=segment)
+            pb = geom["pb0"].replace(feat=feat, coord=coord, segment=segment, condition=pb.condition,
+                                     context=pb.context)
             sorted_ok, unsort, nbr5 = self.sorted_layout, geom["unsort"], geom["nbr5"]
         else:
             pb = pb.with_grid_coord(self.grid_size)

@@ -17,8 +17,15 @@ Parameter names follow the reference Pointcept state dict (`conv_input.0`,
 `final`), so the JAX package's `convert_spunet` reads them directly. Conv
 weights are ``[k^3, Cin, Cout]`` in `kernel_offsets` order.
 
-Not ported: PDNorm (SpUNet-v1m3, ``pdnorm_bn``, ``conditions``) and
-``enc_mode``; each raises when asked for.
+SpUNet-v1m3 (Point Prompt Training: ``conditions``, ``norm_decouple``,
+``norm_adaptive``; or ``pdnorm_bn`` and the ``pdnorm_*`` names on any
+variant) puts a `PDBatchNorm` at every norm: the stem's, each striding's
+and inverse striding's, and each block's bn1, bn2 and projection norm. Each
+reads the batch's ``condition`` and ``context``. As in the JAX package,
+those norms keep PDNorm's own eps 1e-3 and momentum 0.01 whatever
+``bn_eps`` / ``bn_momentum`` say.
+
+Not ported: ``enc_mode``; it raises when asked for.
 """
 
 from __future__ import annotations
@@ -36,7 +43,7 @@ from ...ops.sparse_conv import (
     strided_conv,
 )
 from ..builder import MODELS
-from ..modules import MaskedBatchNorm
+from ..modules import MaskedBatchNorm, PDBatchNorm, apply_norm
 from ..utils.structure import PointBatch, serialization_depth
 
 
@@ -78,36 +85,46 @@ class _Weight(nn.Module):
         self.weight = nn.Parameter(torch.empty(k3, in_channels, out_channels))
 
 
+def _bn(channels: int, eps: float, momentum: float, pd: Optional[dict]) -> nn.Module:
+    """A `MaskedBatchNorm`, or with `pd` (conditions, decouple, adaptive,
+    context_channels) a `PDBatchNorm` at PDNorm's own eps and momentum."""
+    if pd is not None:
+        return PDBatchNorm(channels, pd["conditions"], pd["decouple"], pd["adaptive"], pd["context_channels"])
+    return MaskedBatchNorm(channels, eps=eps, momentum=momentum)
+
+
 class BasicBlock(nn.Module):
     """Residual SubM k3 block (reference `spconv_unet_v1m1_base.py:23-85`):
     conv1, bn1, conv2, bn2 and, where the width changes, proj.{0,1}. bn1/bn2
-    take `bn_momentum`, the projection norm `proj_bn_momentum`."""
+    take `bn_momentum`, the projection norm `proj_bn_momentum`; with `pd`,
+    each is a `PDBatchNorm`."""
 
     def __init__(self, in_channels: int, embed_channels: int, bn_momentum: float = 0.01,
-                 proj_bn_momentum: float = 0.01, bn_eps: float = 1e-3, fused: bool = False):
+                 proj_bn_momentum: float = 0.01, bn_eps: float = 1e-3, fused: bool = False,
+                 pd: Optional[dict] = None):
         super().__init__()
         self.conv1 = SpSubMConv(in_channels, embed_channels, 3, fused=fused)
-        self.bn1 = MaskedBatchNorm(embed_channels, eps=bn_eps, momentum=bn_momentum)
+        self.bn1 = _bn(embed_channels, bn_eps, bn_momentum, pd)
         self.conv2 = SpSubMConv(embed_channels, embed_channels, 3, fused=fused)
-        self.bn2 = MaskedBatchNorm(embed_channels, eps=bn_eps, momentum=bn_momentum)
+        self.bn2 = _bn(embed_channels, bn_eps, bn_momentum, pd)
         self.proj = None
         if in_channels != embed_channels:
             self.proj = nn.ModuleList([
                 SpSubMConv(in_channels, embed_channels, 1),
-                MaskedBatchNorm(embed_channels, eps=bn_eps, momentum=proj_bn_momentum),
+                _bn(embed_channels, bn_eps, proj_bn_momentum, pd),
             ])
 
-    def forward(self, feat: torch.Tensor, nbr3, mask: torch.Tensor) -> torch.Tensor:
-        out = torch.relu(self.bn1(self.conv1(feat, nbr3), mask))
-        out = self.bn2(self.conv2(out, nbr3), mask)
+    def forward(self, feat: torch.Tensor, nbr3, mask: torch.Tensor, pb: PointBatch) -> torch.Tensor:
+        out = torch.relu(apply_norm(self.bn1, self.conv1(feat, nbr3), pb, mask))
+        out = apply_norm(self.bn2, self.conv2(out, nbr3), pb, mask)
         residual = feat
         if self.proj is not None:
-            residual = self.proj[1](self.proj[0](feat, _self_map(mask)), mask)
+            residual = apply_norm(self.proj[1], self.proj[0](feat, _self_map(mask)), pb, mask)
         return torch.relu(out + residual)
 
 
-def _conv_bn(k3: int, cin: int, cout: int, eps: float, momentum: float) -> nn.ModuleList:
-    return nn.ModuleList([_Weight(k3, cin, cout), MaskedBatchNorm(cout, eps=eps, momentum=momentum)])
+def _conv_bn(k3: int, cin: int, cout: int, eps: float, momentum: float, pd: Optional[dict]) -> nn.ModuleList:
+    return nn.ModuleList([_Weight(k3, cin, cout), _bn(cout, eps, momentum, pd)])
 
 
 @MODELS.register_module("SpUNet-v1m1")
@@ -117,11 +134,13 @@ class SpUNetBase(nn.Module):
     ``num_classes`` is 0; diagnostics). The diagnostics count the points
     dropped by static capacities: ``block_overflow`` (one per block-table
     build) and ``pool_overflow`` (one per striding). `generator` is unused:
-    nothing in SpUNet is random."""
+    nothing in SpUNet is random. A batch whose features are not
+    ``in_channels`` wide raises."""
 
     bn_momentum_default = 0.01
     bn_eps_default = 1e-3
     transition_bn_momentum_default: Optional[float] = None
+    pdnorm_default = False
 
     def __init__(
         self,
@@ -143,23 +162,29 @@ class SpUNetBase(nn.Module):
         enc_mode: bool = False,
         pdnorm_bn: bool = False,
         conditions: Optional[Sequence[str]] = None,
-        # config-parity options without effect (PDNorm's, the reference
-        # SpUNet-v1m3's zero_init and context width)
         pdnorm_decouple: bool = True,
         pdnorm_adaptive: bool = False,
-        pdnorm_affine: bool = True,
         pdnorm_conditions: Sequence[str] = ("ScanNet", "S3DIS", "Structured3D"),
         norm_decouple: Optional[bool] = None,
         norm_adaptive: Optional[bool] = None,
+        context_channels: int = 256,
+        # config-parity options without effect (the norms are always affine;
+        # the reference SpUNet-v1m3's zero_init), as in the JAX package
+        pdnorm_affine: bool = True,
         norm_affine: Optional[bool] = None,
         zero_init: bool = False,
-        context_channels: int = 256,
     ):
         super().__init__()
         if enc_mode:
             raise NotImplementedError("SpUNet: enc_mode is not ported yet")
-        if pdnorm_bn or conditions is not None:
-            raise NotImplementedError("SpUNet: PDNorm (SpUNet-v1m3) is not ported yet")
+        pd = None
+        if pdnorm_bn or self.pdnorm_default or conditions is not None:
+            # the reference SpUNet-v1m3's names (conditions, norm_*) over the pdnorm_* ones
+            pd = dict(conditions=tuple(conditions if conditions is not None else pdnorm_conditions),
+                      decouple=pdnorm_decouple if norm_decouple is None else norm_decouple,
+                      adaptive=pdnorm_adaptive if norm_adaptive is None else norm_adaptive,
+                      context_channels=context_channels)
+        self.in_channels = in_channels
         if conv_engine not in ("gather", "block"):
             raise ValueError(f"SpUNet: unknown conv_engine {conv_engine!r}")
         channels, layers = tuple(channels), tuple(layers)
@@ -180,18 +205,17 @@ class SpUNetBase(nn.Module):
         fused = block_conv_fused
 
         self.conv_input = nn.ModuleList([
-            SpSubMConv(in_channels, base_channels, 5, fused=fused),
-            MaskedBatchNorm(base_channels, eps=eps, momentum=tmom),
+            SpSubMConv(in_channels, base_channels, 5, fused=fused), _bn(base_channels, eps, tmom, pd),
         ])
         self.down, self.enc = nn.ModuleList(), nn.ModuleList()
         self.up, self.dec = nn.ModuleList(), nn.ModuleList()
         enc_ch = [base_channels] + list(channels[:n])
         for s in range(n):
-            self.down.append(_conv_bn(8, enc_ch[s], channels[s], eps, tmom))
+            self.down.append(_conv_bn(8, enc_ch[s], channels[s], eps, tmom, pd))
             stage = nn.Module()
             for i in range(layers[s]):
                 cin = channels[s]
-                stage.add_module(f"block{i}", BasicBlock(cin, channels[s], mom, tmom, eps, fused))
+                stage.add_module(f"block{i}", BasicBlock(cin, channels[s], mom, tmom, eps, fused, pd))
             self.enc.append(stage)
         # decoder of level s: from level s+1's width (the last encoder's, or
         # the decoder below's) to channels[2n - 1 - s], concatenated with
@@ -199,11 +223,11 @@ class SpUNetBase(nn.Module):
         for s in range(n):
             dec_out = channels[2 * n - 1 - s]
             dec_in = channels[n - 1] if s == n - 1 else channels[2 * n - 2 - s]
-            self.up.append(_conv_bn(8, dec_in, dec_out, eps, tmom))
+            self.up.append(_conv_bn(8, dec_in, dec_out, eps, tmom, pd))
             stage = nn.Module()
             for i in range(layers[2 * n - 1 - s]):
                 cin = dec_out + enc_ch[s] if i == 0 else dec_out
-                stage.add_module(f"block{i}", BasicBlock(cin, dec_out, mom, tmom, eps, fused))
+                stage.add_module(f"block{i}", BasicBlock(cin, dec_out, mom, tmom, eps, fused, pd))
             self.dec.append(stage)
         self.out_channels = num_classes if num_classes > 0 else channels[-1]
         self.final = SpSubMConv(channels[-1], num_classes, 1, bias=True) if num_classes > 0 else None
@@ -246,17 +270,21 @@ class SpUNetBase(nn.Module):
 
     def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None):
         n = self.num_stages
+        if pb.feat.shape[1] != self.in_channels:
+            raise ValueError(f"SpUNet stem: in_channels={self.in_channels} but the batch's features have "
+                             f"{pb.feat.shape[1]} channels")
         pb = pb.with_grid_coord(self.grid_size)
         levels, strided, diag = self.geometry(pb)
         mask, nbr5 = levels[0]["mask"], levels[0]["nbr"]
-        feat = torch.relu(self.conv_input[1](self.conv_input[0](pb.feat, nbr5), mask))
+        feat = torch.relu(apply_norm(self.conv_input[1], self.conv_input[0](pb.feat, nbr5), pb, mask))
 
         skips = [feat]
         for s in range(n):
             lv, down = levels[s + 1], self.down[s]
-            feat = torch.relu(down[1](strided_conv(feat, strided[s]["child"], down[0].weight), lv["mask"]))
+            feat = torch.relu(apply_norm(down[1], strided_conv(feat, strided[s]["child"], down[0].weight), pb,
+                                         lv["mask"]))
             for i in range(self.layers[s]):
-                feat = getattr(self.enc[s], f"block{i}")(feat, lv["nbr"], lv["mask"])
+                feat = getattr(self.enc[s], f"block{i}")(feat, lv["nbr"], lv["mask"], pb)
             skips.append(feat)
 
         feat = skips.pop()
@@ -264,7 +292,7 @@ class SpUNetBase(nn.Module):
             st, up = strided[s], self.up[s]
             lv_mask = levels[s]["mask"]
             feat = inverse_conv(feat, st["parent_of"], st["child_slot"], up[0].weight)
-            feat = torch.relu(up[1](feat, lv_mask))
+            feat = torch.relu(apply_norm(up[1], feat, pb, lv_mask))
             feat = torch.cat([feat, skips.pop()], dim=-1)
             if s > 0 or isinstance(nbr5, dict):
                 nbr3 = levels[s]["nbr"]  # block tables serve every kernel size
@@ -272,7 +300,7 @@ class SpUNetBase(nn.Module):
                 # the level-0 k3 map is a column subset of the stem's k5 map
                 nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=nbr5.device).long()]
             for i in range(self.layers[2 * n - 1 - s]):
-                feat = getattr(self.dec[s], f"block{i}")(feat, nbr3, lv_mask)
+                feat = getattr(self.dec[s], f"block{i}")(feat, nbr3, lv_mask, pb)
 
         if self.final is not None:
             feat = gather_conv(feat, _self_map(mask), self.final.weight, self.final.bias)
@@ -292,11 +320,11 @@ class SpUNetBNMomentum(SpUNetBase):
 
 @MODELS.register_module("SpUNet-v1m3")
 class SpUNetPDNorm(SpUNetBase):
-    """SpUNet with Prompt-Driven Normalization (reference
-    `spconv_unet_v1m3_pdnorm.py`): not ported yet, raises."""
+    """SpUNet with Prompt-Driven Normalization for Point Prompt Training
+    (reference `spconv_unet_v1m3_pdnorm.py`): `PDBatchNorm` at every norm,
+    of ``conditions`` (the JAX package's default three without it)."""
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError("SpUNet-v1m3 (PDNorm) is not ported yet")
+    pdnorm_default = True
 
 
 # MinkUNet family (reference `sparse_unet/mink_unet.py:365-405`): layer and

@@ -26,6 +26,16 @@ subtrees to ``student.*``, the teacher's to ``teacher.*`` (the reference
 model's two ModuleDicts); a head's ``Dense_0``/``Dense_1`` to ``mlp.0`` and
 ``mlp.2``, its ``prototypes [embed, K]`` to ``prototype.weight_v [K, embed]``
 beside the reference's fixed ``prototype.weight_g`` of ones.
+
+PDNorm (a `PDNorm` module in place of a norm, the JAX package's children
+``norm{i}`` a condition, ``norm`` shared and ``modulation``) maps to the
+reference's ``<norm>.norm.{i}``, ``<norm>.norm`` and
+``<norm>.modulation.1`` under PT-v3, and ``<norm>.bns.{i}``, ``<norm>.bn``
+and ``<norm>.modulation.1`` under SpUNet-v1m3 (the names
+`convert_spunet` reads back). A Point Prompt Training wrapper's own leaves
+map to its module names: ``embedding_table/embedding`` ->
+``embedding_table.weight``, ``proj_head`` and ``seg_head{i}`` Dense ->
+Linear, ``class_embedding`` and ``logit_scale`` as they are.
 """
 
 from __future__ import annotations
@@ -118,6 +128,30 @@ def _spunet_module(path: str) -> str:
     raise KeyError(f"no torch name for flax path {path}")
 
 
+def _pd_module(path: str, module_of, names: tuple) -> str:
+    """The torch name of a flax module path, also inside a PDNorm: its
+    ``norm{i}``, ``norm`` and ``modulation`` children under the names
+    (decoupled list, shared norm) of the family."""
+    try:
+        return module_of(path)
+    except KeyError:
+        parent, _, child = path.rpartition("/")
+        m = re.fullmatch(r"norm(\d*)", child)
+        if m:
+            return f"{module_of(parent)}.{names[0]}.{m.group(1)}" if m.group(1) else f"{module_of(parent)}.{names[1]}"
+        if child == "modulation":
+            return f"{module_of(parent)}.modulation.1"
+        raise
+
+
+def _ptv3_module(path: str) -> str:
+    return _pd_module(path, _torch_module, ("norm", "norm"))
+
+
+def _spunet_pd_module(path: str) -> str:
+    return _pd_module(path, _spunet_module, ("bns", "bn"))
+
+
 def _spunet_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     sd = {}
     for key, value in _flat(params).items():
@@ -125,11 +159,13 @@ def _spunet_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
         if leaf.startswith(("down", "up", "final")):  # parameters held by the backbone itself
             sd[_spunet_module(f"{path}/{leaf}")] = value
         elif leaf in ("weight", "bias", "scale"):
-            sd[f"{_spunet_module(path)}.{'weight' if leaf == 'scale' else leaf}"] = value
+            sd[f"{_spunet_pd_module(path)}.{'weight' if leaf == 'scale' else leaf}"] = value
+        elif leaf == "kernel":  # a PDNorm's modulation Dense
+            sd[f"{_spunet_pd_module(path)}.weight"] = np.ascontiguousarray(value.T)
         else:
             raise KeyError(f"unknown flax leaf {'/'.join(key)}")
     for key, value in _flat(batch_stats).items():
-        sd[f"{_spunet_module('/'.join(key[:-1]))}.running_{key[-1]}"] = value
+        sd[f"{_spunet_pd_module('/'.join(key[:-1]))}.running_{key[-1]}"] = value
     return sd
 
 
@@ -149,7 +185,7 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
             kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)/attn", path).groups()
             sd[f"backbone.{kind}.{kind}{s}.block{i}.attn.{leaf}"] = value
             continue
-        module = _torch_module(path)
+        module = _ptv3_module(path)
         if leaf == "kernel":
             sd[f"{module}.weight"] = np.ascontiguousarray(value.T)
         elif leaf == "scale":
@@ -159,8 +195,29 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"unknown flax leaf {'/'.join(key)}")
     for key, value in _flat(batch_stats).items():
-        module, leaf = _torch_module("/".join(key[:-1])), key[-1]
+        module, leaf = _ptv3_module("/".join(key[:-1])), key[-1]
         sd[f"{module}.running_{leaf}"] = value
+    return sd
+
+
+def _is_ppt_leaf(name: str) -> bool:
+    return name in ("embedding_table", "proj_head", "class_embedding", "logit_scale") or bool(
+        re.fullmatch(r"seg_head\d+", name))
+
+
+def _ppt_from_jax(params: dict) -> Dict[str, np.ndarray]:
+    """A Point Prompt Training wrapper's own leaves -> its module names."""
+    sd = {}
+    for key, value in _flat(params).items():
+        path, leaf = ".".join(key[:-1]), key[-1]
+        if not path:
+            sd[leaf] = value  # class_embedding, logit_scale
+        elif path == "embedding_table":
+            sd["embedding_table.weight"] = value
+        elif leaf == "kernel":
+            sd[f"{path}.weight"] = np.ascontiguousarray(value.T)
+        else:
+            sd[f"{path}.{leaf}"] = value
     return sd
 
 
@@ -189,12 +246,15 @@ def _sonata_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
 
 
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet or
-    Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
+    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet,
+    PPT-v1m1/m2/m3 over either, or Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
+    ppt = {k: v for k, v in params.items() if _is_ppt_leaf(k)}
+    params = {k: v for k, v in params.items() if k not in ppt}
     if "conv_input" in params.get("backbone_module", {}):
         sd = _spunet_from_jax(params, batch_stats)
     elif "teacher_backbone" in params:
         sd = _sonata_from_jax(params, batch_stats)
     else:
         sd = _ptv3_from_jax(params, batch_stats)
+    sd.update(_ppt_from_jax(ppt))
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

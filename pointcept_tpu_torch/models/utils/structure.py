@@ -61,6 +61,8 @@ class PointBatch:
     num_scenes: int = 1
     origin_coord: Optional[torch.Tensor] = None  # [N, 3] float32 pre-augmentation coords (SSL)
     grid_depth: int = 0  # bits of the largest grid coordinate (`grid_bits`), 0 = not known
+    condition: Optional[str] = None  # the batch's dataset (PPT: one condition a batch)
+    context: Optional[torch.Tensor] = None  # [1, context_channels] the condition's embedding (PPT)
 
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)

@@ -14,7 +14,10 @@ Utonia's ScanNet `nocolor` / `nonormal` configs), the 12 Concerto-large
 LoRA configs, and the 25 configs the outdoor datasets complete
 (SemanticKITTI, nuScenes and Waymo across PT-v3, SpUNet and MinkUNet, the
 18 Utonia outdoor probes and fine-tunes, Concerto-large's three outdoor
-linear probes), whose models are also built on the meta device."""
+linear probes), whose models are also built on the meta device; and the
+27 configs Point Prompt Training completes (PPT-v1m1 / v1m2 / v1m3 with
+`Add` and `MultiDatasetTrainer`), whose models (with SpUNet-v1m3's PDNorm
+config beside them) are built on the meta device too."""
 
 from pathlib import Path
 
@@ -109,7 +112,21 @@ OUTDOOR = [
     "4a-nuscenes-lin", "4b-nuscenes-dec", "4c-nuscenes-ft", "4d-nuscenes-nocolor-lin", "4e-nuscenes-nocolor-dec",
     "4f-nuscenes-nocolor-ft", "4g-nuscenes-nonormal-lin", "4h-nuscenes-nonormal-dec", "4i-nuscenes-nonormal-ft",
     "5a-waymo-lin", "5b-waymo-dec", "5c-waymo-ft", "6a-kitti-lin", "6b-kitti-dec", "6c-kitti-ft")]
-CONFIGS = INDOOR + LORA + OUTDOOR
+PPT = sorted(
+    [f"{d}/semseg-ppt-v1m1-0-{tag}-spunet.py" for d, tag in (("scannet", "sc-st"), ("s3dis", "s3-sc-st"),
+                                                                ("nuscenes", "nu-sk-wa"),
+                                                                ("semantic_kitti", "sk-nu-wa"))]
+    + ["scannet/semseg-ppt-v1m1-1-sc-st-spunet-submit.py", "scannet/semseg-pt-v3m1-1-ppt-extreme.py",
+       "s3dis/semseg-pt-v3m1-2-ppt-extreme.py", "scannetpp/semseg-pt-v3m1-2-ppt-extreme.py",
+       "scannetpp/semseg-pt-v3m1-3-ppt-extreme-submit.py", "scannetpp/semseg-spunet-v1m1-2-ppt-extreme.py",
+       "synthetic/semseg-ppt-v1m1-0-tiny.py", "nuscenes/semseg-ppt-v1m2-0-nu-sk-wa-spunet.py",
+       "nuscenes/semseg-ppt-v1m2-1-nu-sk-wa-spunet-submit.py", "semantic_kitti/semseg-ppt-v1m2-0-sk-nu-wa-spunet.py",
+       "semantic_kitti/semseg-ppt-v1m2-0-sk-nu-wa-spunet-submit.py"]
+    + [f"sonata/semseg-sonata-v1m1-{tag}-ppt.py" for tag in ("0d-scannet", "1d-scannet200", "2d-scannetpp",
+                                                              "3d-s3dis")]
+    + ["sonata/semseg-sonata-v1m1-2f-scannetpp-ppt-submit.py"]
+    + [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/concerto").glob("semseg-*-ppt*.py")])
+CONFIGS = INDOOR + LORA + OUTDOOR + PPT
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
@@ -122,6 +139,9 @@ KNOWN_EXCEPTIONS = {
     "concerto/": "in_channels=9 over 6 data channels (4 outdoors), as Utonia's (the same override)",
     "sonata/semseg-sonata-v1m1-": "backbone_out_channels=1328 where the up-cast gives 1,232: the head takes "
                                   "the up-cast's width and the difference is logged (queue 3 item 5, fault 4)",
+    "nuscenes/semseg-ppt-": "the outdoor PPT configs keep their _base_'s indoor data (ScanNet and Structured3D "
+                            "conditions, 6 channels) under models of the outdoor conditions: the trainer refuses "
+                            "them naming both lists (tests/test_torch_port_ppt.py)",
 }
 
 
@@ -146,7 +166,8 @@ def _known(path: str, name: str) -> bool:
 
 
 def test_census_counts():
-    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(set(CONFIGS)) == 95
+    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27
+    assert len(set(CONFIGS)) == 122
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -175,3 +196,13 @@ def test_outdoor_model_builds(path):
     with torch.device("meta"):
         model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.enable_amp))
     assert sum(p.numel() for p in model.parameters()) > 1e6
+
+
+@pytest.mark.parametrize("path", PPT + ["scannet/semseg-spunet-v1m3-0-pdnorm-base.py"])
+def test_ppt_model_builds(path):
+    """Each PPT config's model, and SpUNet-v1m3's PDNorm config, builds on
+    the meta device."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
+    assert sum(p.numel() for p in model.parameters()) > (1e4 if "synthetic" in path else 1e6)

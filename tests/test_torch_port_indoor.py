@@ -34,6 +34,18 @@ S3DIS = str(ROOT / "configs/s3dis/semseg-spunet-v1m1-0-base.py")
 SCANNET200 = str(ROOT / "configs/scannet200/semseg-pt-v3m1-0-base.py")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _assert_same(got, want):
     assert sorted(got) == sorted(want)
     for key in want:

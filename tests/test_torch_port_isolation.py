@@ -38,6 +38,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.datasets.s3dis, pointcept_tpu_torch.datasets.structured3d\n"
         "import pointcept_tpu_torch.datasets.semantic_kitti, pointcept_tpu_torch.datasets.nuscenes\n"
         "import pointcept_tpu_torch.datasets.waymo, pointcept_tpu_torch.datasets.variants\n"
+        "import pointcept_tpu_torch.datasets.dataloader, pointcept_tpu_torch.models.point_prompt_training\n"
+        "import pointcept_tpu_torch.models.point_prompt_training.point_prompt_training\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -18,6 +18,18 @@ from pointcept_tpu_torch.ops import serialization as tser
 from pointcept_tpu_torch.ops.block_conv import build_block_tables
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _bf16(a):
     """numpy f32 values that bf16 represents exactly, and their torch tensor."""
     t = torch.as_tensor(a).to(torch.bfloat16)

@@ -26,6 +26,18 @@ GOLDEN = np.load(osp.join(osp.dirname(__file__), "golden", "serialization_golden
 ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def T(a):
     return torch.as_tensor(np.array(a))
 

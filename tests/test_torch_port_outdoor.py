@@ -61,6 +61,18 @@ ORDERS = ("z", "z-trans", "hilbert", "hilbert-trans")
 # ------------------------------------------------------------- the key fold
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _wide_batch(depth: int):
     """Unique voxels of two scenes: scene 0 reaches past ``2**depth`` cells
     (to 1.5 times that), scene 1 stays inside; shuffled together."""

@@ -27,6 +27,18 @@ from pointcept_tpu_torch.models import build_model  # noqa: E402
 from pointcept_tpu_torch.models.utils.convert import params_from_jax  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfg(amp):
     backbone = dict(
         type="PT-v3m1", in_channels=6, order=("z", "z-trans", "hilbert", "hilbert-trans"),
@@ -175,7 +187,8 @@ def test_labelled_batch_and_training_mode_raise(ref):
     res["loss"].backward()
     assert np.isfinite(res["loss"].item())
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
-    for option in (dict(enable_rpe=True), dict(pdnorm_bn=True), dict(rope_base=10000.0),
+    # (PDNorm is ported: tests/test_torch_port_ppt.py)
+    for option in (dict(enable_rpe=True), dict(rope_base=10000.0),
                    dict(proj_drop=0.1), dict(attn_drop=0.1), dict(scene_blocked=True)):
         bad = dict(_cfg(False), backbone=dict(_cfg(False)["backbone"], **option))
         with pytest.raises(NotImplementedError):

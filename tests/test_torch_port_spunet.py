@@ -47,6 +47,18 @@ SCHEDULER = dict(type="OneCycleLR", max_lr=0.05, pct_start=0.05, anneal_strategy
                  div_factor=10.0, final_div_factor=10000.0)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def T(a):
     return torch.as_tensor(np.array(a))
 
@@ -281,7 +293,9 @@ def test_strided_maps_and_convs_match_jax(ref, capacity):
 def test_v1m2_momenta_and_v1m3_raise():
     """SpUNet-v1m2: block norms momentum 0.1, the stem, transition and
     projection norms 0.02, eps 1e-5, as the JAX package's fields say.
-    PDNorm (v1m3) and enc_mode raise."""
+    SpUNet-v1m3 (PDNorm, tests/test_torch_port_ppt.py) puts a PDBatchNorm at
+    every norm, at PDNorm's own eps 1e-3 and momentum 0.01 whatever
+    `bn_eps` / `bn_momentum` say, as the JAX package does; enc_mode raises."""
     cfg = dict(_cfg("gather")["backbone"], type="SpUNet-v1m2")
     m = MODELS.build(cfg)
     jcls = jspunet.SpUNetBNMomentum
@@ -290,9 +304,14 @@ def test_v1m2_momenta_and_v1m3_raise():
         assert (norm.momentum, norm.eps) == (jcls.transition_bn_momentum, jcls.bn_eps)
     m1 = MODELS.build(_cfg("gather")["backbone"])
     assert (m1.enc[0].block0.bn1.momentum, m1.conv_input[1].momentum, m1.conv_input[1].eps) == (0.01, 0.01, 1e-3)
-    for bad in (dict(type="SpUNet-v1m3"), dict(enc_mode=True), dict(pdnorm_bn=True)):
-        with pytest.raises(NotImplementedError):
-            MODELS.build(dict(_cfg("gather")["backbone"], **bad))
+    for pd in (dict(type="SpUNet-v1m3"), dict(pdnorm_bn=True, bn_eps=1e-5, bn_momentum=0.1)):
+        m3 = MODELS.build(dict(_cfg("gather")["backbone"], **pd))
+        norms = [m3.conv_input[1], m3.down[0][1], m3.up[2][1], m3.enc[1].block0.bn1, m3.dec[0].block0.bn2,
+                 m3.dec[1].block0.proj[1]]
+        assert all(type(n).__name__ == "PDBatchNorm" and len(n.bns) == 3 for n in norms)
+        assert {(bn.eps, bn.momentum) for n in norms for bn in n.bns} == {(1e-3, 0.01)}
+    with pytest.raises(NotImplementedError):
+        MODELS.build(dict(_cfg("gather")["backbone"], enc_mode=True))
 
 
 def test_mink_unet_registrations_match_jax():

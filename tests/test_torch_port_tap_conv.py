@@ -33,6 +33,18 @@ from pointcept_tpu_torch.ops.kernels import tap_conv as ttc  # noqa: E402
 from pointcept_tpu_torch.ops.segment_ops import TakeRows  # noqa: E402
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _two_threads():
+    """Two torch threads a test process: the suite runs in several such
+    processes at once, and a thread per core in each makes their OpenMP
+    regions contend (the reason of tests/test_torch_port_trainer.py's
+    fixture of the same name)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(threads)
+
+
 def T(a):
     return torch.as_tensor(np.array(a))
 
