@@ -63,8 +63,8 @@ each printing JSON lines:
    checkpoints every epoch, launch counters set to 0 just before and read
    just after; then the second epoch again through the CLI as a
    subprocess, resumed from `epoch_1.pth`: its losses against the first
-   run's, bit for bit; then its steady state: one epoch of 8 steps (loop
-   4), every step's batch and data time, and the trainer's own train step
+   run's, bit for bit; then its steady state: one epoch of 4 steps (loop
+   2), every step's batch and data time, and the trainer's own train step
    alone on batches of its loader, beside phase 7's bare step;
 11. the tester: the config's test section unchanged (13 views, GridSample's
    test mode, fragments of one voxel grid sharing their geometry, four a
@@ -91,7 +91,7 @@ each printing JSON lines:
    student parameter updated, `epoch_1.pth` holding the teacher, 72
    attention forwards and 48 backwards a step; then one more step, after
    which every teacher tensor is its EMA bit for bit; the second epoch
-   resumed through the CLI (the same loss bits); an 8-step epoch; one
+   resumed through the CLI (the same loss bits); a 4-step epoch; one
    small-depth step on the card against the CPU; and the supervised PT-v3m2
    config (`semseg-pt-v3m2-0-sonata-scratch.py`, block engine) for 4 steps
    at phase 10's cuts;
@@ -174,11 +174,27 @@ each printing JSON lines:
    SpUNet-v1m3, adaptive PDNorm, SGD) on the same data: 4 steps, one
    evaluation, the same per-condition checks and the modulation's
    gradient;
-26. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+26. PointGroup over PTv3-base (`configs/scannet/insseg-pointgroup-v1m2-0-ptv3-base.py`:
+   PG-v1m2 over PT-v3m1, the gather engine) through `main_worker` on phase
+   10's scenes at phase 14's cuts (the first pooling at 0.65): a later
+   step's ms, data time and peak, the three loss terms, 22 attention
+   forwards and backwards a step, InsSegEvaluator's AP, proposals and host
+   clustering ms a scene, every tensor moved, nothing dropped at any
+   pooling; the config's InsSegTester on val scene 5; then one small-depth
+   step on the card against the CPU (f32, 8,192 points);
+27. the SpUNet PointGroup config (`configs/scannet/insseg-pointgroup-v1m1-0-spunet-base.py`:
+   its model, SGD + PolyLR and transforms) overfitting one synthetic 3 m
+   room for 150 steps, then InsSegEvaluator on that room: AP50 above 0.5;
+28. Sonata's PointGroup linear probe (`configs/sonata/insseg-sonata-v1m1-0a-scannet-pg-lin.py`)
+   on phase 13's checkpoint at phase 14's cuts: the missing and
+   unexpected keys, every backbone tensor as loaded bit for bit (the
+   decoder at its seeded init), no attention backward, the bias and seg
+   heads alone trainable and moved;
+29. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two, phases
-   20-24's added to the attention rows and phase 24's to the fill and the
-   take-back; the D = 18 rows: phase 15's fine-tune and phase 23's Utonia
-   fine-tune).
+   20-24, 26 and 28's added to the attention rows and phase 24's to the
+   fill and the take-back; the D = 18 rows: phase 15's fine-tune and phase
+   23's Utonia fine-tune).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -187,6 +203,7 @@ nonzero; nothing falls back to the CPU. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import os
@@ -277,11 +294,12 @@ SCANNET_SEEDS = {"train": (0, 1, 2, 3), "val": (5, 6)}
 RAW_POINTS = 409600
 TRAINER_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_val=262144, epoch=2, eval_epoch=2,
                        num_worker=4, seed=0, **{"hooks.4.save_freq": 1})
-# a longer epoch of the same run for the trainer's steady state: loop 4
-# (epoch // eval_epoch), 8 steps, one evaluation
-STEADY_OPTIONS = dict(epoch=4, eval_epoch=1)
-STEADY_STEPS = 8
-BARE_STEPS = 6
+# a longer epoch of the same run for the trainer's steady state: loop 2
+# (epoch // eval_epoch), 4 steps, one evaluation (cut from 8 steps and 6
+# bare steps to leave the time limit room for phases 26-28)
+STEADY_OPTIONS = dict(epoch=2, eval_epoch=1)
+STEADY_STEPS = 4
+BARE_STEPS = 4
 # the overfit configs and their options: their point_capacity (4,096) is per
 # chip, where the JAX package spreads the batch of 8 scenes over 8 chips, so
 # one card holds the batch at 8 x 4,096; PTv3's second pooling keeps ~11,300
@@ -321,7 +339,7 @@ SPUNET_SMALL = dict(SPUNET, layers=(1,) * 8, block_engine_min_points=4096)
 SONATA_CONFIG = "configs/sonata/pretrain-sonata-v1m1-0-base.py"
 SONATA_OPTIONS = dict(batch_size=2, point_capacity=262144, num_worker=4, seed=0, epoch=2, eval_epoch=2,
                       **{"hooks.5.save_freq": 1})
-SONATA_STEADY = dict(epoch=4, eval_epoch=1)  # 8 steps
+SONATA_STEADY = dict(epoch=2, eval_epoch=1)  # STEADY_STEPS steps
 SONATA_POOL = (0.5, 0.5, 0.5, 0.5)  # PT-v3m2's pooling factors, which the config keeps
 SONATA_VIEWS = (2, 4)  # global and local views a scene
 # Sonata's attention at its stage 0 and its 12-block stage 3: (stage, C, H,
@@ -348,11 +366,14 @@ DOWNSTREAM_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_va
                           num_worker=4, seed=0)
 LA_POINTS = 20  # labelled points a scene of the la20 benchmark
 LR_SCENES = ("scene0001_00",)  # the lr file: one line (the JAX package cannot read it)
-# the linear probe's test section on one val scene of 102,400 raw points
-# (the per-fragment path runs one forward a fragment: the 409,600-point
-# scene's ~550 fragments would pass the time limit)
+# the test sections of phases 14 and 16 on one val scene of 102,400 raw
+# points (the per-fragment path runs one forward a fragment: the
+# 409,600-point scene's ~550 fragments would pass the time limit), phase
+# 14's linear probe at half that (its 102,400 points took 26-32 s of the
+# time limit)
 PROBE_TEST_SCENE = "scene0007_00"
 PROBE_TEST_POINTS = 102400
+PROBE_TESTER_POINTS = 51200
 # phase 15: Utonia's linear probe and fine-tune (PT-v3m3, RoPE, head dim 18)
 # at phase 14's cuts; its in_channels=9 differs from the 6 channels its
 # data section collects
@@ -479,6 +500,27 @@ S3D_CLASSES = 25
 # (stage, C, H, launches a step, forward and backward)
 PPT_ATTENTION = ((0, 48, 3, 3), (4, 512, 32, 3))
 PPT_POOL = (0.4, 0.4, 0.4, 0.4)
+# phase 26: the PTv3 PointGroup config (PG-v1m2 over PT-v3m1 at PTv3-base's
+# widths, the gather engine, AdamW + OneCycle) at phase 14's cuts on phase
+# 10's scenes, then its InsSegTester (on data.val) on val scene 5 alone
+INSSEG_CONFIG = "configs/scannet/insseg-pointgroup-v1m2-0-ptv3-base.py"
+# its train pipeline crops each room at SphereCrop's 0.8 (no point cap), so
+# two rooms fill the 262,144 rows and the first pooling keeps more than the
+# config's 0.4 of them, as phase 24's rooms: the first pooling at 0.65
+INSSEG_POOL_OPTIONS = {"model.backbone.pool_capacity_factors": (0.65, 0.4, 0.4, 0.4)}
+# phase 27: the SpUNet PointGroup config's own model, SGD + PolyLR and
+# transforms on one synthetic scene of a 3 m room, 150 steps of one scene
+# (loop 150 of one epoch), then InsSegEvaluator on that scene
+INSSEG_OVERFIT_CONFIG = "configs/scannet/insseg-pointgroup-v1m1-0-spunet-base.py"
+# (the val pipeline does not crop: the whole scene's ~30k voxels pool into
+# more than 0.5 of 32,768 rows, so the val batch has 65,536)
+INSSEG_OVERFIT_OPTIONS = dict(batch_size=1, batch_size_val=1, point_capacity=32768, point_capacity_val=65536,
+                              epoch=150, eval_epoch=1, num_worker=4, seed=0)
+INSSEG_OVERFIT_SCENE = dict(seed=31, points=30000, extent=3.0)
+INSSEG_OVERFIT_AP50 = 0.5
+# phase 28: Sonata's PointGroup linear probe (PT-v3m2 with a decoder, frozen,
+# under PG-v1m2) on phase 13's checkpoint at phase 14's cuts
+INSSEG_PROBE_CONFIG = "configs/sonata/insseg-sonata-v1m1-0a-scannet-pg-lin.py"
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -491,6 +533,16 @@ _START = time.perf_counter()
 def emit(phase: str, **kw) -> None:
     """One JSON line; ``t``: seconds since the script started."""
     print(json.dumps({"phase": phase, **kw, "t": time.perf_counter() - _START}), flush=True)
+
+
+def release() -> None:
+    """Give the card back what the last phase left. A trainer and its hooks
+    reference each other, so `del trainer` frees nothing until the cycle
+    collector happens to run: collect first, then empty the cache."""
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def nvidia_smi(query: str) -> str:
@@ -1292,8 +1344,26 @@ def _grad_distance(got: dict, want: dict, vanishing: set, gmax: float):
     return worst, worst_name, low_cos
 
 
+def with_instances(arrays: dict) -> dict:
+    """`arrays` with PointGroup's targets: the points of classes 2 and up
+    grouped into instances by 0.5 m cells of their class, ``instance_centroid``
+    each instance's mean coordinate (-1 elsewhere, as `InstanceParser`)."""
+    import numpy as np
+
+    seg, valid = arrays["segment"], arrays["batch"] >= 0
+    cell = np.floor(arrays["coord"] / 0.5).astype(np.int64)
+    key = ((seg.astype(np.int64) * 64 + cell[:, 0]) * 64 + cell[:, 1]) * 64 + cell[:, 2]
+    has = valid & (seg >= 2)
+    instance = np.full(seg.shape, -1, np.int32)
+    _, instance[has] = np.unique(key[has], return_inverse=True)
+    centroid = np.full(arrays["coord"].shape, -1.0, np.float32)
+    for i in range(instance.max() + 1):
+        centroid[instance == i] = arrays["coord"][instance == i].mean(0)
+    return dict(arrays, instance=instance, instance_centroid=centroid)
+
+
 def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
-                      condition=None):
+                      condition=None, instances=False):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1308,13 +1378,16 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
     the slice test's bounds, or within twice the floor where the floor of
     this model and scene is above them. `init(model)` changes the weights
     after the build, the same on both devices. `capacity`, `extent`: the
-    scene's points and size; `condition`: the batch's (PPT)."""
+    scene's points and size; `condition`: the batch's (PPT); `instances`:
+    PointGroup's targets (`with_instances`)."""
     import numpy as np
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
 
     arrays = dict(scene(100, capacity=capacity, extent=extent, labelled=True), condition=condition)
+    if instances:
+        arrays = with_instances(arrays)
     nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
         *arrays["feat"].shape).astype(np.float32)))
     vanishing = set()
@@ -1465,7 +1538,7 @@ def trainer_path(device, card, work: str, bare_step_ms: float):
         if launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched by the trainer")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     _resume_bits(work, SCANNET_CONFIG, options, first, "trainer")
     steady_state(device, card, work, dict(options, **STEADY_OPTIONS), bare_step_ms)
@@ -1527,7 +1600,7 @@ def steady_state(device, card, work: str, options: dict, bare_step_ms: float):
     if len(steps) != STEADY_STEPS or any(st["overflow"] for st in steps):
         raise AssertionError(f"trainer steady state: {len(steps)} steps, overflow {[st['overflow'] for st in steps]}")
     del trainer, batches, step
-    torch.cuda.empty_cache()
+    release()
 
 
 def _test_main_worker():
@@ -1618,7 +1691,7 @@ def test_scene(device, card, work: str, phase: str, config: str, scene_name: str
     if after is not None:
         after(tester, pred)
     del tester
-    torch.cuda.empty_cache()
+    release()
     return st
 
 
@@ -1676,7 +1749,7 @@ def overfit_tester(device, card, work: str, path: str, options: dict, save: str)
     # the overfit model's convs take the gather engine: attention is its one kernel
     if card_run["launches"]["patch_attention"] == 0:
         raise AssertionError("kernel patch_attention was not launched by the overfit tester")
-    torch.cuda.empty_cache()
+    release()
 
 
 def overfit_runs(device, card, work: str):
@@ -1708,7 +1781,7 @@ def overfit_runs(device, card, work: str):
             raise AssertionError(f"{path}: points overflowed static capacities ({overflow} in a step, "
                                  f"{val_overflow} in eval)")
         del trainer
-        torch.cuda.empty_cache()
+        release()
         if "pt-v3" in path:
             overfit_tester(device, card, work, path, options, save)
 
@@ -1815,7 +1888,7 @@ def sonata_path(device, card, work: str):
                              f"expected {3 * blocks} and {2 * blocks}")
     sonata_ema_check(trainer, device)
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     _resume_bits(work, SONATA_CONFIG, options, first, "sonata", losses)
 
@@ -1833,7 +1906,7 @@ def sonata_path(device, card, work: str):
     if len(steady) != STEADY_STEPS or any(st["overflow"] for st in steady):
         raise AssertionError(f"sonata steady state: {len(steady)} steps, overflow {[st['overflow'] for st in steady]}")
     del trainer
-    torch.cuda.empty_cache()
+    release()
     sonata_card_vs_cpu(device)
     scratch_path(device, card, work)
 
@@ -1866,7 +1939,7 @@ def sonata_ema_check(trainer, device):
 
 def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
     """One small-depth Sonata train step (the config's widths and heads, one
-    block a stage, pool factors 0.75, in f32: under AMP a 1e-6 nudge of the
+    block a stage, pool factors 0.85, in f32: under AMP a 1e-6 nudge of the
     input moves some gradient tensors by their own size; orders unshuffled,
     drop path 0) on
     the card and on the CPU, same weights, batch (the config's pipeline on a
@@ -1885,16 +1958,18 @@ def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.fromfile(os.path.join(ROOT, SONATA_CONFIG))
-    # pool factors 0.75: the views of one small scene fill its capacity
-    # closer than two full scenes fill 262,144 rows
+    # pool factors 0.85: the views of one small scene fill its capacity
+    # closer than two full scenes fill 262,144 rows (at 0.75 the 5,000-point
+    # scene drops 80 points)
     model_cfg = dict(cfg.model, backbone=dict(cfg.model.backbone, enc_depths=(1,) * 5, shuffle_orders=False,
-                                              drop_path=0.0, pool_capacity_factors=(0.75,) * 4))
+                                              drop_path=0.0, pool_capacity_factors=(0.85,) * 4))
     pipeline = Compose([t for t in cfg.data.train.transform])
     np.random.seed(0)
     # the point density of phase 10's scenes (409,600 points in a 6 m room),
-    # at half the scene this phase first had (20,000 points, 1.4 m: its CPU
-    # steps took 95-108 s of the time limit)
-    sample = synthesize_scene(100, num_points=10000, num_classes=NUM_CLASSES, extent=1.0)
+    # at a quarter of the scene this phase first had (20,000 points, 1.4 m:
+    # its CPU steps took 95-108 s of the time limit; 10,000 at 1.0 m took 99
+    # s of the whole phase)
+    sample = synthesize_scene(100, num_points=5000, num_classes=NUM_CLASSES, extent=0.7)
     sample = pipeline(dict(coord=sample["coord"], color=sample["color"].astype(np.float32),
                            normal=sample["normal"]))
     need = max(int(sample["global_offset"][-1]), int(sample["local_offset"][-1]))
@@ -1988,10 +2063,11 @@ def _run_config(device, work: str, config: str, options: dict, tag: str):
                   data_time_ms=r["data_time"] * 1e3, overflow=r["pool_overflow"] + r["block_overflow"])
              for r in _metrics(save)]
     evals = trainer.comm_info["eval_result"]
+    metric = evals["mIoU"] if "mIoU" in evals else evals["mAP"]  # semantic or instance segmentation
     if len(steps) < 2 or not all(math.isfinite(st["loss"]) for st in steps):
         raise AssertionError(f"{tag}: expected finite losses of at least 2 steps, got {[st['loss'] for st in steps]}")
-    if any(st["overflow"] for st in steps) or evals["overflow"] or not math.isfinite(evals["mIoU"]):
-        raise AssertionError(f"{tag}: points overflowed static capacities, or val mIoU {evals['mIoU']}")
+    if any(st["overflow"] for st in steps) or evals["overflow"] or not math.isfinite(metric):
+        raise AssertionError(f"{tag}: points overflowed static capacities, or val metric {metric}")
     return trainer, steps, evals, launches, peak, seconds
 
 
@@ -2100,7 +2176,7 @@ def downstream_path(device, card, work: str):
                 if launches[name] == 0:
                     raise AssertionError(f"kernel {name} was not launched by {tag}")
         del trainer, model
-        torch.cuda.empty_cache()
+        release()
     if not summary["0a"]["peak_memory_bytes"] < summary["0c"]["peak_memory_bytes"]:
         raise AssertionError("the linear probe needed no less memory than the fine-tune")
     probe_tester(device, card, work)
@@ -2108,11 +2184,11 @@ def downstream_path(device, card, work: str):
 
 def probe_tester(device, card, work: str):
     """Phase 14's tester: the linear probe config's test section (13 views)
-    on the probe's weights and one val scene of PROBE_TEST_POINTS points;
+    on the probe's weights and one val scene of PROBE_TESTER_POINTS points;
     the enc_mode backbone takes the per-fragment path (one forward a
     fragment)."""
     test_root = os.path.join(work, "scannet_probe_test")
-    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PROBE_TEST_POINTS)
+    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PROBE_TESTER_POINTS)
     # one scene: a loader worker would overlap nothing and take its start
     options = dict(weight=os.path.join(work, "down_0a", "model", "model_last.pth"), seed=0, num_worker=0,
                    **{"data.test.data_root": test_root})
@@ -2171,7 +2247,7 @@ def utonia_path(device, card, work: str) -> dict:
             raise AssertionError(f"utonia 0c: tensors not updated, e.g. {same[:3]}")
         result[tag] = launches
         del trainer, model
-        torch.cuda.empty_cache()
+        release()
 
     # one small-depth fine-tune step (f32) on the card against the CPU
     cfg = Config.fromfile(os.path.join(ROOT, UTONIA_CONFIGS[1][1]))
@@ -2216,7 +2292,7 @@ def scannet200_path(device, card, work: str):
          steps=len(steps), losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak,
          peak_gb=peak / 1e9, val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches)
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     test_root = os.path.join(work, "scannet200_test")
     raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PROBE_TEST_POINTS)
@@ -2353,7 +2429,7 @@ def s3dis_path(device, card, work: str):
     if val["4cm"] > cfg.point_capacity_val:
         raise AssertionError(f"s3dis: the val room's {val['4cm']} voxels exceed point_capacity_val")
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
     # the test section: the whole room is each fragment (crop None)
     capacity = -(-val["4cm"] // 4096) * 4096 + 4096
@@ -2414,7 +2490,7 @@ def scannetpp_path(device, card, work: str):
          **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_mIoU=evals["mIoU"],
          eval_ms_per_scene=evals["batch_ms"], launches=launches)
     del trainer
-    torch.cuda.empty_cache()
+    release()
 
 
 def lora_path(device, card, work: str):
@@ -2480,7 +2556,7 @@ def lora_path(device, card, work: str):
         raise AssertionError(f"lora: {fwd_per_step} attention forwards and {bwd_per_step} backwards a step, "
                              f"{blocks} blocks")
     del trainer, model
-    torch.cuda.empty_cache()
+    release()
 
     def adapters_at_work(model):
         gen = torch.Generator().manual_seed(12)
@@ -2847,7 +2923,7 @@ def kitti_path(device, card, work: str) -> dict:
                                                    own)
     result = dict(trainer=launches)
     del trainer
-    torch.cuda.empty_cache()
+    release()
     test = dict(weight=os.path.join(work, "kitti", "model", "model_last.pth"), point_capacity_test=cap // 2,
                 **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["kitti"]})
     _outdoor_test(device, card, work, "kitti_test", KITTI_CONFIG, root, "08_000000", sizes["08_000000"], test)
@@ -2867,7 +2943,12 @@ def kitti_path(device, card, work: str) -> dict:
 def _resume_bits(work: str, config: str, options: dict, first: str, tag: str, keys=("loss",)):
     """The second epoch again through the training CLI, resumed from
     `first`'s epoch_1.pth: its losses (`keys` of metrics.jsonl) against the
-    straight run's, bit for bit."""
+    straight run's, bit for bit. The child shares the card with this
+    process, which holds at most its CUDA context and live tensors then."""
+    import torch
+
+    release()
+    parent_reserved = torch.cuda.memory_reserved()
     rows = _metrics(first)
     resumed = os.path.join(work, f"{tag}_resumed")
     argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
@@ -2879,10 +2960,12 @@ def _resume_bits(work: str, config: str, options: dict, first: str, tag: str, ke
     if proc.returncode != 0:
         print(proc.stdout[-4000:], file=sys.stderr)
         print(proc.stderr[-4000:], file=sys.stderr)
-        raise AssertionError(f"the training CLI exited with {proc.returncode}")
+        raise AssertionError(f"the training CLI exited with {proc.returncode} "
+                             f"(this process held {parent_reserved} bytes of the card)")
     want = [[r[k] for k in keys] for r in rows if r["epoch"] == 2]
     got = [[r[k] for k in keys] for r in _metrics(resumed)]
-    emit(f"{tag}_resume", seconds=time.perf_counter() - t0, losses=got, first_run=want, bit_identical=got == want)
+    emit(f"{tag}_resume", seconds=time.perf_counter() - t0, parent_reserved_bytes=parent_reserved, losses=got,
+         first_run=want, bit_identical=got == want)
     if got != want:
         raise AssertionError(f"{tag}: resumed epoch 2 losses {got} differ from the first run's {want}")
 
@@ -2913,7 +2996,7 @@ def nuscenes_path(device, card, work: str) -> dict:
                                                    "nuscenes", own, evaluations=2)
     result = dict(trainer=launches)
     del trainer
-    torch.cuda.empty_cache()
+    release()
     _resume_bits(work, NUSCENES_CONFIG, options, os.path.join(work, "nuscenes"), "nuscenes")
     test = dict(weight=os.path.join(work, "nuscenes", "model", "model_last.pth"), point_capacity_test=cap,
                 **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["nuscenes"]})
@@ -2956,7 +3039,7 @@ def waymo_path(device, card, work: str) -> dict:
     if trainer.cfg.point_capacity != 2 * trainer.cfg.point_capacity_val:
         raise AssertionError(f"waymo: {trainer.cfg.point_capacity} rows a step")
     del trainer
-    torch.cuda.empty_cache()
+    release()
     return dict(trainer=launches)
 
 
@@ -3015,7 +3098,7 @@ def outdoor_probe_path(device, card, work: str) -> dict:
             raise AssertionError(f"{tag}: {len(same)} encoder tensors not updated, e.g. {same[:3]}")
         result[tag] = launches
         del trainer, model
-        torch.cuda.empty_cache()
+        release()
     return result
 
 
@@ -3166,7 +3249,7 @@ def ppt_path(device, card, work: str, config: str, tag: str, s3d_rooms: int, tes
                 raise AssertionError(f"kernel {name} was not launched by {tag}")
     weight = os.path.join(work, tag, "model", "model_last.pth")
     del trainer, loader, firsts
-    torch.cuda.empty_cache()
+    release()
     if test:
         test_root = os.path.join(work, "ppt_test")
         raw = write_scannet_scene(test_root, "val", int(TESTER_SCENE[5:9]), TESTER_POINTS)
@@ -3207,6 +3290,235 @@ def ppt_card_vs_cpu(device):
                       condition="ScanNet")
 
 
+def _val_scene5(work: str) -> str:
+    """A data root whose val split is phase 10's val scene 5 alone."""
+    val_root = os.path.join(work, "scannet_val1")
+    if not os.path.isdir(val_root):
+        os.makedirs(os.path.join(val_root, "val"))
+        os.symlink(os.path.join(work, "scannet", "val", "scene0005_00"), os.path.join(val_root, "val", "scene0005_00"))
+    return val_root
+
+
+def insseg_ptv3_path(device, card, work: str) -> dict:
+    """Phase 26: the PTv3 PointGroup config through the training CLI's
+    `main_worker` on phase 10's scenes (4 steps, InsSegEvaluator on both val
+    scenes): a later step's ms, data time and peak, the three loss terms, the
+    attention launches a step, AP and proposals a scene, the host
+    clustering's ms; limits: nothing dropped at any pooling level, finite
+    losses, every tensor moved. Then its InsSegTester on val scene 5 and one
+    small-depth train step on the card against the CPU (f32). Returns the
+    launches of the train run."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    data_root = os.path.join(work, "scannet")
+    options = dict(DOWNSTREAM_OPTIONS, **INSSEG_POOL_OPTIONS,
+                   **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, INSSEG_CONFIG, options, "insseg",
+                                                                  TRAIN_KERNELS[:2])
+    cfg = trainer.cfg
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device=device,
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    unchanged = [n for (n, a), b in zip(initial.named_parameters(), trainer.model.parameters())
+                 if torch.equal(a, b.detach())]
+    del initial
+    rows = _metrics(os.path.join(work, "insseg"))
+    bb = cfg.model.backbone
+    blocks = sum(bb.enc_depths) + sum(bb.dec_depths)
+    fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks)
+    row = dict(config=INSSEG_CONFIG, options=options, card=card, seconds=seconds,
+               parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+               **{k: [r[k] for r in rows] for k in ("loss", "seg_loss", "bias_l1_loss", "bias_cosine_loss")},
+               collate_dropped=[r.get("collate_dropped") for r in rows], **_step_times(steps),
+               peak_memory_bytes=peak, peak_gb=peak / 1e9, mAP=evals["mAP"], AP50=evals["AP50"], AP25=evals["AP25"],
+               val_loss=evals["loss"], proposals_per_scene=evals["proposals"], gt_instances=evals["gt_instances"],
+               eval_ms_per_scene=evals["batch_ms"], eval_forward_ms=evals["forward_ms"],
+               cluster_ms_per_scene=evals["cluster_ms"], launches=launches, attention_fwd_per_step=fwd,
+               attention_bwd_per_step=bwd, unchanged_parameters=len(unchanged))
+    emit("insseg_ptv3", **row)
+    if fwd != blocks or bwd != blocks:
+        raise AssertionError(f"insseg: {fwd} attention forwards and {bwd} backwards a step, {blocks} blocks")
+    if unchanged:
+        raise AssertionError(f"insseg: {len(unchanged)} parameters not updated, e.g. {unchanged[:3]}")
+    if not all(math.isfinite(v) for k in ("seg_loss", "bias_l1_loss", "bias_cosine_loss") for v in row[k]):
+        raise AssertionError("insseg: a non-finite loss term")
+    del trainer
+    release()
+    insseg_tester(device, card, work, INSSEG_CONFIG, os.path.join(work, "insseg", "model", "model_last.pth"),
+                  "insseg_test")
+
+    base = Config.fromfile(os.path.join(ROOT, INSSEG_CONFIG))
+    backbone = dict(base.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, drop_path=0.0, amp=False,
+                    pool_capacity_factors=(0.5,) * 4)
+    recipe = dict(optimizer=dict(base.optimizer), param_dicts=list(base.param_dicts), scheduler=dict(base.scheduler))
+    card_vs_cpu_train(device, [(False, dict(base.model, backbone=backbone), recipe)], phase="insseg_card_vs_cpu_train",
+                      capacity=8192, extent=1.7, instances=True)
+    return launches
+
+
+def insseg_tester(device, card, work: str, config: str, weight: str, phase: str, data_root=None) -> dict:
+    """A PointGroup config's InsSegTester through the test CLI's
+    `main_worker` (its ``test=dict()``: the val data) on val scene 5, or on
+    `data_root`'s val split: scene ms, forward ms, host clustering ms and
+    proposals; nothing dropped, attention launched."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    save = os.path.join(work, phase)
+    options = dict(weight=weight, seed=0, num_worker=0, point_capacity_test=262144,
+                   **{"data.val.data_root": data_root or _val_scene5(work)})
+    cfg = default_config_parser(os.path.join(ROOT, config), dict(options, save_path=save))
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tester, result = _quiet(lambda: _test_main_worker()(cfg), os.path.join(work, "tester.log"))
+    seconds = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    stats = list(tester.scene_stats)
+    emit(phase, config=config, card=card, seconds=seconds, scenes=stats, mAP=result["mAP"], AP50=result["AP50"],
+         AP25=result["AP25"], launches=launches)
+    if not stats or any(st["dropped"] for st in stats) or launches["patch_attention"] == 0:
+        raise AssertionError(f"{phase}: scenes {stats}, attention launches {launches['patch_attention']}")
+    del tester
+    release()
+    return result
+
+
+def insseg_overfit_path(device, card, work: str) -> dict:
+    """Phase 27: the SpUNet PointGroup config's own model, optimizer,
+    schedule and transforms on one synthetic scene (train and val its one
+    scene) for INSSEG_OVERFIT_OPTIONS' 150 steps, then InsSegEvaluator on
+    it: the limit is AP50 > INSSEG_OVERFIT_AP50 on the scene it trained on
+    (the offsets, the clustering and the matching working together)."""
+    import numpy as np
+    import torch
+
+    from pointcept_tpu_torch.datasets import synthesize_scene
+
+    root = os.path.join(work, "insseg_overfit")
+    sc = synthesize_scene(INSSEG_OVERFIT_SCENE["seed"], num_points=INSSEG_OVERFIT_SCENE["points"],
+                          num_classes=NUM_CLASSES, extent=INSSEG_OVERFIT_SCENE["extent"])
+    d = os.path.join(root, "train", "scene0031_00")
+    os.makedirs(d)
+    for key, value in (("coord", sc["coord"]), ("color", sc["color"].astype(np.uint8)), ("normal", sc["normal"]),
+                       ("segment20", sc["segment"].astype(np.int16)), ("instance", sc["instance"].astype(np.int16))):
+        np.save(os.path.join(d, f"{key}.npy"), value)
+    os.makedirs(os.path.join(root, "val"))
+    os.symlink(d, os.path.join(root, "val", "scene0031_00"))
+    options = dict(INSSEG_OVERFIT_OPTIONS, **{"data.train.data_root": root, "data.val.data_root": root})
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, INSSEG_OVERFIT_CONFIG, options,
+                                                                 "insseg_overfit")
+    rows = _metrics(os.path.join(work, "insseg_overfit"))
+    batch_stats = _quiet(lambda: batch_stats_ap(trainer), os.path.join(work, "trainer.log"))
+    row = dict(config=INSSEG_OVERFIT_CONFIG, options=options, card=card, seconds=seconds, steps=len(steps),
+               raw_points=len(sc["coord"]), instances=int(len(np.unique(sc["instance"][sc["instance"] >= 0]))),
+               loss_at_step={i: rows[i - 1]["loss"] for i in (1, 50, 100, 150) if i <= len(rows)},
+               terms_at_end={k: rows[-1][k] for k in ("seg_loss", "bias_l1_loss", "bias_cosine_loss")},
+               median_batch_time_ms=statistics.median(st["batch_time_ms"] for st in steps), peak_gb=peak / 1e9,
+               mAP=evals["mAP"], AP50=evals["AP50"], AP25=evals["AP25"], per_overlap=evals["per_overlap"],
+               proposals=evals["proposals"], gt_instances=evals["gt_instances"], cluster_ms=evals["cluster_ms"],
+               val_loss=evals["loss"], limit_AP50=INSSEG_OVERFIT_AP50, limit_met=evals["AP50"] > INSSEG_OVERFIT_AP50,
+               batch_stats=batch_stats)
+    emit("insseg_overfit", **row)
+    del trainer
+    release()
+    if len(steps) != INSSEG_OVERFIT_OPTIONS["epoch"]:
+        raise AssertionError(f"insseg overfit: {len(steps)} steps")
+    if not row["limit_met"]:
+        # a convergence figure, reported with its numbers (PERF.md): the run itself held every other limit
+        emit("insseg_overfit_limit_missed", AP50=evals["AP50"], limit=INSSEG_OVERFIT_AP50, proposals=evals["proposals"],
+             gt_instances=evals["gt_instances"], batch_stats_AP50=batch_stats["AP50"])
+    return row
+
+
+def batch_stats_ap(trainer) -> dict:
+    """The evaluator's AP again, on a copy of the model whose norms take
+    each val batch's own statistics (train mode, no gradient): what the
+    offsets, the clustering and the matching give apart from the running
+    statistics, which after 150 steps at the config's momentum 0.01 still
+    hold 0.99^150 = 22% of their initial values."""
+    import copy
+    from types import SimpleNamespace
+
+    import torch
+
+    from pointcept_tpu_torch.engines.hooks import InsSegEvaluator
+
+    model = copy.deepcopy(trainer.model).train()
+    model.eval = lambda: model  # the hook's eval() keeps the batch statistics
+    (hook_cfg,) = [dict(h) for h in trainer.cfg.hooks if h["type"] == "InsSegEvaluator"]
+    hook = InsSegEvaluator(**{k: v for k, v in hook_cfg.items() if k != "type"})
+    hook.trainer = SimpleNamespace(model=model, cfg=trainer.cfg, val_loader=trainer.val_loader, device=trainer.device,
+                                   logger=trainer.logger, storage=None, comm_info={})
+    with torch.no_grad():
+        res = hook.eval()
+    del model
+    return {k: res[k] for k in ("mAP", "AP50", "AP25", "proposals", "loss")}
+
+
+def insseg_probe_path(device, card, work: str) -> dict:
+    """Phase 28: Sonata's PointGroup linear probe on phase 13's checkpoint
+    (its student backbone, by the config's CheckpointLoader) at phase 14's
+    cuts: the missing and unexpected keys logged; limits: every backbone
+    tensor as loaded bit for bit (the encoder the checkpoint's, the decoder
+    its seeded init: the checkpoint holds an encoder alone), no attention
+    backward, the bias and seg heads alone trainable and moved. Returns the
+    launches."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+
+    data_root = os.path.join(work, "scannet")
+    weight = os.path.join(work, "sonata", "model", "model_last.pth")
+    ckpt = torch.load(weight, map_location="cpu", weights_only=False)["state_dict"]
+    student = {"backbone." + k[len("student.backbone."):]: v for k, v in ckpt.items()
+               if k.startswith("student.backbone.")}
+    del ckpt
+    options = dict(DOWNSTREAM_OPTIONS, weight=weight, **{"data.train.data_root": data_root,
+                                                        "data.val.data_root": _val_scene5(work)})
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, INSSEG_PROBE_CONFIG, options,
+                                                                 "insseg_probe")
+    model, cfg = trainer.model, trainer.cfg
+    info = trainer.comm_info.get("load_info", {})
+    missing, unexpected = info.get("missing", []), info.get("unexpected", [])
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device="cpu",
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    # as loaded: the encoder's tensors the checkpoint's, the rest their seeded init
+    loaded = {n: student.get(n, p.detach()) for n, p in initial.named_parameters()}
+    del initial
+    same, moved = _moved(model, loaded, "backbone.")
+    trainable = sorted(n for n, p in model.named_parameters() if p.requires_grad)
+    heads = [n for n, _ in model.named_parameters() if n.startswith(("bias_head.", "seg_head."))]
+    head_same = [n for n in _moved(model, loaded)[0] if n in heads]
+    row = dict(config=INSSEG_PROBE_CONFIG, card=card, seconds=seconds, steps=len(steps),
+               losses=[st["loss"] for st in steps], **_step_times(steps), peak_gb=peak / 1e9, mAP=evals["mAP"],
+               AP50=evals["AP50"], proposals_per_scene=evals["proposals"], cluster_ms_per_scene=evals["cluster_ms"],
+               launches=launches, missing_keys=missing, unexpected_keys=len(unexpected),
+               unexpected_prefixes=sorted({k.split(".")[0] + "." + k.split(".")[1] for k in unexpected}),
+               encoder_loaded=sum(n in student for n in loaded),
+               backbone_tensors=sum(n.startswith("backbone.") for n in loaded), backbone_unchanged=len(same),
+               backbone_moved=moved[:5], trainable=trainable, heads_unmoved=head_same,
+               parameters=sum(p.numel() for p in model.parameters()))
+    emit("insseg_sonata_probe", **row)
+    fresh = ("bias_head.", "seg_head.", "backbone.dec.")
+    if not missing or not all(k.startswith(fresh) for k in missing) or not any(
+            k.startswith("backbone.enc.") for k in loaded if k in student):
+        raise AssertionError(f"insseg probe: loaded keys off: missing {missing[:5]}")
+    if moved or len(same) != row["backbone_tensors"]:
+        raise AssertionError(f"insseg probe: backbone tensors moved {moved[:3]}")
+    if set(trainable) != set(heads) or head_same:
+        raise AssertionError(f"insseg probe: trainable {trainable[:6]}, heads not moved {head_same[:3]}")
+    if launches["patch_attention_bwd"] or launches["patch_attention"] == 0:
+        raise AssertionError(f"insseg probe: attention launches {launches}")
+    del trainer, model
+    release()
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -3228,6 +3540,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     logs = build.build_all(["patch_attention", "patch_attention_bwd", "block_fill", "take_back", "tap_conv"])
+    build.load_host("clustering")  # PointGroup's host BFS (g++), built before any phase times it
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
@@ -3236,15 +3549,18 @@ def main() -> int:
     main_path(device, card)
     card_vs_cpu(device)
     launches, bare_step_ms = train_path(device, card)
-    card_vs_cpu_train(device)
+    # at half the scene (8,192 points, 1.7 m, the density of 2.4 m at 16,384),
+    # as phases 9, 24 and 26: the time limit's room for phases 26-28
+    card_vs_cpu_train(device, capacity=8192, extent=1.7)
 
     main_path(device, card, SPUNET_MODEL, SPUNET_EVAL_KERNELS, phase="spunet_serving")
     card_vs_cpu(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
     spunet, _ = train_path(device, card, SPUNET_MODEL, SPUNET_RECIPE, SPUNET_TRAIN_KERNELS,
                            phase="spunet_train_path")
-    # at half the scene (8,192 points, 1.7 m): its CPU steps took 112 s of the time limit at 16,384
+    # at a quarter of the scene (4,096 points, 1.2 m): its CPU steps took 112 s of the time limit at
+    # 16,384 and 27-62 s at 8,192
     card_vs_cpu_train(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL), SPUNET_RECIPE)],
-                      phase="spunet_card_vs_cpu_train", capacity=8192, extent=1.7)
+                      phase="spunet_card_vs_cpu_train", capacity=4096, extent=1.2)
     launches.update({name: spunet[name] for name in ("tap_conv_fwd", "tap_conv_dw")})
 
     work = os.path.join(ROOT, "build", "chip_smoke_trainer")
@@ -3265,6 +3581,9 @@ def main() -> int:
         ppt = ppt_path(device, card, work, PPT_CONFIG, "ppt_extreme", s3d_rooms=4, test=True)
         ppt_card_vs_cpu(device)
         ppt_path(device, card, work, PPT_SPUNET_CONFIG, "ppt_spunet", s3d_rooms=3, test=False)
+        insseg = insseg_ptv3_path(device, card, work)
+        insseg_overfit_path(device, card, work)
+        insseg_probe = insseg_probe_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3295,7 +3614,7 @@ def main() -> int:
         # phases 20-23 at D = 16: the outdoor PTv3 configs' train runs and Concerto's probe;
         # phase 24's PPT-extreme run
         launches[name] += (sum(run["trainer"][name] for run in outdoor) + probes["concerto_4a"][name]
-                           + ppt[name])
+                           + ppt[name] + insseg[name] + insseg_probe[name])
     for name in ("block_fill", "take_back"):
         launches[name] += ppt[name]
     line = {"kernels": [

@@ -11,7 +11,8 @@ source `index`) and `return_inverse`, RandomRotateTargetAngle and Copy;
 for Sonata's pretraining, RandomColorJitter, RandomColorGrayScale,
 RandomColorDrop and MultiViewGenerator (global and local crops, each view
 augmented on its own); for the indoor datasets' configs, ShufflePoint,
-RandomDropColor and RandomDropNormal. Each draws from `np.random` and
+RandomDropColor and RandomDropNormal; for instance segmentation,
+InstanceParser. Each draws from `np.random` and
 `random` in the JAX version's order, so one seed gives the same arrays bit
 for bit.
 """
@@ -719,4 +720,49 @@ class MultiViewGenerator:
             if "offset" not in key:
                 view_dict[key] = np.concatenate(view_dict[key], axis=0)
         data_dict.update(view_dict)
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class InstanceParser:
+    """Instance ground truth (counterpart of the JAX package's, reference
+    `transform.py:1312`): the instance ids of the points whose segment is
+    not in `segment_ignore_index` renumbered 0.. in the order of their
+    values, the others `instance_ignore_index`; each point's instance
+    centroid (``instance_centroid``, f32, the ignore value where it has
+    none); and one 8-dof box an instance (``bbox``: center, size, heading
+    0, the class with the ignored classes below it removed)."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = segment_ignore_index
+        self.instance_ignore_index = instance_ignore_index
+
+    def __call__(self, data_dict):
+        coord = data_dict["coord"]
+        segment = data_dict["segment"]
+        instance = data_dict["instance"]
+        mask = ~np.isin(segment, self.segment_ignore_index)
+        instance[~mask] = self.instance_ignore_index
+        unique, inverse = np.unique(instance[mask], return_inverse=True)
+        instance_num = len(unique)
+        instance[mask] = inverse
+        centroid = np.ones((coord.shape[0], 3)) * self.instance_ignore_index
+        bbox = np.ones((instance_num, 8)) * self.instance_ignore_index
+        vacancy = [index for index in self.segment_ignore_index if index >= 0]
+        for instance_id in range(instance_num):
+            mask_ = instance == instance_id
+            coord_ = coord[mask_]
+            bbox_min = coord_.min(0)
+            bbox_max = coord_.max(0)
+            bbox_centroid = coord_.mean(0)
+            bbox_center = (bbox_max + bbox_min) / 2
+            bbox_size = bbox_max - bbox_min
+            bbox_theta = np.zeros(1, dtype=coord_.dtype)
+            bbox_class = np.array([segment[mask_][0]], dtype=coord_.dtype)
+            bbox_class -= np.greater(bbox_class, vacancy).sum()
+            centroid[mask_] = bbox_centroid
+            bbox[instance_id] = np.concatenate([bbox_center, bbox_size, bbox_theta, bbox_class])
+        data_dict["instance"] = instance
+        data_dict["instance_centroid"] = centroid.astype(np.float32)
+        data_dict["bbox"] = bbox
         return data_dict

@@ -76,8 +76,9 @@ def mix3d(batch: dict) -> dict:
 def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = None,
                        drop_overflow: bool = True) -> Dict[str, np.ndarray]:
     """Pad a collated ragged batch into fixed-capacity PointBatch arrays
-    (coord/feat/grid_coord/batch/segment, and instance and the batch's
-    ``condition`` where present; padding has batch -1, label -1). A batch
+    (coord/feat/grid_coord/batch/segment, and instance, instance_centroid
+    and the batch's ``condition`` where present; padding has batch -1,
+    label -1, centroid -1.0). A batch
     of more points than `capacity` is subsampled uniformly at random
     (`np.random.choice`, as the JAX package's training collate), or raises
     without `drop_overflow`."""
@@ -113,6 +114,9 @@ def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = N
         if key in batch:
             out[key] = np.full((n,), -1, np.int32)
             out[key][:eff] = _sel(np.asarray(batch[key]).reshape(-1).astype(np.int32))
+    if "instance_centroid" in batch:
+        out["instance_centroid"] = np.full((n, 3), -1.0, np.float32)
+        out["instance_centroid"][:eff] = _sel(np.asarray(batch["instance_centroid"], np.float32))
     if "condition" in batch:
         out["condition"] = batch["condition"]
     out["num_scenes"] = num_scenes

@@ -1,12 +1,13 @@
-"""Per-epoch semantic-segmentation evaluation (counterpart of `SemSegEvaluator`
-in `pointcept_tpu/engines/hooks/evaluator.py`; parity target: reference
-`pointcept/engines/hooks/evaluator.py:118`)."""
+"""Per-epoch evaluation (counterparts of `SemSegEvaluator` and
+`InsSegEvaluator` in `pointcept_tpu/engines/hooks/evaluator.py`; parity
+target: reference `pointcept/engines/hooks/evaluator.py:118`, `:247`)."""
 
 from __future__ import annotations
 
 import time
 
 import numpy as np
+import torch
 
 from .builder import HOOKS
 from .default import HookBase
@@ -71,3 +72,127 @@ class SemSegEvaluator(HookBase):
 
     def after_train(self):
         self.trainer.logger.info("Best {}: {:.4f}".format("mIoU", self.trainer.best_metric_value))
+
+
+@HOOKS.register_module()
+class InsSegEvaluator(HookBase):
+    """After each epoch: PointGroup's proposals on every val batch
+    (`propose_batch`: the forward and its softmax on the device, one read to
+    the host, `propose_instances` there), matched scene by scene against the
+    batch's ``instance`` and ``segment`` (`scene_records`,
+    `utils.instance_eval`): mAP, AP50 and AP25 over the val set
+    (counterpart of the JAX package's; reference `hooks/evaluator.py:247`).
+    A batch of several scenes is split into its scenes, each its own record
+    (instance ids are per scene; the JAX hook takes a batch as one scene).
+    Sets ``comm_info["current_metric_value"]`` (mAP) for the checkpoint
+    saver and ``comm_info["eval_result"]`` with each batch's forward ms,
+    host clustering ms and proposals a scene, and the points the static
+    capacities dropped."""
+
+    def __init__(self, segment_ignore_index=(-1, 0, 1), instance_ignore_index=-1):
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.instance_ignore_index = instance_ignore_index
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader is not None:
+            self.eval()
+
+    def eval(self) -> dict:
+        from ...utils.instance_eval import aggregate_ap
+
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        model = trainer.model
+        model.eval()
+        num_classes = trainer.cfg.data.num_classes - sum(1 for i in self.segment_ignore_index if i >= 0)
+        records = {c: [] for c in range(num_classes)}
+        gt_counts = {c: 0 for c in range(num_classes)}
+        losses, batch_ms, forward_ms, host_ms, proposals, overflow = [], [], [], [], [], 0
+        scene = 0
+        for i, batch in enumerate(trainer.val_loader):
+            t0 = time.perf_counter()
+            out = propose_batch(model, batch, trainer.device)
+            counts = scene_records(*out["proposals"], out["host"], batch["num_scenes"], num_classes,
+                                   self.segment_ignore_index, records, gt_counts, scene)
+            scene += batch["num_scenes"]
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+            forward_ms.append(out["forward_ms"])
+            host_ms.append(out["cluster_ms"])
+            proposals += counts
+            losses.append(out["loss"])
+            overflow += out["dropped"]
+            trainer.logger.info(f"Test: [{i + 1}/{len(trainer.val_loader)}] Loss {losses[-1]:.4f} "
+                                f"proposals {counts} clustering {host_ms[-1]:.1f} ms")
+        result = aggregate_ap(records, gt_counts, num_classes)
+        trainer.logger.info("Val result: mAP/AP50/AP25 {:.4f}/{:.4f}/{:.4f}".format(
+            result["mAP"], result["AP50"], result["AP25"]))
+        if trainer.storage is not None:
+            trainer.storage.put_scalar("val/loss", float(np.mean(losses)), smoothing_hint=False)
+            for name in ("mAP", "AP50", "AP25"):
+                trainer.storage.put_scalar(f"val/{name}", result[name], smoothing_hint=False)
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = result["mAP"]
+        trainer.comm_info["current_metric_name"] = "mAP"
+        result.update(loss=float(np.mean(losses)), batch_ms=batch_ms, forward_ms=forward_ms, cluster_ms=host_ms,
+                      proposals=proposals, overflow=overflow, gt_instances=sum(gt_counts.values()))
+        trainer.comm_info["eval_result"] = result
+        return result
+
+    def after_train(self):
+        self.trainer.logger.info("Best {}: {:.4f}".format("mAP", self.trainer.best_metric_value))
+
+
+@torch.no_grad()
+def propose_batch(model, arrays: dict, device) -> dict:
+    """PointGroup's proposals of one collated batch: the forward on
+    `device`, its softmax, and one read to the host of the probabilities,
+    offsets, loss, dropped points and the batch's coord, batch ids,
+    ``instance`` and ``segment`` (``host``); then `propose_instances` there
+    (``proposals``: masks over the batch's rows, classes, scores), with the
+    forward's ms (its read included) and the clustering's."""
+    from ..train import make_point_batch
+
+    t0 = time.perf_counter()
+    pb = make_point_batch(arrays, arrays["num_scenes"], device=device)
+    res = model(pb)
+    prob = torch.softmax(res["seg_logits"].float(), dim=-1)
+    dropped = sum(v for vs in res["diagnostics"].values() for v in vs)
+    loss = res.get("loss", torch.zeros((), device=prob.device))
+    loss, dropped = torch.stack([loss.float(), torch.as_tensor(dropped, device=prob.device).float()]).tolist()
+    host = {k: v.cpu().numpy() for k, v in dict(coord=pb.coord, prob=prob, bias=res["bias_pred"].float(),
+                                                 batch=pb.batch, instance=pb.instance, segment=pb.segment).items()}
+    t1 = time.perf_counter()
+    proposals = model.propose_instances(host["coord"], host["bias"], host["prob"], host["batch"], host["batch"] >= 0)
+    return dict(host=host, proposals=proposals, loss=loss, dropped=int(dropped), forward_ms=(t1 - t0) * 1e3,
+                cluster_ms=(time.perf_counter() - t1) * 1e3)
+
+
+def scene_records(masks, classes, scores, host: dict, num_scenes: int, num_classes: int, segment_ignore,
+                  records: dict, gt_counts: dict, first_scene: int) -> list:
+    """Add each scene of a batch (rows of ``host["batch"]`` equal to its
+    index) to `records` (class -> (score, IoUs, scene id)) and `gt_counts`:
+    its proposals (a proposal's points lie in one scene: the clustering
+    never crosses scenes) against its ``instance`` / ``segment``. Returns
+    the proposals a scene.
+
+    `evaluate_scene` takes classes with the ignored ones removed (a GT
+    segment above k ignored classes is class ``segment - k``), so the
+    proposals' classes, argmaxes over every class, are shifted the same way
+    (the JAX hook and tester pass them unshifted: ScanNet's class c meets
+    GT class c + 2, and a perfect prediction scores AP 0)."""
+    from ...utils.instance_eval import evaluate_scene
+
+    vacancy = np.asarray([i for i in segment_ignore if i >= 0])
+    classes = classes - np.greater(classes[:, None], vacancy[None]).sum(axis=1)
+    counts = []
+    for s in range(num_scenes):
+        rows = host["batch"] == s
+        mine = masks[:, rows].any(axis=1)
+        recs, gts = evaluate_scene(masks[mine][:, rows], classes[mine], scores[mine], host["instance"][rows],
+                                   host["segment"][rows], num_classes, segment_ignore)
+        for c, lst in recs.items():
+            records.setdefault(c, []).extend((score, ious, first_scene + s) for score, ious in lst)
+        for c, cnt in gts.items():
+            gt_counts[c] = gt_counts.get(c, 0) + cnt
+        counts.append(int(mine.sum()))
+    return counts

@@ -1,6 +1,8 @@
-"""The precise-eval tester (counterparts of `TESTERS`, `TesterBase` and
-`SemSegTester` in `pointcept_tpu/engines/test.py`; parity target: reference
-`pointcept/engines/test.py:37-353`).
+"""The precise-eval tester (counterparts of `TESTERS`, `TesterBase`,
+`SemSegTester` and `InsSegTester` in `pointcept_tpu/engines/test.py`;
+parity target: reference `pointcept/engines/test.py:37-353`, `:1159`).
+`InsSegTester` (PointGroup) runs one forward a scene and clusters on the
+host; the rest of this text is `SemSegTester`'s.
 
 A test scene is a list of fragments (`DefaultDataset` in test mode): every
 view of `aug_transform`, cut by GridSample's test mode into fragments that
@@ -167,8 +169,12 @@ class TesterBase:
         self.logger.info("=> Building test dataset & loader ...")
         # `submit` asks the tester for the benchmark's files; no dataset takes it
         # (the JAX tester passes it on, and its dataset refuses the keyword)
-        self.test_dataset = build_dataset({k: v for k, v in dict(cfg.data.test).items() if k != "submit"})
+        self.test_dataset = build_dataset({k: v for k, v in self.test_data_config().items() if k != "submit"})
         self._fragment_batch()  # refuse a batch below 1 before any scene is built
+
+    def test_data_config(self) -> dict:
+        """The config of the test dataset: ``data.test``."""
+        return dict(self.cfg.data.test)
 
     def build_model(self):
         cfg = apply_amp_policy(dict(self.cfg.model), self.cfg.get("enable_amp", False))
@@ -479,6 +485,109 @@ def write_nuscenes_meta(submit_dir: str):
     meta = dict(meta=dict(use_camera=False, use_lidar=True, use_radar=False, use_map=False, use_external=False))
     with open(os.path.join(submit_dir, "test", "submission.json"), "w") as f:
         json.dump(meta, f, indent=4)
+
+
+@TESTERS.register_module()
+class InsSegTester(TesterBase):
+    """PointGroup's tester (counterpart of the JAX package's `InsSegTester`;
+    reference `engines/test.py:1159`): one forward a scene on the device
+    (padded to ``point_capacity_test``; a scene past it raises), its softmax
+    and offsets read to the host, `propose_instances` there (the
+    evaluator's `propose_batch`), and AP over the scenes
+    (`utils.instance_eval`); with ``data.test.submit``, the
+    benchmark's files (`write_submission`). ``scene_stats`` holds each
+    scene's ms, forward ms, host clustering ms and proposals.
+
+    The insseg configs say ``test=dict()`` and test on the val data: a
+    ``data.test`` without a ``type`` takes ``data.val`` (the JAX tester
+    builds the empty dict, and its dataset builder raises). A ``data.test``
+    whose pipeline collects no features (the ScanNet++ ``-submit``
+    configs' test split, which also lacks ``submit``) is refused, naming
+    what is missing."""
+
+    def __init__(self, cfg, model=None, device=None, verbose: bool = False, segment_ignore_index=(-1, 0, 1)):
+        self.segment_ignore_index = tuple(segment_ignore_index)
+        self.scene_stats = []
+        super().__init__(cfg, model=model, device=device, verbose=verbose)
+
+    def test_data_config(self) -> dict:
+        test = dict(self.cfg.data.test)
+        if "type" not in test:
+            return dict(self.cfg.data.val)
+        collects = [dict(t) for t in test.get("transform") or [] if dict(t).get("type") == "Collect"]
+        if not any(c.get("feat_keys") for c in collects):
+            raise ValueError(
+                f"InsSegTester: data.test ({test['type']}, split {test.get('split')!r}) has no `transform` whose "
+                "`Collect` gathers `feat_keys`: its scenes would reach the model without features or offsets. "
+                "Give data.test the val pipeline, and `submit=True` for the benchmark's files"
+                + ("" if "submit" in test else " (it has no `submit` key)"))
+        return test
+
+    def test(self) -> dict:
+        from ..utils.instance_eval import aggregate_ap
+        from .hooks.evaluator import propose_batch, scene_records
+
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        self.model.eval()
+        num_classes = self.cfg.data.num_classes - sum(1 for i in self.segment_ignore_index if i >= 0)
+        records = {c: [] for c in range(num_classes)}
+        gt_counts = {c: 0 for c in range(num_classes)}
+        submit = bool(dict(self.cfg.data.test).get("submit", False))
+        self.scene_stats = []
+        for pos in range(len(self.test_dataset)):
+            start = time.perf_counter()
+            data = self.test_dataset[pos]
+            fragment = data["fragment_list"][0] if "fragment_list" in data else data
+            name = str(data.get("name", pos))
+            n = fragment["coord"].shape[0]
+            if n > self.test_capacity:
+                raise ValueError(f"{name}: {n} points > point_capacity_test {self.test_capacity}")
+            arrays = pad_to_point_batch(collate_fn([dict(fragment)]), self.test_capacity, num_scenes=1)
+            loaded = time.perf_counter()
+            out = propose_batch(self.model, arrays, self.device)
+            (count,) = scene_records(*out["proposals"], out["host"], 1, num_classes, self.segment_ignore_index,
+                                     records, gt_counts, pos)
+            masks, classes, scores = out["proposals"]
+            if submit:
+                self.write_submission(name, masks[:, :n], classes, scores)
+            stats = dict(name=name, points=n, proposals=count, dropped=out["dropped"], load_ms=(loaded - start) * 1e3,
+                         forward_ms=out["forward_ms"], cluster_ms=out["cluster_ms"],
+                         scene_ms=(time.perf_counter() - start) * 1e3)
+            self.scene_stats.append(stats)
+            self.check_dropped(out["dropped"], n, name)
+            logger.info(f"Test: [{pos + 1}/{len(self.test_dataset)}] {name} proposals {count} "
+                        f"forward {stats['forward_ms']:.1f} ms clustering {stats['cluster_ms']:.1f} ms")
+        result = aggregate_ap(records, gt_counts, num_classes)
+        logger.info("Val result: mAP/AP50/AP25 {:.4f}/{:.4f}/{:.4f}".format(result["mAP"], result["AP50"],
+                                                                           result["AP25"]))
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return result
+
+    def write_submission(self, data_name: str, masks, classes, scores):
+        """ScanNet's and ScanNet++'s instance benchmark format (the JAX
+        package's, reference `test.py:1266-1303`), under
+        ``save_path/result/submit``: ``<scene>.txt``, one line a proposal
+        (``predicted_masks/<scene>_<i>.json <class> <score>``), and each
+        mask as a run-length json (``length``, ``counts``: the 1-based
+        starts and lengths of its runs)."""
+        import json
+
+        save_dir = os.path.join(self.cfg.save_path, "result", "submit")
+        mask_dir = os.path.join(save_dir, "predicted_masks")
+        make_dirs(mask_dir)
+        lines = []
+        for i, (mask, cls, score) in enumerate(zip(masks, classes, scores)):
+            mask = np.asarray(mask).astype(np.uint8)
+            padded = np.concatenate([[0], mask, [0]])
+            runs = np.where(padded[1:] != padded[:-1])[0] + 1
+            runs[1::2] -= runs[::2]
+            rle = dict(length=int(mask.shape[0]), counts=" ".join(str(int(x)) for x in runs))
+            with open(os.path.join(mask_dir, f"{data_name}_{i:03d}.json"), "w") as f:
+                json.dump(rle, f, indent=2)
+            lines.append(f"{os.path.join('predicted_masks', f'{data_name}_{i:03d}.json')} {int(cls)} {float(score):.4f}")
+        with open(os.path.join(save_dir, f"{data_name}.txt"), "w") as f:
+            f.write("\n".join(lines) + ("\n" if lines else ""))
 
 
 def main_worker(cfg, device: Optional[str] = None):

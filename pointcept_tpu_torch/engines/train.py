@@ -72,6 +72,8 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
         batch=_put(arrays, prefix + "batch", torch.int32, device),
         segment=_put(arrays, prefix + "segment", torch.int32, device),
         origin_coord=_put(arrays, prefix + "origin_coord", torch.float32, device),
+        instance=_put(arrays, prefix + "instance", torch.int32, device),
+        instance_centroid=_put(arrays, prefix + "instance_centroid", torch.float32, device),
         num_scenes=num_scenes,
         grid_depth=grid_bits(arrays.get(prefix + "grid_coord")),
         condition=condition if condition is not None else arrays.get("condition"),
@@ -377,16 +379,39 @@ def _pipeline_conditions(data_cfg) -> list:
             if t.get("type") in ("Add", "Update") and "condition" in (t.get("keys_dict") or {})]
 
 
+def _pdnorm_backbone(backbone: dict) -> tuple:
+    """(whether a backbone config normalises with PDNorm, whether
+    adaptively): SpUNet-v1m3, or ``conditions`` / ``pdnorm_bn`` /
+    ``pdnorm_ln`` set."""
+    pd = (backbone.get("type") == "SpUNet-v1m3" or backbone.get("conditions") is not None
+          or bool(backbone.get("pdnorm_bn")) or bool(backbone.get("pdnorm_ln")))
+    adaptive = backbone.get("norm_adaptive")
+    return pd, pd and bool(backbone.get("pdnorm_adaptive", False) if adaptive is None else adaptive)
+
+
 def check_conditions(cfg) -> None:
     """Refuse a config whose data pipelines add a condition that its model
     (a PPT wrapper's ``conditions``) does not know, naming both lists: the
     outdoor PPT configs inherit the indoor data of their ``_base_`` and keep
     its ScanNet / Structured3D conditions under SemanticKITTI / nuScenes /
-    Waymo models."""
-    known = dict(cfg.model).get("conditions")
-    if known is None:
-        return
+    Waymo models. Without a PPT wrapper, refuse a PDNorm backbone that no
+    batch could drive: one whose pipelines add no condition (each norm
+    picks the batch's), or an adaptive one (its modulation reads the
+    context only a wrapper's table gives) — the PointGroup PPT fine-tunes
+    (`insseg-ppt-v1m1-0-pointgroup-spunet-ft*.py`), which would raise at
+    the first forward."""
+    model = dict(cfg.model)
+    known = model.get("conditions")
     added = [c for part in ("train", "val", "test") if part in cfg.data for c in _pipeline_conditions(cfg.data[part])]
+    if known is None:
+        pd, adaptive = _pdnorm_backbone(dict(model.get("backbone") or {}))
+        if pd and not added:
+            raise ValueError(f"the backbone {dict(model['backbone'])['type']} normalises with PDNorm, which needs "
+                             "each batch's condition, and the data pipelines add none (no `Add` of `condition`)")
+        if adaptive:
+            raise ValueError(f"the backbone's PDNorm is adaptive (norm_adaptive), which needs a context embedding; "
+                             f"only a Point Prompt Training wrapper gives one, and the model is {model.get('type')}")
+        return
     unknown = sorted({c for c in added if c not in tuple(known)})
     if unknown:
         raise ValueError(f"the data pipelines add the conditions {sorted(set(added))}, the model knows "

@@ -64,6 +64,19 @@ class DefaultSegmentorV2(nn.Module):
     def __init__(self, num_classes: int = 20, backbone_out_channels: int = 64, backbone=None,
                  criteria=None, freeze_backbone: bool = False, up_cast_level: int = 0):
         super().__init__()
+        in_ch = self.build_backbone(backbone, backbone_out_channels, up_cast_level, freeze_backbone)
+        self.criteria = build_criteria(criteria)
+        self.seg_head = Linear(in_ch, num_classes) if num_classes > 0 else nn.Identity()
+
+    def build_backbone(self, backbone: dict, backbone_out_channels: int, up_cast_level: int = 0,
+                       freeze_backbone: bool = False) -> int:
+        """Build ``self.backbone`` (frozen in the model with
+        `freeze_backbone`) and return the width of the features a head
+        reads: the decoder's, which must be `backbone_out_channels`, or an
+        ``enc_mode`` backbone's up-cast of `up_cast_level` levels (0: every
+        level), whose width wins over a differing `backbone_out_channels`
+        (logged). PointGroup's models share it."""
+        owner = type(self).__name__
         self.backbone = MODELS.build(dict(backbone))
         self.enc_mode = bool(getattr(self.backbone, "enc_mode", False))
         if self.enc_mode:
@@ -72,28 +85,32 @@ class DefaultSegmentorV2(nn.Module):
             in_ch = sum(enc[len(enc) - 1 - self.up_cast_level:])
             if backbone_out_channels != in_ch:
                 get_root_logger().warning(
-                    f"DefaultSegmentorV2: backbone_out_channels={backbone_out_channels} but the up-cast of "
+                    f"{owner}: backbone_out_channels={backbone_out_channels} but the up-cast of "
                     f"{self.up_cast_level} levels gives {in_ch} channels; the head takes {in_ch}")
         else:
             in_ch = self.backbone.out_channels
             if backbone_out_channels != in_ch:
                 raise ValueError(f"backbone_out_channels={backbone_out_channels} but the backbone "
                                  f"emits {in_ch} channels")
-        self.criteria = build_criteria(criteria)
         self.freeze_backbone = freeze_backbone
         if freeze_backbone:
             self.backbone.requires_grad_(False)
-        self.seg_head = Linear(in_ch, num_classes) if num_classes > 0 else nn.Identity()
+        return in_ch
+
+    def backbone_forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
+                         precomputed: Optional[dict] = None):
+        """(the PointBatch a head reads, up-cast for an ``enc_mode``
+        backbone; the backbone's diagnostics)."""
+        kw = {} if precomputed is None else dict(precomputed=precomputed)
+        if self.enc_mode:
+            out, diag, skips = self.backbone(pb, generator=generator, **kw)
+            return up_cast(out, skips, self.up_cast_level), diag
+        return self.backbone(pb, generator=generator, **kw)
 
     def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None,
                 precomputed: Optional[dict] = None) -> dict:
         with contextlib.nullcontext() if self.training else torch.no_grad():
-            kw = {} if precomputed is None else dict(precomputed=precomputed)
-            if self.enc_mode:
-                out, diag, skips = self.backbone(pb, generator=generator, **kw)
-                out = up_cast(out, skips, self.up_cast_level)
-            else:
-                out, diag = self.backbone(pb, generator=generator, **kw)
+            out, diag = self.backbone_forward(pb, generator, precomputed)
             logits = self.seg_head(out.feat)
             result = {"seg_logits": logits, "feat": out.feat, "diagnostics": diag}
             if pb.segment is not None:

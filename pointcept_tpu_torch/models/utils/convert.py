@@ -35,7 +35,9 @@ and ``<norm>.modulation.1`` under SpUNet-v1m3 (the names
 `convert_spunet` reads back). A Point Prompt Training wrapper's own leaves
 map to its module names: ``embedding_table/embedding`` ->
 ``embedding_table.weight``, ``proj_head`` and ``seg_head{i}`` Dense ->
-Linear, ``class_embedding`` and ``logit_scale`` as they are.
+Linear, ``class_embedding`` and ``logit_scale`` as they are. PointGroup's
+heads (``bias_fc1``, ``bias_norm``, ``bias_fc2``) map to the reference's
+``bias_head.0``, ``.1`` and ``.3`` (`PG_HEADS`) beside its ``seg_head``.
 """
 
 from __future__ import annotations
@@ -245,11 +247,35 @@ def _sonata_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+# PointGroup's heads (PG-v1m1/m2): flax module -> the reference's name
+PG_HEADS = {"bias_fc1": "bias_head.0", "bias_norm": "bias_head.1", "bias_fc2": "bias_head.3"}
+
+
+def _pg_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+    """PointGroup's bias head and its seg head -> their module names."""
+    sd = {}
+    for module, name in dict(PG_HEADS, seg_head="seg_head").items():
+        for leaf, value in params[module].items():
+            if leaf == "kernel":
+                sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(value).T)
+            else:
+                sd[f"{name}.{'weight' if leaf == 'scale' else leaf}"] = np.asarray(value)
+        for leaf, value in batch_stats.get(module, {}).items():
+            sd[f"{name}.running_{leaf}"] = np.asarray(value)
+    return sd
+
+
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet,
-    PPT-v1m1/m2/m3 over either, or Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
+    PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, or Sonata-v1m1 flax trees (arrays)
+    -> the port's state dict."""
     ppt = {k: v for k, v in params.items() if _is_ppt_leaf(k)}
     params = {k: v for k, v in params.items() if k not in ppt}
+    pg = {}
+    if "bias_fc1" in params:
+        pg = _pg_from_jax({k: params[k] for k in (*PG_HEADS, "seg_head")}, batch_stats)
+        params = {k: v for k, v in params.items() if k not in PG_HEADS and k != "seg_head"}
+        batch_stats = {k: v for k, v in batch_stats.items() if k not in PG_HEADS}
     if "conv_input" in params.get("backbone_module", {}):
         sd = _spunet_from_jax(params, batch_stats)
     elif "teacher_backbone" in params:
@@ -257,4 +283,5 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     else:
         sd = _ptv3_from_jax(params, batch_stats)
     sd.update(_ppt_from_jax(ppt))
+    sd.update(pg)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

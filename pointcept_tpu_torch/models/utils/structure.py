@@ -63,6 +63,8 @@ class PointBatch:
     grid_depth: int = 0  # bits of the largest grid coordinate (`grid_bits`), 0 = not known
     condition: Optional[str] = None  # the batch's dataset (PPT: one condition a batch)
     context: Optional[torch.Tensor] = None  # [1, context_channels] the condition's embedding (PPT)
+    instance: Optional[torch.Tensor] = None  # [N] int32 instance ids, -1 = none (PointGroup)
+    instance_centroid: Optional[torch.Tensor] = None  # [N, 3] float32 each point's instance centroid
 
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)
@@ -202,6 +204,8 @@ class PointBatch:
             grid_coord=take(self.grid_coord),
             batch=take(self.batch),
             segment=take(self.segment),
+            instance=take(self.instance),
+            instance_centroid=take(self.instance_centroid),
             serialized_keys=new_keys,
             serialized_order=new_order,
             serialized_inverse=new_inverse,

@@ -1,14 +1,17 @@
-"""Builds the CUDA sources in `pointcept_tpu_torch/csrc/` and loads them.
+"""Builds the sources in `pointcept_tpu_torch/csrc/` and loads them.
 
-Each source is compiled by its own `nvcc` into a shared library with a plain C
-interface (no PyTorch headers: a build takes seconds) and loaded with
-`ctypes`. Libraries land in ``build/kernels/`` at the repository root, named
-by a hash of their source, the shared headers (`csrc/*.cuh`) and the flags,
-so an unchanged source is not rebuilt.
-`build_all` starts one `nvcc` per source, all at once.
+Each CUDA source (``.cu``) is compiled by its own `nvcc` into a shared
+library with a plain C interface (no PyTorch headers: a build takes seconds)
+and loaded with `ctypes`. Libraries land in ``build/kernels/`` at the
+repository root, named by a hash of their source, the shared headers
+(`csrc/*.cuh`) and the flags, so an unchanged source is not rebuilt.
+`build_all` starts one `nvcc` per source, all at once. A host source
+(``.cpp``: PointGroup's clustering) is compiled by `g++` the same way
+(`load_host`).
 
 Nothing here runs at import: a library is built the first time a wrapper
-launches its kernel on a CUDA tensor, or when `build_all` is called.
+launches its kernel on a CUDA tensor (or calls its host library), or when
+`build_all` is called.
 """
 
 from __future__ import annotations
@@ -26,8 +29,12 @@ CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# ISO C++ (not gnu++): g++ then contracts no multiply-add into an FMA, so a
+# host library's float results do not depend on the build machine
+GXX_FLAGS = ["-std=c++17", "-O3", "-shared", "-fPIC"]
 
 _libs: Dict[str, ctypes.CDLL] = {}
+_host_libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -79,6 +86,39 @@ def load(name: str) -> ctypes.CDLL:
             build_all([name])
             lib = ctypes.CDLL(str(_target(name)))
             _libs[name] = lib
+        return lib
+
+
+def _gxx() -> str:
+    for cand in (os.environ.get("CXX"), shutil.which("g++")):
+        if cand and shutil.which(cand):
+            return cand
+    raise RuntimeError("g++ not found: set CXX or install a C++ compiler")
+
+
+def _host_target(name: str) -> Path:
+    data = (CSRC / f"{name}.cpp").read_bytes()
+    h = hashlib.sha256(data + " ".join(GXX_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}-{h}.so"
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The loaded library of the host source `csrc/<name>.cpp`, built with
+    `g++` first if needed; raises when it does not build."""
+    with _lock:
+        key = f"{name}.cpp"
+        lib = _host_libs.get(key)
+        if lib is None:
+            out = _host_target(name)
+            if not out.exists():
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                tmp = out.with_suffix(f".{os.getpid()}.tmp")
+                proc = subprocess.run([_gxx(), *GXX_FLAGS, "-o", str(tmp), str(CSRC / key)],
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                if proc.returncode != 0:
+                    raise RuntimeError(f"g++ failed for {key}:\n{proc.stdout}")
+                os.replace(tmp, out)
+            lib = _host_libs[key] = ctypes.CDLL(str(out))
         return lib
 
 

@@ -17,7 +17,9 @@ LoRA configs, and the 25 configs the outdoor datasets complete
 linear probes), whose models are also built on the meta device; and the
 27 configs Point Prompt Training completes (PPT-v1m1 / v1m2 / v1m3 with
 `Add` and `MultiDatasetTrainer`), whose models (with SpUNet-v1m3's PDNorm
-config beside them) are built on the meta device too."""
+config beside them) are built on the meta device too; and the 35 PointGroup
+configs (PG-v1m1 / v1m2 over SpUNet and PT-v3, Sonata's and Concerto's
+PointGroup probes), whose models are built on the meta device too."""
 
 from pathlib import Path
 
@@ -126,7 +128,12 @@ PPT = sorted(
                                                               "3d-s3dis")]
     + ["sonata/semseg-sonata-v1m1-2f-scannetpp-ppt-submit.py"]
     + [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/concerto").glob("semseg-*-ppt*.py")])
-CONFIGS = INDOOR + LORA + OUTDOOR + PPT
+# instance segmentation: PointGroup (PG-v1m1 / v1m2) with InstanceParser,
+# InsSegEvaluator and InsSegTester; LitePT's and SGIFormer's wait for their
+# backbones
+INSSEG = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/insseg-*.py")
+                if "litept" not in p.name and "sgiformer" not in p.name)
+CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
@@ -139,6 +146,11 @@ KNOWN_EXCEPTIONS = {
     "concerto/": "in_channels=9 over 6 data channels (4 outdoors), as Utonia's (the same override)",
     "sonata/semseg-sonata-v1m1-": "backbone_out_channels=1328 where the up-cast gives 1,232: the head takes "
                                   "the up-cast's width and the difference is logged (queue 3 item 5, fault 4)",
+    "scannet/insseg-ppt-": "the PointGroup PPT fine-tunes (ScanNet's and S3DIS's) put SpUNet-v1m3's adaptive PDNorm "
+                           "under PG-v1m1 with no condition in their pipelines: the trainer and tester refuse them "
+                           "(tests/test_torch_port_insseg.py)",
+    "scannetpp/insseg-pointgroup-v1m": "the -submit configs test on ScanNet++'s test split with no transform and no "
+                                       "submit key: InsSegTester refuses them (tests/test_torch_port_insseg.py)",
     "nuscenes/semseg-ppt-": "the outdoor PPT configs keep their _base_'s indoor data (ScanNet and Structured3D "
                             "conditions, 6 channels) under models of the outdoor conditions: the trainer refuses "
                             "them naming both lists (tests/test_torch_port_ppt.py)",
@@ -166,8 +178,8 @@ def _known(path: str, name: str) -> bool:
 
 
 def test_census_counts():
-    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27
-    assert len(set(CONFIGS)) == 122
+    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27 and len(INSSEG) == 35
+    assert len(set(CONFIGS)) == 157
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -206,3 +218,14 @@ def test_ppt_model_builds(path):
     with torch.device("meta"):
         model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
     assert sum(p.numel() for p in model.parameters()) > (1e4 if "synthetic" in path else 1e6)
+
+
+@pytest.mark.parametrize("path", INSSEG)
+def test_insseg_model_builds(path):
+    """Each PointGroup config's model builds on the meta device, its heads
+    as wide as the config's classes."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
+    assert model.seg_head.out_features == cfg.model.semantic_num_classes == cfg.data.num_classes
+    assert model.bias_head[3].out_features == 3 and sum(p.numel() for p in model.parameters()) > 1e6

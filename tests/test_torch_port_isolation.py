@@ -40,6 +40,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.datasets.waymo, pointcept_tpu_torch.datasets.variants\n"
         "import pointcept_tpu_torch.datasets.dataloader, pointcept_tpu_torch.models.point_prompt_training\n"
         "import pointcept_tpu_torch.models.point_prompt_training.point_prompt_training\n"
+        "import pointcept_tpu_torch.models.point_group.point_group, pointcept_tpu_torch.ops.clustering\n"
+        "import pointcept_tpu_torch.utils.instance_eval, pointcept_tpu_torch.engines.hooks.evaluator\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
@@ -101,3 +103,22 @@ def test_kernels_are_not_built_at_import():
     from pointcept_tpu_torch.ops.kernels import build
 
     assert build._libs == {}
+
+
+def test_clustering_builds_the_ports_own_source():
+    """`bfs_cluster` loads the port's library, built from
+    `pointcept_tpu_torch/csrc/clustering.cpp` into ``build/kernels/``; no
+    path of the JAX package's `native/` appears in the module or its build."""
+    import numpy as np
+
+    from pointcept_tpu_torch.ops import clustering
+    from pointcept_tpu_torch.ops.kernels import build
+
+    for module in (clustering, build):
+        assert "native" not in Path(module.__file__).read_text()
+    out, num = clustering.bfs_cluster(np.zeros((3, 3), np.float32), np.zeros(3, np.int32), np.zeros(3, np.int32),
+                                      radius=1.0, min_points=2)
+    assert num == 1 and (out == 0).all()
+    lib = Path(build._host_libs["clustering.cpp"]._name)
+    assert lib.parent == build.BUILD_DIR and lib.name.startswith("libclustering-")
+    assert (build.CSRC / "clustering.cpp").is_file() and build.CSRC.parent.name == "pointcept_tpu_torch"
