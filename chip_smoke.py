@@ -17,7 +17,9 @@ each printing JSON lines:
    (C 384, H 24) over the global views of 262,144 rows, at Utonia's
    head dim 18 (stage 0: C 54, H 3; stage 3: C 432, H 24) and at
    Concerto-large's LoRA fine-tune (stage 0: C 64, H 4; stage 4: C 768,
-   H 48) over a fine-tune step's two scenes of 262,144 rows,
+   H 48) over a fine-tune step's two scenes of 262,144 rows, ModelNet40's
+   classifier (stage 0: C 32, H 2; stage 4: C 512, H 32; 32 clouds) and
+   the tiny classifier's head dim 4 at patch 64 (C 8-32, zero-padded to 16),
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -32,7 +34,10 @@ each printing JSON lines:
 4. times: kernel, plain version, one PyTorch library call computing the same
    function, and the least time the card could take (bound); the attention
    rows with their launches per forward or step, and each path's sum of
-   launches x ms;
+   launches x ms (the eval forward's and train step's shapes, the whole-K
+   and head-dim-8 cases, ModelNet40's, and stage 0 at head dims 18 and 4;
+   the other paths' shapes are checked and were timed by the slices that
+   brought them);
 5. the serving path: the PTv3-base ScanNet eval forward (`DefaultSegmentorV2`
    + `PT-v3m1`, 5 stages at full width, AMP bf16, block-dense convs with 4^3
    blocks) on distinct synthetic scenes of 102,400 points, with the launch
@@ -148,7 +153,7 @@ each printing JSON lines:
    section (4 rotation views, the grouped path) on the val scan, then the
    test split's submission read back (uint32 `.label` files of raw ids);
 21. nuScenes' PTv3 config on HDL-32E sweeps in the info layout: two epochs
-   of 2 steps, the second resumed through the CLI with the same loss bits,
+   of 2 steps (its resumed epoch is left to phases 10, 13 and 29),
    its test section on the val sweep and the lidarseg submission of the
    test split (`<lidar token>_lidarseg.bin` of classes 1-16 and
    `test/submission.json`);
@@ -181,7 +186,7 @@ each printing JSON lines:
    forwards and backwards a step, InsSegEvaluator's AP, proposals and host
    clustering ms a scene, every tensor moved, nothing dropped at any
    pooling; the config's InsSegTester on val scene 5; then one small-depth
-   step on the card against the CPU (f32, 8,192 points);
+   step on the card against the CPU (f32, 4,096 points);
 27. the SpUNet PointGroup config (`configs/scannet/insseg-pointgroup-v1m1-0-spunet-base.py`:
    its model, SGD + PolyLR and transforms) overfitting one synthetic 3 m
    room for 150 steps, then InsSegEvaluator on that room: AP50 above 0.5;
@@ -190,11 +195,36 @@ each printing JSON lines:
    unexpected keys, every backbone tensor as loaded bit for bit (the
    decoder at its seeded init), no attention backward, the bias and seg
    heads alone trainable and moved;
-29. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+29. ModelNet40's PTv3 classifier (`configs/modelnet40/cls-pt-v3m1-0-base.py`:
+   `DefaultClassifier` over PT-v3m1 enc_mode at 32-512, depths 2/2/2/6/2,
+   patch 1024, AdamW + CosineAnnealingLR) through `main_worker` on
+   synthetic clouds written in the `modelnet40_normal_resampled` layout
+   (`write_modelnet`: 10,000 points with normals a file, 40 class shapes),
+   at the config's batch of 32 clouds: two 4-step epochs (an evaluation and
+   a checkpoint each), a later step's ms, data time and peak, 14 attention
+   forwards and backwards a step, each stage's rows against its patch
+   (every cloud at most one patch), ClsEvaluator's allAcc, every tensor
+   moved, nothing dropped; the second epoch resumed through the CLI (the
+   same loss bits); ClsTester on the 40 test clouds and the voting
+   config's ClsVotingTester (100 repeats) on 4, ms a cloud; then one
+   small-depth step on the card against the CPU (f32, 4 clouds);
+30. the synthetic tiny classifier (`configs/synthetic/cls-pt-v3m1-0-tiny.py`:
+   head dim 4 at patch 64, on the D = 16 kernels) as written and for 120
+   steps: allAcc on its val split against 0.9 (a convergence figure,
+   reported), beside the same weights on each batch's own norm statistics;
+31. Utonia's ShapeNet-Part fine-tune (`configs/utonia/partseg-utonia-v1m1-9b-shapenet-ft.py`:
+   PT-v3m3 at 54-576 with RoPE, head dim 18, 9 feature channels) from a
+   random encoder saved under `student.backbone.`, on synthetic shapes in
+   ShapeNet-Part's layout (`write_shapenet`: ~2,500 points, 16 categories,
+   the standard 50-part ranges) at the config's batch of 16: 4 steps and
+   one evaluation (24 attention forwards and backwards a step, the loaded
+   and missing keys), then the config's ShapeNetPartSegTester on 16 test
+   shapes (ins.mIoU, cat.mIoU, ms a shape);
+32. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two, phases
-   20-24, 26 and 28's added to the attention rows and phase 24's to the
-   fill and the take-back; the D = 18 rows: phase 15's fine-tune and phase
-   23's Utonia fine-tune).
+   20-24, 26, 28 and 29's added to the attention rows and phase 24's to the
+   fill and the take-back; the D = 18 rows: phase 15's fine-tune, phase
+   23's Utonia fine-tune and phase 31's; the D = 4 rows: phase 30's).
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -521,6 +551,52 @@ INSSEG_OVERFIT_AP50 = 0.5
 # phase 28: Sonata's PointGroup linear probe (PT-v3m2 with a decoder, frozen,
 # under PG-v1m2) on phase 13's checkpoint at phase 14's cuts
 INSSEG_PROBE_CONFIG = "configs/sonata/insseg-sonata-v1m1-0a-scannet-pg-lin.py"
+# phase 29: ModelNet40's PTv3 classifier (PT-v3m1 enc_mode 32-512, depths
+# 2/2/2/6/2, patch 1024) at the config's batch of 32 clouds on one card, on
+# synthetic clouds in the modelnet40_normal_resampled layout
+# the attention paths phase 4 times (every shape of every path is checked)
+TIMED_PATHS = ("eval", "train", "patch 128", "overfit train", "modelnet")
+CLS_CONFIG = "configs/modelnet40/cls-pt-v3m1-0-base.py"
+CLS_VOTING_CONFIG = "configs/modelnet40/cls-pt-v3m1-1-voting.py"
+CLS_FILE_POINTS = 10000  # points a file (with normals)
+CLS_SPLITS = {"train": 128, "test": 40}  # 4 steps of 32 clouds; the test split is also the config's val
+CLS_VOTE_CLOUDS = 4
+# the config's 8,192 rows hold 4 clouds (a TPU device's share); 32 clouds
+# of 1,024 points take 32,768, and a val batch of 8 clouds 8,192. Its
+# pooling of 0.6 a stage drops points of FPS-spread clouds, whose points
+# stay apart until the voxels grow to their spacing (32 clouds: 100%,
+# 99.5%, 72% and 31% of the last stage's points a stage; one cloud up to
+# 94% at stage 3): 1.0 at stages 1-3, the config's 0.6 at stage 4
+CLS_OPTIONS = dict(batch_size=32, point_capacity=32768, point_capacity_val=8192, point_capacity_test=1024,
+                   epoch=2, eval_epoch=2, num_worker=4, seed=0,
+                   **{"hooks.4.save_freq": 1, "model.backbone.pool_capacity_factors": (1.0, 1.0, 1.0, 0.6)})
+CLS_ATTENTION = ((0, 32, 2, 2), (4, 512, 32, 2))  # (stage, C, H, launches a step) of phase 4's rows
+CLS_CAPACITY, CLS_SCENES = 32768, 32
+# phase 30: the synthetic tiny classifier (head dim 4, patch 64), its
+# pooling raised to 1.0 (the config's 0.6 drops whole clouds): as written,
+# then 120 steps (30 epochs of 4) as its convergence figure
+CLS_TINY_CONFIG = "configs/synthetic/cls-pt-v3m1-0-tiny.py"
+CLS_TINY_OPTIONS = dict(seed=0, **{"model.backbone.pool_capacity_factors": (1.0, 1.0)})
+CLS_TINY_STEPS = 120
+CLS_TINY_ALLACC = 0.9
+CLS_TINY_ATTENTION = ((0, 8, 2, 1), (1, 16, 4, 1), (2, 32, 8, 1))  # K 64, 8 clouds of 2,048 rows
+# phase 31: Utonia's ShapeNet-Part fine-tune (PT-v3m3, head dim 18, widths
+# 54-576, 9 feature channels) at the config's batch of 16 shapes
+PARTSEG_CONFIG = "configs/utonia/partseg-utonia-v1m1-9b-shapenet-ft.py"
+PARTSEG_SPLITS = {"train": 64, "val": 16, "test": 16}
+PARTSEG_POINTS = 2500
+# the model's pooling of 0.5 a stage drops points (16 shapes: 92%, 73%, 45%
+# and 28% of the last stage's points a stage; one shape up to 87% at stage
+# 2 and 61% at stage 3): 1.0 at stages 1-2, 0.75 at 3, the 0.5 at 4
+PARTSEG_OPTIONS = dict(batch_size=16, batch_size_val=4, point_capacity=40960, point_capacity_val=12288,
+                       point_capacity_test=4096, epoch=1, eval_epoch=1, num_worker=4, seed=0,
+                       **{"model.backbone.pool_capacity_factors": (1.0, 1.0, 0.75, 0.5)})
+SHAPENET_SYNSETS = {
+    "Airplane": "02691156", "Bag": "02773838", "Cap": "02954340", "Car": "02958343", "Chair": "03001627",
+    "Earphone": "03261776", "Guitar": "03467517", "Knife": "03624134", "Lamp": "03636649", "Laptop": "03642806",
+    "Motorbike": "03790512", "Mug": "03797390", "Pistol": "03948459", "Rocket": "04099429",
+    "Skateboard": "04225987", "Table": "04379243",
+}
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -590,7 +666,7 @@ def time_ms(fn, samples: int = 7, reps: int = 5, hold: int = 0) -> float:
     return statistics.median(times)
 
 
-def paired_ms(fn, library, rounds: int = 5, hold: int = 10_000_000) -> dict:
+def paired_ms(fn, library, rounds: int = 3, hold: int = 10_000_000) -> dict:
     """A kernel and the library call it is compared with, timed in turns:
     `rounds` readings of each (`time_ms`), kernel then library, each behind
     a hold of the stream (~5 ms), so that neither reading waits on the host
@@ -810,7 +886,8 @@ def attention_cases(device, gen, exp_rate):
     statistics) and the backward must give the same bits twice at the
     stage-0 train shape. Returns the rows of the kernels line: the eval
     forward and the train backward at stage 0's encoder width, and Utonia's
-    stage 0 at head dim 18 (forward and backward)."""
+    stage 0 at head dim 18 and the tiny classifier's stage 0 at head dim 4
+    (forward and backward)."""
     import torch
     import torch.nn.functional as F
 
@@ -840,9 +917,17 @@ def attention_cases(device, gen, exp_rate):
     cases += [(path, 2, stage, c, h, n) for path, stage, c, h, n in OUTDOOR_ATTENTION]
     # PPT-extreme (two scenes a step), forward and backward
     cases += [("ppt", 2, stage, c, h, n) for stage, c, h, n in PPT_ATTENTION]
+    # ModelNet40's classifier (32 clouds a step): stages 0 and 4, forward and backward
+    cases += [("modelnet", CLS_SCENES, stage, c, h, n) for stage, c, h, n in CLS_ATTENTION]
+    # the tiny classifier's head dim 4 at patch 64 (8 clouds a step), zero-padded to 16
+    cases += [("cls tiny", 8, stage, c, h, n) for stage, c, h, n in CLS_TINY_ATTENTION]
+    tiny_pool = CLS_TINY_OPTIONS["model.backbone.pool_capacity_factors"]
     for path, scenes, stage, c, h, launches in cases:
-        kk_ = k if isinstance(stage, int) else 128
+        kk_ = 64 if path == "cls tiny" else k if isinstance(stage, int) else 128
         np_ = (-(-scenes * TESTER_OPTIONS["point_capacity_test"] // k) + scenes if path == "tester"
+               else _patches(CLS_CAPACITY, stage, scenes, CLS_OPTIONS["model.backbone.pool_capacity_factors"])
+               if path == "modelnet"
+               else _patches(2048, stage, scenes, tiny_pool, k=64) if path == "cls tiny"
                else _patches(SONATA_OPTIONS["point_capacity"], stage, scenes, SONATA_POOL) if path == "sonata"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LORA_POOL) if path == "lora"
@@ -863,6 +948,9 @@ def attention_cases(device, gen, exp_rate):
         # a Sonata step: every block attends in three forwards and two backwards
         launches_of = {"fwd": launches, "bwd": launches * 2 // 3} if path == "sonata" else None
         stats = not serving
+        # every shape is checked; the shapes of earlier slices' paths are timed in the runs
+        # that brought them (PERF.md §6) and no more, for the time limit
+        timed = path in TIMED_PATHS or (stage == 0 and path in ("utonia", "cls tiny"))
         out, m_, l_ = patch_attention_fwd(qkv, h, scale, stats=True)
         for kern in kernels:
             if kern == "fwd":
@@ -872,6 +960,8 @@ def attention_cases(device, gen, exp_rate):
                 # bf16 output rounding (one ulp is 2^-8 relative) plus exp and summation order
                 err = check_close(f"patch_attention[{label}]", got[0] if stats else got,
                                   want[0] if stats else want, atol=2e-2, rtol=2e-2)
+                if not timed:
+                    continue
                 # SDPA's forward as the kernel runs: no autograd graph recorded
                 with torch.no_grad():
                     row = paired_ms(lambda: patch_attention_fwd(qkv, h, scale, stats=stats),
@@ -892,6 +982,11 @@ def attention_cases(device, gen, exp_rate):
                 # gradient, as tests/test_torch_port_kernels.py
                 err = check_close(f"patch_attention_bwd[{label}]", got, want,
                                   atol=2e-2 * float(want.float().abs().max()), rtol=2e-2)
+                if ((path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8"
+                        or (path in ("sonata", "utonia", "lora", "modelnet", "cls tiny") and stage == 0)):
+                    identical_checks(qkv, out, dout, m_, l_, h, scale, got)
+                if not timed:
+                    continue
                 leaves = [x.detach().requires_grad_() for x in (q, kk, v)]
                 sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
                 do4 = dout.view(np_, kk_, h, d).transpose(1, 2).contiguous()
@@ -904,9 +999,6 @@ def attention_cases(device, gen, exp_rate):
                 bytes_ = np_ * kk_ * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * kk_ * 8
                 flops = 10 * np_ * h * kk_ * kk_ * d  # 5 products of 2*D flops per score
                 name, library = "patch_attention_bwd", "backward of F.scaled_dot_product_attention"
-                if ((path == "train" and stage == 0 and c == BACKBONE["enc_channels"][0]) or stage == "D=8"
-                        or (path in ("sonata", "utonia", "lora") and stage == 0)):
-                    identical_checks(qkv, out, dout, m_, l_, h, scale, got)
             exps = np_ * h * kk_ * kk_
             row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
             row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
@@ -921,6 +1013,8 @@ def attention_cases(device, gen, exp_rate):
                 results[name] = row
             if path == "utonia" and stage == 0:
                 results[f"{name}[D=18]"] = row
+            if path == "cls tiny" and stage == 0:
+                results[f"{name}[D=4]"] = row
             del got, want
     for (path, name), ms in sums.items():
         emit("attention_sum", path=path, kernel=name, ms_per_forward_or_step=ms,
@@ -1363,7 +1457,7 @@ def with_instances(arrays: dict) -> dict:
 
 
 def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
-                      condition=None, instances=False):
+                      condition=None, instances=False, batch=None):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1379,13 +1473,17 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
     this model and scene is above them. `init(model)` changes the weights
     after the build, the same on both devices. `capacity`, `extent`: the
     scene's points and size; `condition`: the batch's (PPT); `instances`:
-    PointGroup's targets (`with_instances`)."""
+    PointGroup's targets (`with_instances`); `batch`: a collated batch
+    (with ``num_scenes``) in place of the scene (the classifiers' clouds)."""
     import numpy as np
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
 
-    arrays = dict(scene(100, capacity=capacity, extent=extent, labelled=True), condition=condition)
+    if batch is not None:
+        arrays = dict(batch)
+    else:
+        arrays = dict(scene(100, capacity=capacity, extent=extent, labelled=True), condition=condition, num_scenes=1)
     if instances:
         arrays = with_instances(arrays)
     nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
@@ -1399,7 +1497,7 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
         for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays),
                                 ("cpu_nudged", "cpu", nudged)):
             model, step = _train_setup(cfg, dev, seed=1, recipe=recipe, init=init)
-            res = step(make_point_batch(data, 1, device=dev), torch.Generator().manual_seed(5))
+            res = step(make_point_batch(data, data["num_scenes"], device=dev), torch.Generator().manual_seed(5))
             # (a parameter the step does not reach, as Utonia's mask token, has no gradient)
             out[name] = (float(res["loss"]), {n: p.grad.float().cpu().numpy()
                                               for n, p in model.named_parameters() if p.grad is not None})
@@ -1966,10 +2064,10 @@ def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
     pipeline = Compose([t for t in cfg.data.train.transform])
     np.random.seed(0)
     # the point density of phase 10's scenes (409,600 points in a 6 m room),
-    # at a quarter of the scene this phase first had (20,000 points, 1.4 m:
+    # at an eighth of the scene this phase first had (20,000 points, 1.4 m:
     # its CPU steps took 95-108 s of the time limit; 10,000 at 1.0 m took 99
-    # s of the whole phase)
-    sample = synthesize_scene(100, num_points=5000, num_classes=NUM_CLASSES, extent=0.7)
+    # s of the whole phase, 5,000 at 0.7 m 71 s)
+    sample = synthesize_scene(100, num_points=2500, num_classes=NUM_CLASSES, extent=0.5)
     sample = pipeline(dict(coord=sample["coord"], color=sample["color"].astype(np.float32),
                            normal=sample["normal"]))
     need = max(int(sample["global_offset"][-1]), int(sample["local_offset"][-1]))
@@ -2973,9 +3071,8 @@ def _resume_bits(work: str, config: str, options: dict, first: str, tag: str, ke
 def nuscenes_path(device, card, work: str) -> dict:
     """Phase 21: nuScenes' PTv3 config through the training CLI's
     `main_worker` on HDL-32E sweeps in the info layout (two epochs of 2
-    steps, an evaluation and a checkpoint each), its second epoch resumed
-    through the CLI (the same loss bits), its test section on the val
-    sweep, then the test split's lidarseg submission: one uint8
+    steps, an evaluation and a checkpoint each), its test section on the
+    val sweep, then the test split's lidarseg submission: one uint8
     ``<lidar token>_lidarseg.bin`` a sweep of the challenge's classes 1-16,
     and ``test/submission.json``."""
     import numpy as np
@@ -2997,7 +3094,7 @@ def nuscenes_path(device, card, work: str) -> dict:
     result = dict(trainer=launches)
     del trainer
     release()
-    _resume_bits(work, NUSCENES_CONFIG, options, os.path.join(work, "nuscenes"), "nuscenes")
+    # (its resumed epoch, bit-identical in PRs 12-15, is left to phases 10, 13 and 29 for the time limit)
     test = dict(weight=os.path.join(work, "nuscenes", "model", "model_last.pth"), point_capacity_test=cap,
                 **{"model.backbone.pool_capacity_factors": OUTDOOR_POOL["nuscenes"]})
     val_name = [n for n in names if n.endswith(str(1533151603547590 + NUSCENES_SPLITS["val"][0]))][0]
@@ -3353,8 +3450,9 @@ def insseg_ptv3_path(device, card, work: str) -> dict:
     backbone = dict(base.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, drop_path=0.0, amp=False,
                     pool_capacity_factors=(0.5,) * 4)
     recipe = dict(optimizer=dict(base.optimizer), param_dicts=list(base.param_dicts), scheduler=dict(base.scheduler))
+    # at 4,096 points (1.2 m, as SpUNet's): the time limit's room for phases 29-31
     card_vs_cpu_train(device, [(False, dict(base.model, backbone=backbone), recipe)], phase="insseg_card_vs_cpu_train",
-                      capacity=8192, extent=1.7, instances=True)
+                      capacity=4096, extent=1.2, instances=True)
     return launches
 
 
@@ -3519,6 +3617,356 @@ def insseg_probe_path(device, card, work: str) -> dict:
     return launches
 
 
+def _test_config(device, work: str, config: str, options: dict, tag: str) -> tuple:
+    """A config's tester through the test CLI's `main_worker`, launch
+    counters set to 0 just before and read just after: (tester, result,
+    launches, seconds)."""
+    import torch
+
+    from pointcept_tpu_torch.engines import default_config_parser
+    from pointcept_tpu_torch.ops.kernels import KERNELS
+
+    cfg = default_config_parser(os.path.join(ROOT, config), dict(options, save_path=os.path.join(work, tag)))
+    torch.cuda.synchronize()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    tester, result = _quiet(lambda: _test_main_worker()(cfg), os.path.join(work, "tester.log"))
+    torch.cuda.synchronize()
+    return tester, result, {name: fn.launches for name, fn in KERNELS.items()}, time.perf_counter() - t0
+
+
+def _cloud_stats(stats: list) -> dict:
+    return {f"median_{k}": statistics.median(st[k] for st in stats) for k in ("cloud_ms", "forward_ms", "host_ms")}
+
+
+def _stage_geometry(model, arrays: dict, device) -> list:
+    """Each stage of an ``enc_mode`` PT-v3 backbone's eval forward on one
+    collated batch: its rows, valid rows, the largest cloud's points and
+    its patch and slots; and the points dropped."""
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+
+    pb = make_point_batch(arrays, arrays["num_scenes"], device=device)
+    was_training = model.training
+    model.eval()
+    with torch.no_grad():
+        out, diag, skips = model.backbone(pb)
+    model.train(was_training)
+    rows = []
+    patches = model.backbone.enc_patch_size if hasattr(model.backbone, "enc_patch_size") else None
+    for stage, st in enumerate([sk[0] for sk in skips] + [out]):
+        k = patches[stage]
+        rows.append(dict(stage=stage, rows=st.capacity, valid=int(st.mask.sum()),
+                         largest_cloud=int(st.scene_counts().max()), patch=k, slots=st.padded_capacity(k)))
+    dropped = sum(int(v) for vs in diag.values() for v in vs)
+    return rows, dropped
+
+
+def cls_modelnet_path(device, card, work: str) -> dict:
+    """Phase 29: ModelNet40's PTv3 classifier (`DefaultClassifier` over
+    PT-v3m1 enc_mode at 32-512, the config's batch of 32 clouds) through the
+    training CLI's `main_worker` on synthetic clouds in the
+    `modelnet40_normal_resampled` layout: two 4-step epochs, an evaluation
+    and a checkpoint each; a later step's ms, data time and peak, the
+    attention launches a step, each stage's rows against its patch,
+    ClsEvaluator's allAcc; limits: finite losses, nothing dropped, every
+    tensor moved. Then the second epoch again through the CLI (the same
+    loss bits: the fixed-order VJP of `TakeRows`, every cloud smaller than
+    its patch), ClsTester on the 40 test clouds, the voting config's
+    ClsVotingTester (100 repeats) on 4, and one small-depth step on the card
+    against the CPU (f32). Returns the train run's launches."""
+    import torch
+
+    from pointcept_tpu_torch.datasets import build_dataset, point_collate_fn
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    base = Config.fromfile(os.path.join(ROOT, CLS_CONFIG))
+    root = os.path.join(work, "modelnet40")
+    t0 = time.perf_counter()
+    splits = write_modelnet(root, list(base.data.names))
+    with open(os.path.join(root, "modelnet40_vote.txt"), "w") as f:
+        f.write("".join(f"{n}\n" for n in splits["test"][:CLS_VOTE_CLOUDS]))
+    written = time.perf_counter() - t0
+    options = dict(CLS_OPTIONS, **{f"data.{s}.data_root": root for s in ("train", "val", "test")})
+    emit("cls_setup", config=CLS_CONFIG, options=options, clouds={k: len(v) for k, v in splits.items()},
+         file_points=CLS_FILE_POINTS, write_seconds=written)
+    trainer, steps, evals, launches, peak, seconds = _run_config(device, work, CLS_CONFIG, options, "cls_modelnet")
+    cfg, model = trainer.cfg, trainer.model
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device="cpu",
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    same, moved = _moved(model, {n: p.detach() for n, p in initial.named_parameters()})
+    del initial
+    blocks = sum(cfg.model.backbone.enc_depths)
+    fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks, evaluations=2)
+    ds = build_dataset(dict(cfg.data.train))
+    batch = point_collate_fn([ds[i] for i in range(cfg.batch_size)], capacity=cfg.point_capacity)
+    geometry, dropped = _stage_geometry(model, batch, device)
+    row = dict(config=CLS_CONFIG, card=card, seconds=seconds, steps=len(steps), losses=[st["loss"] for st in steps],
+               **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9, val_allAcc=evals["allAcc"],
+               val_mAcc=evals["mAcc"], val_loss=evals["loss"], eval_ms_per_batch=evals["batch_ms"],
+               launches=launches, attention_fwd_per_step=fwd, attention_bwd_per_step=bwd,
+               unchanged_parameters=same, parameters=sum(p.numel() for p in model.parameters()),
+               stages=geometry, geometry_dropped=dropped)
+    emit("cls_modelnet", **row)
+    if fwd != blocks or bwd != blocks:
+        raise AssertionError(f"cls_modelnet: {fwd} attention forwards and {bwd} backwards a step, {blocks} blocks")
+    if same:
+        raise AssertionError(f"cls_modelnet: {len(same)} parameters not updated, e.g. {same[:3]}")
+    if dropped or any(g["largest_cloud"] > g["patch"] for g in geometry):
+        raise AssertionError(f"cls_modelnet: geometry {geometry}, {dropped} points dropped")
+    del trainer, model
+    release()
+    _resume_bits(work, CLS_CONFIG, options, os.path.join(work, "cls_modelnet"), "cls_modelnet")
+
+    weight = os.path.join(work, "cls_modelnet", "model", "model_last.pth")
+    test_options = dict(options, weight=weight, num_worker=0)
+    for tag, config, extra in (("cls_test", CLS_CONFIG, {}),
+                               ("cls_voting", CLS_VOTING_CONFIG, {"data.test.split": "vote"})):
+        tester, result, test_launches, secs = _test_config(device, work, config, dict(test_options, **extra), tag)
+        clouds = len(tester.test_dataset)
+        emit(tag, config=config, card=card, seconds=secs, clouds=clouds, repeats=getattr(tester, "num_repeat", 1),
+             result=result, forwards=len(tester.cloud_stats), **_cloud_stats(tester.cloud_stats),
+             ms_per_cloud=secs * 1e3 / clouds, attention_launches=test_launches["patch_attention"])
+        if test_launches["patch_attention"] != len(tester.cloud_stats) * blocks or not math.isfinite(result["allAcc"]):
+            raise AssertionError(f"{tag}: {test_launches['patch_attention']} attention launches for "
+                                 f"{len(tester.cloud_stats)} forwards, result {result}")
+        del tester
+        release()
+
+    # one small-depth step (one block a stage, f32) on 4 clouds, card against CPU
+    small = dict(base.model, backbone=dict(base.model.backbone, enc_depths=(1,) * 5, drop_path=0.0,
+                                           pool_capacity_factors=CLS_OPTIONS["model.backbone.pool_capacity_factors"]))
+    recipe = dict(optimizer=dict(base.optimizer), param_dicts=None,
+                  scheduler=dict(base.scheduler, base_lr=base.optimizer.lr))
+    card_vs_cpu_train(device, [(False, small, recipe)], phase="cls_card_vs_cpu_train",
+                      batch=point_collate_fn([ds[i] for i in range(4)], capacity=4096))
+    return launches
+
+
+def cls_tiny_path(device, card, work: str) -> dict:
+    """Phase 30: the synthetic tiny classifier (head dim 4 at patch 64,
+    through the D = 16 kernels on zero-padded heads) as written (2 epochs),
+    then for `CLS_TINY_STEPS` steps as its convergence figure: allAcc on its
+    val split against `CLS_TINY_ALLACC` (reported; the run's other limits
+    held), beside the allAcc of the same weights on each val batch's own
+    norm statistics. Returns the launches of both runs."""
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+
+    total = {}
+    for tag, extra in (("cls_tiny", {}), ("cls_tiny_120", dict(epoch=CLS_TINY_STEPS // 4, eval_epoch=1))):
+        trainer, steps, evals, launches, peak, seconds = _run_config(device, work, CLS_TINY_CONFIG,
+                                                                     dict(CLS_TINY_OPTIONS, **extra), tag)
+        bb = trainer.cfg.model.backbone
+        d = {c // h for c, h in zip(bb.enc_channels, bb.enc_num_head)}
+        blocks = sum(bb.enc_depths)
+        fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks, evaluations=trainer.cfg.eval_epoch)
+        row = dict(config=CLS_TINY_CONFIG, card=card, seconds=seconds, steps=len(steps), head_dims=sorted(d),
+                   patch=list(bb.enc_patch_size), first_losses=[st["loss"] for st in steps[:4]],
+                   last_losses=[st["loss"] for st in steps[-4:]], **_step_times(steps), peak_gb=peak / 1e9,
+                   val_allAcc=evals["allAcc"], val_loss=evals["loss"], launches=launches,
+                   attention_fwd_per_step=fwd, attention_bwd_per_step=bwd)
+        if tag == "cls_tiny_120":
+            model = trainer.model
+            model.train()
+            model.dropout = 0.0
+            right = count = 0
+            gen = torch.Generator(device=device).manual_seed(0)
+            with torch.no_grad():
+                for batch in trainer.val_loader:
+                    pb = make_point_batch(batch, batch["num_scenes"], device=device)
+                    pred = model(pb, generator=gen)["cls_logits"].argmax(-1)
+                    valid = pb.category >= 0
+                    right += int((pred == pb.category)[valid].sum())
+                    count += int(valid.sum())
+            row.update(limit=CLS_TINY_ALLACC, met=evals["allAcc"] > CLS_TINY_ALLACC,
+                       batch_statistics_allAcc=right / max(count, 1))
+        emit(tag, **row)
+        if d != {4} or fwd != blocks or bwd != blocks:
+            raise AssertionError(f"{tag}: head dims {d}, {fwd} attention forwards and {bwd} backwards a step")
+        for name in ("patch_attention", "patch_attention_bwd"):
+            total[name] = total.get(name, 0) + launches[name]
+        del trainer
+        release()
+    return total
+
+
+def partseg_path(device, card, work: str) -> dict:
+    """Phase 31: Utonia's ShapeNet-Part fine-tune (PT-v3m3 with RoPE, head
+    dim 18, widths 54-576, 9 feature channels, the config's batch of 16
+    shapes) from a random encoder saved under ``student.backbone.``, on
+    synthetic shapes in ShapeNet-Part's layout: 4 steps and one evaluation
+    through the training CLI's `main_worker` (a later step's ms and peak,
+    the D = 18 attention launches a step, the loaded and missing keys;
+    limits: nothing dropped, every tensor but the mask token moved); then
+    the config's ShapeNetPartSegTester on 16 test shapes, one a category.
+    Returns the train run's launches."""
+    import torch
+
+    from pointcept_tpu_torch.models import build_model
+    from pointcept_tpu_torch.utils.config import Config
+
+    root = os.path.join(work, "shapenet")
+    splits = write_shapenet(root)
+    cfg = Config.fromfile(os.path.join(ROOT, PARTSEG_CONFIG))
+    cfg.merge_from_dict(PARTSEG_OPTIONS)
+    weight = os.path.join(work, "partseg_encoder.pth")
+    pretrained = build_model(dict(cfg.model.backbone), device="cpu", generator=torch.Generator().manual_seed(31))
+    ckpt = {"backbone." + k: v for k, v in pretrained.state_dict().items()}
+    torch.save({"state_dict": {"student." + k: v for k, v in ckpt.items()}}, weight)
+    del pretrained
+    options = dict(PARTSEG_OPTIONS, weight=weight, **{f"data.{s}.data_root": root for s in ("train", "val", "test")})
+    emit("partseg_setup", config=PARTSEG_CONFIG, options=dict(options, weight="random encoder, seed 31"),
+         shapes={k: len(v) for k, v in splits.items()}, points=PARTSEG_POINTS)
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, PARTSEG_CONFIG, options,
+                                                                  "partseg_utonia", TRAIN_KERNELS[:2])
+    model, bb = trainer.model, trainer.cfg.model.backbone
+    info = trainer.comm_info.get("load_info", {})
+    blocks = sum(bb.enc_depths)
+    fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks)
+    same, moved = _moved(model, ckpt, "backbone.")
+    d = sorted({c // h for c, h in zip(bb.enc_channels, bb.enc_num_head)})
+    emit("partseg_utonia", config=PARTSEG_CONFIG, card=card, seconds=seconds, head_dims=d, steps=len(steps),
+         losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9,
+         val_mIoU=evals["mIoU"], eval_ms_per_batch=evals["batch_ms"], launches=launches,
+         attention_fwd_per_step=fwd, attention_bwd_per_step=bwd, missing_keys=info.get("missing", []),
+         unexpected_keys=info.get("unexpected", []), encoder_unchanged=same, encoder_moved=len(moved),
+         parameters=sum(p.numel() for p in model.parameters()))
+    if set(info.get("missing", [])) != {"seg_head.weight", "seg_head.bias"}:
+        raise AssertionError(f"partseg: missing keys {info.get('missing')}")
+    if d != [18] or fwd != blocks or bwd != blocks:
+        raise AssertionError(f"partseg: head dims {d}, {fwd} attention forwards and {bwd} backwards, {blocks} blocks")
+    if [n for n in same if n != "backbone.embedding.mask_token"]:
+        raise AssertionError(f"partseg: {len(same)} encoder tensors not updated, e.g. {same[:3]}")
+    del trainer, model
+    release()
+    test_options = dict(options, num_worker=0, weight=os.path.join(work, "partseg_utonia", "model", "model_last.pth"))
+    tester, result, test_launches, secs = _test_config(device, work, PARTSEG_CONFIG, test_options, "partseg_test")
+    stats = tester.scene_stats
+    emit("partseg_test", config=PARTSEG_CONFIG, card=card, seconds=secs, shapes=len(stats), result=result,
+         ms_per_shape=secs * 1e3 / len(stats), median_scene_ms=statistics.median(st["scene_ms"] for st in stats),
+         fragments=[st["fragments"] for st in stats], dropped=sum(st["dropped"] for st in stats),
+         attention_launches=test_launches["patch_attention"])
+    if (len(stats) != PARTSEG_SPLITS["test"] or not math.isfinite(result["ins_miou"])
+            or test_launches["patch_attention"] == 0):
+        raise AssertionError(f"partseg test: {len(stats)} shapes, result {result}, launches {test_launches}")
+    del tester
+    release()
+    return launches
+
+
+def _surface(rng, kind: int, n: int, center, size):
+    """n points on one primitive's surface (0 sphere, 1 box, 2 cylinder)
+    with their outward normals."""
+    import numpy as np
+
+    d = rng.normal(0, 1, (n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True) + 1e-9
+    if kind == 0:
+        pts, nrm = d, d
+    elif kind == 1:
+        axis = np.abs(d).argmax(axis=1)
+        pts = rng.uniform(-1, 1, (n, 3))
+        sign = np.sign(d[np.arange(n), axis])
+        pts[np.arange(n), axis] = sign
+        nrm = np.zeros((n, 3))
+        nrm[np.arange(n), axis] = sign
+    else:
+        theta = rng.uniform(0, 2 * np.pi, n)
+        pts = np.stack([np.cos(theta), np.sin(theta), rng.uniform(-1, 1, n)], axis=1)
+        nrm = np.stack([np.cos(theta), np.sin(theta), np.zeros(n)], axis=1)
+    nrm = nrm / np.asarray(size)
+    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True) + 1e-9
+    return pts * np.asarray(size) + np.asarray(center), nrm
+
+
+def _shape(class_seed: int, sample_seed: int, points: int, parts: int):
+    """A class's shape: `parts` primitives whose kinds, places and sizes
+    come from ``RandomState(class_seed)``, each sample's jittered from
+    ``RandomState(sample_seed)``; [points, 6] rows of xyz and normal and
+    each point's part."""
+    import numpy as np
+
+    layout = np.random.RandomState(class_seed)
+    kinds = layout.randint(0, 3, parts)
+    centers = layout.uniform(-0.6, 0.6, (parts, 3))
+    sizes = layout.uniform(0.15, 0.5, (parts, 3))
+    rng = np.random.RandomState(sample_seed)
+    part = rng.randint(0, parts, points)
+    rows = np.zeros((points, 6))
+    for p in range(parts):
+        sel = part == p
+        size = sizes[p] * rng.uniform(0.9, 1.1, 3)
+        center = centers[p] + rng.normal(0, 0.03, 3)
+        pts, nrm = _surface(rng, kinds[p], int(sel.sum()), center, size)
+        rows[sel] = np.concatenate([pts, nrm], axis=1)
+    return rows, part
+
+
+def write_modelnet(root: str, names, splits=CLS_SPLITS, points: int = CLS_FILE_POINTS) -> dict:
+    """Synthetic clouds in ModelNet40's `modelnet40_normal_resampled` layout:
+    ``<class>/<class>_<i>.txt`` (x, y, z, nx, ny, nz comma-separated),
+    ``modelnet40_{split}.txt`` and ``modelnet40_shape_names.txt``; cloud i
+    of each split is of class ``i % len(names)``, a class's shape three
+    primitives of its own layout. Returns each split's names."""
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    with open(os.path.join(root, "modelnet40_shape_names.txt"), "w") as f:
+        f.write("".join(f"{n}\n" for n in names))
+    lists, count = {}, {}
+    line = ",".join(["%.6f"] * 6) + "\n"  # one format of the whole file: savetxt's rows, twice as fast
+    for split, n in splits.items():
+        lists[split] = []
+        for i in range(n):
+            c = i % len(names)
+            count[c] = count.get(c, 0) + 1
+            name = f"{names[c]}_{count[c]:04d}"
+            rows, _ = _shape(c, 1000 * c + count[c], points, 3)
+            os.makedirs(os.path.join(root, names[c]), exist_ok=True)
+            with open(os.path.join(root, names[c], name + ".txt"), "w") as f:
+                f.write((line * len(rows)) % tuple(rows.ravel()))
+            lists[split].append(name)
+        with open(os.path.join(root, f"modelnet40_{split}.txt"), "w") as f:
+            f.write("".join(f"{n}\n" for n in lists[split]))
+    return lists
+
+
+def write_shapenet(root: str, splits=PARTSEG_SPLITS, points: int = PARTSEG_POINTS) -> dict:
+    """Synthetic shapes in ShapeNet-Part's layout: ``<synset>/<id>.txt`` rows
+    of x y z nx ny nz part, ``synsetoffset2category.txt`` and
+    ``train_test_split/shuffled_{split}_file_list.json``; shape i of each
+    split is of category ``i % 16``, each of its primitives one of the
+    category's parts (the standard 50-part ranges)."""
+    import numpy as np
+
+    from pointcept_tpu_torch.datasets.shapenet_part import ShapeNetPartDataset as SN
+
+    os.makedirs(os.path.join(root, "train_test_split"), exist_ok=True)
+    with open(os.path.join(root, "synsetoffset2category.txt"), "w") as f:
+        f.write("".join(f"{c}\t{s}\n" for c, s in SHAPENET_SYNSETS.items()))
+    lists = {}
+    for split, n in splits.items():
+        lists[split] = []
+        for i in range(n):
+            cat = SN.categories[i % len(SN.categories)]
+            parts = SN.category2part[cat]
+            syn = SHAPENET_SYNSETS[cat]
+            rows, part = _shape(100 + i % 16, 10000 * (1 + list(splits).index(split)) + i, points, len(parts))
+            sid = f"{split}{i:04d}"
+            os.makedirs(os.path.join(root, syn), exist_ok=True)
+            np.savetxt(os.path.join(root, syn, sid + ".txt"),
+                       np.concatenate([rows, np.asarray(parts)[part][:, None]], axis=1), fmt="%.6f")
+            lists[split].append(f"shape_data/{syn}/{sid}")
+        with open(os.path.join(root, "train_test_split", f"shuffled_{split}_file_list.json"), "w") as f:
+            json.dump(lists[split], f)
+    return lists
+
+
 def main() -> int:
     import torch
 
@@ -3549,9 +3997,10 @@ def main() -> int:
     main_path(device, card)
     card_vs_cpu(device)
     launches, bare_step_ms = train_path(device, card)
-    # at half the scene (8,192 points, 1.7 m, the density of 2.4 m at 16,384),
-    # as phases 9, 24 and 26: the time limit's room for phases 26-28
-    card_vs_cpu_train(device, capacity=8192, extent=1.7)
+    # at a quarter of the scene (4,096 points, 1.2 m, the density of 2.4 m at
+    # 16,384), as SpUNet's and phase 26's: the time limit's room for phases 29-31
+    # (8,192 at 1.7 m before)
+    card_vs_cpu_train(device, capacity=4096, extent=1.2)
 
     main_path(device, card, SPUNET_MODEL, SPUNET_EVAL_KERNELS, phase="spunet_serving")
     card_vs_cpu(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
@@ -3584,6 +4033,9 @@ def main() -> int:
         insseg = insseg_ptv3_path(device, card, work)
         insseg_overfit_path(device, card, work)
         insseg_probe = insseg_probe_path(device, card, work)
+        cls = cls_modelnet_path(device, card, work)
+        tiny = cls_tiny_path(device, card, work)
+        partseg = partseg_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -3610,11 +4062,15 @@ def main() -> int:
     # launched by phase 15's fine-tune
     for name in ("patch_attention", "patch_attention_bwd"):
         sources[f"{name}[D=18]"], replaces[f"{name}[D=18]"] = sources[name], replaces[name]
-        launches[f"{name}[D=18]"] = utonia[name] + probes["utonia_4c"][name]
+        # phase 31's part-seg fine-tune at D = 18 too
+        launches[f"{name}[D=18]"] = utonia[name] + probes["utonia_4c"][name] + partseg[name]
+        # the D = 4 rows: the same kernels at the tiny classifier's head dim (padded to 16), phase 30
+        sources[f"{name}[D=4]"], replaces[f"{name}[D=4]"] = sources[name], replaces[name]
+        launches[f"{name}[D=4]"] = tiny[name]
         # phases 20-23 at D = 16: the outdoor PTv3 configs' train runs and Concerto's probe;
-        # phase 24's PPT-extreme run
+        # phase 24's PPT-extreme run, phases 26 and 28's, phase 29's classifier
         launches[name] += (sum(run["trainer"][name] for run in outdoor) + probes["concerto_4a"][name]
-                           + ppt[name] + insseg[name] + insseg_probe[name])
+                           + ppt[name] + insseg[name] + insseg_probe[name] + cls[name])
     for name in ("block_fill", "take_back"):
         launches[name] += ppt[name]
     line = {"kernels": [

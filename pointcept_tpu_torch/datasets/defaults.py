@@ -104,9 +104,14 @@ class DefaultDataset:
     def prepare_test_data(self, idx) -> dict:
         """The scene's fragment list for the tester: ``segment``, ``name``
         (with ``origin_segment`` and ``inverse`` where the pipeline keeps the
-        full-resolution labels) and ``fragment_list``."""
+        full-resolution labels), a sample's ``category`` or ``cls_token``
+        where it has one (the part-seg testers' masks) and
+        ``fragment_list``."""
         data_dict = self.transform(self.get_data(idx))
         result = dict(segment=data_dict.pop("segment"), name=data_dict.pop("name"))
+        for key in ("category", "cls_token"):
+            if key in data_dict:
+                result[key] = data_dict.pop(key)
         if "origin_segment" in data_dict:
             if "inverse" not in data_dict:
                 raise KeyError("DefaultDataset: origin_segment needs the pipeline's inverse")

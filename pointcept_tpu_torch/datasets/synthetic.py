@@ -1,7 +1,7 @@
 """Synthetic ScanNet-like scenes (counterparts of `synthesize_scene` and
 `SyntheticSemSegDataset` in `pointcept_tpu/datasets/synthetic.py`): floor and
-wall planes plus furniture surface shells, deterministic per seed. numpy
-only."""
+wall planes plus furniture surface shells, deterministic per seed; and
+`SyntheticClsDataset`'s class-dependent clouds. numpy only."""
 
 from __future__ import annotations
 
@@ -78,6 +78,40 @@ class SyntheticSemSegDataset(DefaultDataset):
         data["name"] = self.data_list[i]
         data["split"] = self.split
         return data
+
+    def get_data_name(self, idx):
+        return self.data_list[idx % len(self.data_list)]
+
+
+@DATASETS.register_module()
+class SyntheticClsDataset(DefaultDataset):
+    """`num_clouds` clouds for classification: cloud i of class ``i %
+    num_classes``, `num_points` points scattered (sigma 0.1) around the 8
+    anchors of its class (drawn from ``RandomState(class)``), from
+    ``RandomState(seed_offset + i)``, with random unit normals."""
+
+    def __init__(self, num_clouds=64, num_points=1024, num_classes=40, seed_offset=0, **kwargs):
+        self.num_clouds = num_clouds
+        self.num_points = num_points
+        self.num_classes = num_classes
+        self.seed_offset = seed_offset
+        kwargs.setdefault("data_root", "/nonexistent")
+        super().__init__(**kwargs)
+
+    def get_data_list(self):
+        return [f"cls_{self.split}_{i}" for i in range(self.num_clouds)]
+
+    def get_data(self, idx):
+        i = idx % len(self.data_list)
+        rng = np.random.RandomState(self.seed_offset + i)
+        category = i % self.num_classes
+        anchors = np.random.RandomState(category).uniform(-1, 1, size=(8, 3))
+        a_ids = rng.randint(0, 8, self.num_points)
+        coord = (anchors[a_ids] + rng.normal(0, 0.1, (self.num_points, 3))).astype(np.float32)
+        normal = rng.randn(self.num_points, 3).astype(np.float32)
+        normal /= np.linalg.norm(normal, axis=1, keepdims=True) + 1e-9
+        return dict(coord=coord, normal=normal, segment=np.full(self.num_points, -1, np.int32),
+                    category=np.array([category], np.int32), name=self.data_list[i], split=self.split)
 
     def get_data_name(self, idx):
         return self.data_list[idx % len(self.data_list)]

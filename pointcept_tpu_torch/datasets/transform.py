@@ -12,7 +12,8 @@ for Sonata's pretraining, RandomColorJitter, RandomColorGrayScale,
 RandomColorDrop and MultiViewGenerator (global and local crops, each view
 augmented on its own); for the indoor datasets' configs, ShufflePoint,
 RandomDropColor and RandomDropNormal; for instance segmentation,
-InstanceParser. Each draws from `np.random` and
+InstanceParser; for classification and part segmentation, NormalizeCoord
+and RandomShift. Each draws from `np.random` and
 `random` in the JAX version's order, so one seed gives the same arrays bit
 for bit.
 """
@@ -76,7 +77,9 @@ class Collect:
     which Sonata's config names in `offset_keys_dict`. The JAX package
     replaces them with the total count, so both views of a scene become one
     scene there; the reference keeps one offset a view
-    (``[pc1, pc1', pc2, pc2']``, its Sonata `roll_point`)."""
+    (``[pc1, pc1', pc2, pc2']``, its Sonata `roll_point`). A key the
+    sample lacks raises a KeyError naming it and the keys the sample holds
+    (the JAX package's names the key alone)."""
 
     def __init__(self, keys, offset_keys_dict=None, **kwargs):
         self.keys = [keys] if isinstance(keys, str) else list(keys)
@@ -84,6 +87,12 @@ class Collect:
         self.kwargs = kwargs
 
     def __call__(self, data_dict):
+        wanted = list(self.keys) + [k for keys in self.kwargs.values() for k in keys]
+        missing = [k for k in wanted if k not in data_dict]
+        if missing:
+            # ScanObjectNN's samples carry no normals, which its configs collect
+            raise KeyError(f"Collect: the sample has no {missing} (keys {self.keys}, {self.kwargs}); "
+                           f"it holds {sorted(data_dict)}")
         data = {key: data_dict[key] for key in self.keys}
         for key, value in self.offset_keys.items():
             data[key] = data_dict[key] if key in data_dict else np.array([data_dict[value].shape[0]])
@@ -140,6 +149,33 @@ class NormalizeColor:
     def __call__(self, data_dict):
         if "color" in data_dict:
             data_dict["color"] = data_dict["color"] / 255
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class NormalizeCoord:
+    """Centre the cloud on its mean and scale it into the unit sphere."""
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            centroid = np.mean(data_dict["coord"], axis=0)
+            data_dict["coord"] = data_dict["coord"] - centroid
+            m = np.max(np.sqrt(np.sum(data_dict["coord"] ** 2, axis=1)))
+            data_dict["coord"] = data_dict["coord"] / m
+        return data_dict
+
+
+@TRANSFORMS.register_module()
+class RandomShift:
+    """Add one offset a cloud, each axis's drawn from its (lo, hi) range."""
+
+    def __init__(self, shift=((-0.2, 0.2), (-0.2, 0.2), (0, 0))):
+        self.shift = shift
+
+    def __call__(self, data_dict):
+        if "coord" in data_dict:
+            s = [np.random.uniform(lo, hi) for lo, hi in self.shift]
+            data_dict["coord"] = data_dict["coord"] + s
         return data_dict
 
 

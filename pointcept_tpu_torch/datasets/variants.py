@@ -2,13 +2,14 @@
 `pointcept_tpu/datasets/variants.py`; parity targets: reference
 `semantic_kitti.py`, `nuscenes.py`, `waymo.py`): the same scans with zero
 ``color`` and ``normal`` fields, so that indoor-style pipelines that
-collect them run on lidar data."""
+collect them run on lidar data; and ScanObjectNN's hardest variant."""
 
 import numpy as np
 
 from .builder import DATASETS
 from .nuscenes import NuScenesDataset
 from .semantic_kitti import SemanticKITTIDataset
+from .shapenet_part import ScanObjectNNDataset
 from .waymo import WaymoDataset
 
 
@@ -33,3 +34,9 @@ class NuScenesColorNormalDataset(_ColorNormal, NuScenesDataset):
 @DATASETS.register_module()
 class WaymoColorNormalDataset(_ColorNormal, WaymoDataset):
     pass
+
+
+@DATASETS.register_module()
+class ScanObjectNNHardestDataset(ScanObjectNNDataset):
+    """The augmentedrot_scale75 h5 files (PB_T50_RS), which the base class
+    already reads."""

@@ -1,6 +1,7 @@
-"""Per-epoch evaluation (counterparts of `SemSegEvaluator` and
-`InsSegEvaluator` in `pointcept_tpu/engines/hooks/evaluator.py`; parity
-target: reference `pointcept/engines/hooks/evaluator.py:118`, `:247`)."""
+"""Per-epoch evaluation (counterparts of `SemSegEvaluator`, `ClsEvaluator`
+and `InsSegEvaluator` in `pointcept_tpu/engines/hooks/evaluator.py`; parity
+target: reference `pointcept/engines/hooks/evaluator.py:118`, `:14`,
+`:247`)."""
 
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ class SemSegEvaluator(HookBase):
     checkpoint saver and ``comm_info["eval_result"]`` (with each batch's
     eval-step ms, the copy to the card and the one host read included, and
     the points the static capacities dropped)."""
+
+    metric = "mIoU"  # the checkpoint saver's metric
 
     def after_epoch(self):
         if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader is not None:
@@ -63,15 +66,25 @@ class SemSegEvaluator(HookBase):
             trainer.storage.put_scalar("val/mAcc", m_acc, smoothing_hint=False)
             trainer.storage.put_scalar("val/allAcc", all_acc, smoothing_hint=False)
         trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
-        trainer.comm_info["current_metric_value"] = m_iou
-        trainer.comm_info["current_metric_name"] = "mIoU"
         result = dict(mIoU=m_iou, mAcc=m_acc, allAcc=all_acc, intersection=inter_sum, union=union_sum,
                       target=target_sum, loss=float(np.mean(losses)), batch_ms=batch_ms, overflow=overflow)
+        trainer.comm_info["current_metric_value"] = result[self.metric]
+        trainer.comm_info["current_metric_name"] = self.metric
         trainer.comm_info["eval_result"] = result
         return result
 
     def after_train(self):
-        self.trainer.logger.info("Best {}: {:.4f}".format("mIoU", self.trainer.best_metric_value))
+        self.trainer.logger.info("Best {}: {:.4f}".format(self.metric, self.trainer.best_metric_value))
+
+
+@HOOKS.register_module()
+class ClsEvaluator(SemSegEvaluator):
+    """`SemSegEvaluator` over clouds: the trainer's eval step compares each
+    valid cloud's argmax class with its ``category``, so intersection,
+    union and target count clouds; the checkpoint saver's metric is
+    allAcc."""
+
+    metric = "allAcc"
 
 
 @HOOKS.register_module()

@@ -1,5 +1,7 @@
 """The precise-eval tester (counterparts of `TESTERS`, `TesterBase`,
-`SemSegTester` and `InsSegTester` in `pointcept_tpu/engines/test.py`;
+`SemSegTester`, `InsSegTester`, `ClsTester`, `ClsVotingTester`,
+`ShapeNetPartSegTester` and `PartNetEPartSegTester` in
+`pointcept_tpu/engines/test.py`;
 parity target: reference `pointcept/engines/test.py:37-353`, `:1159`).
 `InsSegTester` (PointGroup) runs one forward a scene and clusters on the
 host; the rest of this text is `SemSegTester`'s.
@@ -29,6 +31,11 @@ carries the fragments' ``condition`` (the PPT configs' ``Add`` in
 `post_transform`), grouped or not: a Point Prompt Training wrapper over a
 PT-v3 decoder takes the grouped path too. (The JAX tester's forwards carry
 none, so a PPT model fails there on the first fragment.)
+
+The classification testers (`ClsTester`, `ClsVotingTester`) run one
+forward a cloud; the part-seg testers (`ShapeNetPartSegTester`,
+`PartNetEPartSegTester`) take `SemSegTester`'s voted predictions and score
+each shape's parts.
 
 Not ported: the JAX tester's wire, host geometry and dispatch/collect split
 (TPU workarounds), the host accumulation loop (``device_accumulate=False``
@@ -366,30 +373,24 @@ class SemSegTester(TesterBase):
         return out
 
     # ------------------------------------------------------------------ test
-    def test(self):
-        logger = self.logger
-        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+    def scene_preds(self):
+        """Each test scene's ``(pos, scene, pred, segment)``: its summed
+        softmax (loaded where cached, else inferred and saved; mapped back
+        through ``inverse`` where the pipeline keeps full-resolution labels)
+        and its labels. A scene's ``scene_ms`` ends when the caller asks for
+        the next one."""
         self.model.eval()
-        batch_time = AverageMeter()
-        num_classes = self.cfg.data.num_classes
-        ignore_index = self.cfg.data.get("ignore_index", -1)
         make_dirs(self.result_dir)
-        submit_dir = None
-        if self.cfg.data.test.get("submit", False):
-            submit_dir = os.path.join(self.result_dir, "submit")
-            make_dirs(submit_dir)
-            if self.cfg.data.test.type in NUSCENES_TYPES:
-                write_nuscenes_meta(submit_dir)
-        record = {}
-        n_scenes = len(self.test_dataset)
+        num_classes = self.cfg.data.num_classes
         self.scene_stats = []
         start = time.perf_counter()
         for pos, scene in enumerate(self.build_test_loader()):
             # the scene's own start: its wait for the loader, then its work
             loaded = time.perf_counter()
             name, segment = scene["name"], scene["segment"]
-            if scene["groups"] is None and scene["fragments"] is None:
-                logger.info(f"{pos + 1}/{n_scenes}: {name}, loaded pred and label.")
+            cached = scene["groups"] is None and scene["fragments"] is None
+            if cached:
+                self.logger.info(f"{pos + 1}/{len(self.test_dataset)}: {name}, loaded pred and label.")
                 pred = np.load(self._pred_path(name))
                 segment = scene.get("origin_segment", segment)
             else:
@@ -399,6 +400,29 @@ class SemSegTester(TesterBase):
                     pred = pred[scene["inverse"]]
                     segment = scene["origin_segment"]
                 np.save(self._pred_path(name), pred)
+            yield pos, scene, pred, segment
+            end = time.perf_counter()
+            if not cached:
+                self.scene_stats[-1]["scene_ms"] = (end - start) * 1e3
+            start = end
+
+    def test(self):
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        batch_time = AverageMeter()
+        num_classes = self.cfg.data.num_classes
+        ignore_index = self.cfg.data.get("ignore_index", -1)
+        submit_dir = None
+        if self.cfg.data.test.get("submit", False):
+            submit_dir = os.path.join(self.result_dir, "submit")
+            make_dirs(submit_dir)
+            if self.cfg.data.test.type in NUSCENES_TYPES:
+                write_nuscenes_meta(submit_dir)
+        record = {}
+        n_scenes = len(self.test_dataset)
+        start = time.perf_counter()
+        for pos, scene, pred, segment in self.scene_preds():
+            name = scene["name"]
             pred_label = np.argmax(pred, axis=-1)
             if submit_dir is not None:
                 self.write_submission(submit_dir, name, pred_label)
@@ -409,8 +433,6 @@ class SemSegTester(TesterBase):
             acc = sum(intersection) / (sum(target) + 1e-10)
             end = time.perf_counter()
             batch_time.update(end - start)
-            if scene["groups"] is not None or scene["fragments"] is not None:
-                self.scene_stats[-1]["scene_ms"] = (end - start) * 1e3
             logger.info(f"Test: {name} [{pos + 1}/{n_scenes}]-{segment.size} "
                         f"Batch {batch_time.val:.3f} ({batch_time.avg:.3f}) Accuracy {acc:.4f} mIoU {iou:.4f}")
             start = end
@@ -588,6 +610,182 @@ class InsSegTester(TesterBase):
             lines.append(f"{os.path.join('predicted_masks', f'{data_name}_{i:03d}.json')} {int(cls)} {float(score):.4f}")
         with open(os.path.join(save_dir, f"{data_name}.txt"), "w") as f:
             f.write("\n".join(lines) + ("\n" if lines else ""))
+
+
+@TESTERS.register_module()
+class ClsTester(TesterBase):
+    """Classification (counterpart of the JAX package's `ClsTester`;
+    reference `engines/test.py:622`): one forward a cloud, padded to
+    ``point_capacity_test``, its argmax against the cloud's ``category``;
+    mIoU, mAcc and allAcc over the clouds. ``cloud_stats`` holds each
+    cloud's ms, forward ms (the copy to the card and the read of the
+    result included) and host ms (the dataset's pipeline and the padding).
+    A cloud whose points the static capacities drop past
+    ``eval_overflow_tolerance`` raises (`check_dropped`)."""
+
+    def __init__(self, cfg, model=None, device=None, verbose: bool = False):
+        self.cloud_stats = []
+        super().__init__(cfg, model=model, device=device, verbose=verbose)
+
+    def cloud_probs(self, idx: int) -> tuple:
+        """(the cloud's category, its softmax [classes] in f32) from
+        ``test_dataset[idx]``, which re-runs the pipeline; timed into
+        ``cloud_stats``."""
+        start = time.perf_counter()
+        data = self.test_dataset[idx]
+        category = int(np.asarray(data["category"]).reshape(-1)[0])
+        n = data["coord"].shape[0]
+        if n > self.test_capacity:
+            raise ValueError(f"cloud {idx}: {n} points > point_capacity_test {self.test_capacity}")
+        arrays = pad_to_point_batch(collate_fn([data]), self.test_capacity, num_scenes=1)
+        loaded = time.perf_counter()
+        with torch.no_grad():
+            res = self.model(make_point_batch(arrays, 1, device=self.device))
+            dropped = sum((v.float() for vs in res["diagnostics"].values() for v in vs), torch.zeros(()))
+            host = torch.cat([torch.softmax(res["cls_logits"][0].float(), dim=-1),
+                              dropped.to(res["cls_logits"].device).view(1)]).cpu().numpy()
+        end = time.perf_counter()
+        probs = host[:-1]
+        self.check_dropped(int(host[-1]), n, f"cloud {idx}")
+        self.cloud_stats.append(dict(points=n, host_ms=(loaded - start) * 1e3, forward_ms=(end - loaded) * 1e3,
+                                     cloud_ms=(end - start) * 1e3))
+        return category, probs
+
+    def votes(self, idx: int) -> tuple:
+        """(category, scores) of one cloud: its softmax."""
+        return self.cloud_probs(idx)
+
+    def test(self) -> dict:
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        self.model.eval()
+        num_classes = self.cfg.data.num_classes
+        inter, union, target = (np.zeros(num_classes) for _ in range(3))
+        self.cloud_stats = []
+        for pos in range(len(self.test_dataset)):
+            category, scores = self.votes(pos)
+            pred = int(scores.argmax())
+            i, u, t = intersection_and_union(np.array([pred]), np.array([category]), num_classes)
+            inter, union, target = inter + i, union + u, target + t
+            logger.info(f"Test: [{pos + 1}/{len(self.test_dataset)}] pred {pred} gt {category}")
+        m_iou = float(np.mean(inter / (union + 1e-10)))
+        m_acc = float(np.mean(inter / (target + 1e-10)))
+        all_acc = float(inter.sum() / (target.sum() + 1e-10))
+        logger.info("Val result: mIoU/mAcc/allAcc {:.4f}/{:.4f}/{:.4f}".format(m_iou, m_acc, all_acc))
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return dict(mIoU=m_iou, mAcc=m_acc, allAcc=all_acc)
+
+
+@TESTERS.register_module()
+class ClsVotingTester(ClsTester):
+    """Test-time augmentation (counterpart of the JAX package's
+    `ClsVotingTester`; reference `engines/test.py:724`): each cloud's
+    softmax summed in f64 over `num_repeat` passes, each through the
+    dataset's pipeline again (its random transforms drawn anew)."""
+
+    def __init__(self, cfg, model=None, device=None, verbose: bool = False, num_repeat: int = 100,
+                 metric: str = "allAcc"):
+        self.num_repeat = int(num_repeat)
+        self.metric = metric
+        super().__init__(cfg, model=model, device=device, verbose=verbose)
+
+    def votes(self, idx: int) -> tuple:
+        record = np.zeros(self.cfg.data.num_classes, np.float64)
+        category = None
+        for _ in range(self.num_repeat):
+            category, probs = self.cloud_probs(idx)
+            record += probs
+        return category, record
+
+
+def part_ious(pred: np.ndarray, segment: np.ndarray, parts) -> list:
+    """Each part's IoU in one shape: the argmax of `pred` [n, classes]
+    over the shape's `parts` alone, against `segment`; 1.0 for a part
+    neither holds."""
+    masked = np.full_like(pred, -1e9)
+    masked[:, parts] = pred[:, parts]
+    label = masked.argmax(-1)
+    ious = []
+    for p in parts:
+        u = ((label == p) | (segment == p)).sum()
+        ious.append(((label == p) & (segment == p)).sum() / u if u > 0 else 1.0)
+    return ious
+
+
+@TESTERS.register_module()
+class ShapeNetPartSegTester(SemSegTester):
+    """ShapeNet-Part (counterpart of the JAX package's
+    `ShapeNetPartSegTester`; reference `engines/test.py:841`): each shape's
+    fragments voted into its points (`SemSegTester.scene_preds`), the
+    argmax over its category's part range (`part_ious`), the mean part IoU
+    a shape; ins.mIoU over the shapes and cat.mIoU over the categories that
+    have shapes. The shape's ``category`` comes beside its fragments (the
+    JAX tester reads ``coord`` and ``category`` from the test dataset's
+    item, which in test mode holds fragments: it fails on the configs'
+    test sections)."""
+
+    def test(self) -> dict:
+        from ..datasets.shapenet_part import ShapeNetPartDataset
+
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        categories = ShapeNetPartDataset.categories
+        iou_per_cat = {c: [] for c in range(len(categories))}
+        for pos, scene, pred, segment in self.scene_preds():
+            cat = int(np.asarray(scene["category"]).reshape(-1)[0])
+            iou = float(np.mean(part_ious(pred, segment, ShapeNetPartDataset.category2part[categories[cat]])))
+            iou_per_cat[cat].append(iou)
+            logger.info(f"Test: [{pos + 1}/{len(self.test_dataset)}] {scene['name']} cat {categories[cat]} "
+                        f"iou {iou:.4f}")
+        shapes = [v for lst in iou_per_cat.values() for v in lst]
+        ins_iou = float(np.mean(shapes)) if shapes else 0.0
+        cat_iou = float(np.mean([np.mean(lst) for lst in iou_per_cat.values() if lst])) if shapes else 0.0
+        logger.info("Val result: ins.mIoU/cat.mIoU {:.4f}/{:.4f}".format(ins_iou, cat_iou))
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return dict(ins_miou=ins_iou, cat_miou=cat_iou)
+
+
+@TESTERS.register_module()
+class PartNetEPartSegTester(SemSegTester):
+    """PartNetE (counterpart of the JAX package's `PartNetEPartSegTester`;
+    reference `engines/test.py:992-1158`): each sample's fragments voted
+    into its points, then for each part of its category but "other" (the
+    first) that the labels or the prediction hold, its IoU into that part's
+    running mean; part.mIoU over the parts seen, cat.mIoU over the
+    categories' means. The sample's ``cls_token`` comes beside its
+    fragments (the JAX tester reads it from the first fragment, whose
+    `Collect` has dropped it)."""
+
+    def test(self) -> dict:
+        logger = self.logger
+        logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        ds = self.test_dataset
+        iou_sum = np.zeros(int(sum(ds.num_parts)), np.float64)
+        iou_cnt = np.zeros_like(iou_sum)
+        for pos, scene, pred, segment in self.scene_preds():
+            category = ds.categories[int(np.asarray(scene["cls_token"]).reshape(-1)[0])]
+            label = pred.argmax(-1)
+            for part_id in ds.category2part[category][1:]:  # "other" excluded (reference :1072)
+                gid = part_id + 1  # the labels lead with a shift of one
+                if (segment == gid).sum() == 0 and (label == gid).sum() == 0:
+                    continue
+                inter = float(((segment == gid) & (label == gid)).sum())
+                union = float(((segment == gid) | (label == gid)).sum())
+                iou_sum[part_id] += inter / (union + 1e-10)
+                iou_cnt[part_id] += 1
+            logger.info(f"Test: [{pos + 1}/{len(ds)}] {scene['name']} ({category})")
+        present = iou_cnt > 0
+        part_iou = np.where(present, iou_sum / np.maximum(iou_cnt, 1), 0.0)
+        miou = float(part_iou[present].mean()) if present.any() else 0.0
+        cat_ious = []
+        for cat in ds.categories:
+            ids = [p for p in ds.category2part[cat][1:] if present[p]]
+            if ids:
+                cat_ious.append(float(np.mean([part_iou[p] for p in ids])))
+        cat_miou = float(np.mean(cat_ious)) if cat_ious else 0.0
+        logger.info("Val result: part.mIoU/cat.mIoU {:.4f}/{:.4f}".format(miou, cat_miou))
+        logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        return dict(part_miou=miou, cat_miou=cat_miou)
 
 
 def main_worker(cfg, device: Optional[str] = None):

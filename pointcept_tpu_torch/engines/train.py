@@ -60,7 +60,8 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
                      condition: Optional[str] = None) -> PointBatch:
     """Collated arrays (numpy or tensors) -> PointBatch on `device` (the GPU
     unless the caller names another; raises when no GPU is present and none
-    is named), from the keys ``{prefix}coord``, ... Copies from pinned host
+    is named), from the keys ``{prefix}coord``, ... (a classifier's batch
+    brings ``category``, one a scene). Copies from pinned host
     tensors do not wait for the card. The grid's depth (`grid_bits`) is
     read from the collated grid while it is still on the host. The batch's
     `condition` (PPT) is the argument's, else the arrays' ``condition``."""
@@ -74,6 +75,7 @@ def make_point_batch(arrays: Dict[str, np.ndarray], num_scenes: int, device=None
         origin_coord=_put(arrays, prefix + "origin_coord", torch.float32, device),
         instance=_put(arrays, prefix + "instance", torch.int32, device),
         instance_centroid=_put(arrays, prefix + "instance_centroid", torch.float32, device),
+        category=_put(arrays, prefix + "category", torch.int32, device),
         num_scenes=num_scenes,
         grid_depth=grid_bits(arrays.get(prefix + "grid_coord")),
         condition=condition if condition is not None else arrays.get("condition"),
@@ -335,20 +337,24 @@ class Trainer(TrainerBase):
     @torch.no_grad()
     def eval_step(self, batch) -> dict:
         """The eval forward of one val batch: per-class intersection, union
-        and target over the valid points (label not ignored), the loss and
-        the overflow counters, read to the host at once."""
+        and target over the valid points (label not ignored), or over the
+        valid clouds of a classifier (``category`` not -1), the loss and the
+        overflow counters, read to the host at once."""
         num_classes = self.cfg.data.num_classes
         ignore_index = self.cfg.data.get("ignore_index", -1)
         pb = make_point_batch(batch, batch["num_scenes"], device=self.device)
         self.model.eval()
         res = self.model(pb)
-        pred = res["seg_logits"].argmax(dim=-1)
-        seg = pb.segment.long()
-        valid = (seg != ignore_index) & pb.mask
+        if "cls_logits" in res:
+            pred, label = res["cls_logits"].argmax(dim=-1), pb.category.long()
+            valid = label >= 0
+        else:
+            pred, label = res["seg_logits"].argmax(dim=-1), pb.segment.long()
+            valid = (label != ignore_index) & pb.mask
         pred = torch.where(valid, pred, num_classes)
-        seg = torch.where(valid, seg, num_classes)
-        inter = torch.bincount(torch.where(pred == seg, pred, num_classes), minlength=num_classes + 1)
-        target = torch.bincount(seg, minlength=num_classes + 1)
+        label = torch.where(valid, label, num_classes)
+        inter = torch.bincount(torch.where(pred == label, pred, num_classes), minlength=num_classes + 1)
+        target = torch.bincount(label, minlength=num_classes + 1)
         output = torch.bincount(pred, minlength=num_classes + 1)
         union = output + target - inter
         loss = res.get("loss", torch.zeros((), device=self.device))

@@ -8,11 +8,12 @@ from typing import Optional
 import torch
 from torch import nn
 
+from ..ops.segment_ops import fixed_segment_mean
 from ..utils.logger import get_root_logger
 from ..utils.optimizer import freeze_except
 from .builder import MODELS
 from .losses import build_criteria
-from .modules import Linear
+from .modules import Linear, MaskedBatchNorm
 from .point_transformer_v3.point_transformer_v3 import up_cast
 from .utils.structure import PointBatch
 
@@ -138,3 +139,80 @@ class DefaultLORASegmentorV2(DefaultSegmentorV2):
     def __init__(self, backbone=None, lora_rank: int = 16, **kwargs):
         super().__init__(backbone=dict(backbone, lora_rank=lora_rank), **kwargs)
         freeze_except(self.backbone, ("lora",))
+
+
+@MODELS.register_module("DefaultClassifier")
+class DefaultClassifier(nn.Module):
+    """Per-cloud classification (reference `models/default.py:290`;
+    counterpart of the JAX package's class of the same name): the mean of
+    each cloud's features over its valid points, then the head ``cls_head``:
+    Linear -> BatchNorm -> ReLU -> Dropout(0.5), at 256 and at 128 channels,
+    then Linear to `num_classes` (the reference's indices 0, 1, 4, 5, 8), in
+    f32.
+
+    `forward(pb, generator)` returns ``{"cls_logits" [num_scenes, classes],
+    "diagnostics"}`` and, when the batch carries ``category`` (-1 for a
+    scene the batch pads), the criteria of the logits against it as
+    ``"loss"``. Gradients are recorded in train mode only.
+
+    The pooled features are the last stage's (an ``enc_mode`` backbone) or
+    the backbone's output (a decoder, SpUNet's features), as the JAX
+    package pools: the head's width is theirs, and a differing
+    `backbone_embed_dim` is logged, as the JAX head's inferred width ignores
+    it (the Utonia configs say 1,386, the sum of the encoder's widths, over
+    a last stage of 576). The mean runs in a fixed order
+    (`fixed_segment_mean`). The head's BatchNorm takes the scenes that hold
+    points: a padded scene (no points, ``category`` -1) adds nothing to its
+    statistics (the JAX head's takes every scene). `freeze_backbone`
+    freezes in the model, as `DefaultSegmentorV2`: the backbone's weights
+    stay as loaded and no optimizer group holds them (the JAX package stops
+    the gradient, and its weight decay still shrinks them). Dropout draws
+    its masks from the step's `generator`."""
+
+    def __init__(self, backbone=None, criteria=None, num_classes: int = 40, backbone_embed_dim: int = 256,
+                 freeze_backbone: bool = False):
+        super().__init__()
+        self.backbone = MODELS.build(dict(backbone))
+        self.enc_mode = bool(getattr(self.backbone, "enc_mode", False))
+        width = self.backbone.out_channels
+        if backbone_embed_dim != width:
+            get_root_logger().warning(
+                f"DefaultClassifier: backbone_embed_dim={backbone_embed_dim} but the backbone's pooled "
+                f"features have {width} channels; the head takes {width}")
+        self.freeze_backbone = freeze_backbone
+        if freeze_backbone:
+            self.backbone.requires_grad_(False)
+        self.criteria = build_criteria(criteria)
+        self.dropout = 0.5
+        self.cls_head = nn.ModuleList([
+            Linear(width, 256), MaskedBatchNorm(256), nn.ReLU(), nn.Identity(),
+            Linear(256, 128), MaskedBatchNorm(128), nn.ReLU(), nn.Identity(),
+            Linear(128, num_classes),
+        ])
+
+    def _drop(self, x: torch.Tensor, generator: Optional[torch.Generator]) -> torch.Tensor:
+        if not self.training or self.dropout == 0:
+            return x
+        if generator is None:
+            raise ValueError("DefaultClassifier: train mode draws its dropout masks from an explicit generator")
+        keep = torch.rand(x.shape, generator=generator, device=generator.device).to(x.device) >= self.dropout
+        return torch.where(keep, x / (1 - self.dropout), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    def forward(self, pb: PointBatch, generator: Optional[torch.Generator] = None) -> dict:
+        with contextlib.nullcontext() if self.training else torch.no_grad():
+            if self.enc_mode:
+                out, diag, _ = self.backbone(pb, generator=generator)
+            else:
+                out, diag = self.backbone(pb, generator=generator)
+            pooled = fixed_segment_mean(out.feat, out.batch, out.mask, pb.num_scenes)
+            scenes = torch.arange(pb.num_scenes, device=out.batch.device)
+            has_points = (out.batch[None, :] == scenes[:, None]).any(dim=1)
+            x = pooled
+            for i in (0, 4):
+                x = self.cls_head[i + 1](self.cls_head[i](x), has_points)
+                x = self._drop(torch.relu(x), generator)
+            logits = self.cls_head[8](x)
+            result = {"cls_logits": logits, "diagnostics": diag}
+            if pb.category is not None:
+                result["loss"] = self.criteria(logits, pb.category)
+        return result

@@ -83,7 +83,7 @@ import torch
 from torch import nn
 
 from ...ops import serialization as ser
-from ...ops.attention import patch_attention
+from ...ops.attention import patch_attention, patch_runs
 from ...ops.block_conv import block_subm_conv, build_block_tables, default_block_capacity
 from ...ops.pointrope import point_rope
 from ...ops.segment_ops import segment_reduce, sorted_segment_mean
@@ -611,8 +611,7 @@ class PointTransformerV3(nn.Module):
             nbr3 = nbr5[:, torch.as_tensor(k3_columns_of_k5(), device=pb.device).long()]
         else:
             nbr3 = build_subm_neighbor_map(pb.grid_coord, pb.key_batch(), pb.mask, depth - stage, 3)
-        parts = {oi: pb.patch_partition(oi, patch_size)
-                 for oi in self._used_orders(stage, shuffled)}
+        parts = patch_runs({oi: pb.patch_partition(oi, patch_size) for oi in self._used_orders(stage, shuffled)})
         return dict(nbr3=nbr3, parts=parts)
 
     def _pooled_capacity(self, cap: int, stage: int) -> int:

@@ -37,7 +37,10 @@ map to its module names: ``embedding_table/embedding`` ->
 ``embedding_table.weight``, ``proj_head`` and ``seg_head{i}`` Dense ->
 Linear, ``class_embedding`` and ``logit_scale`` as they are. PointGroup's
 heads (``bias_fc1``, ``bias_norm``, ``bias_fc2``) map to the reference's
-``bias_head.0``, ``.1`` and ``.3`` (`PG_HEADS`) beside its ``seg_head``.
+``bias_head.0``, ``.1`` and ``.3`` (`PG_HEADS`) beside its ``seg_head``;
+DefaultClassifier's (``cls_fc0``, ``cls_bn0``, ``cls_fc1``, ``cls_bn1``,
+``cls_out``) to ``cls_head.0``, ``.1``, ``.4``, ``.5`` and ``.8``
+(`CLS_HEAD`).
 """
 
 from __future__ import annotations
@@ -249,12 +252,15 @@ def _sonata_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
 
 # PointGroup's heads (PG-v1m1/m2): flax module -> the reference's name
 PG_HEADS = {"bias_fc1": "bias_head.0", "bias_norm": "bias_head.1", "bias_fc2": "bias_head.3"}
+# DefaultClassifier's head: flax module -> the reference's name
+CLS_HEAD = {"cls_fc0": "cls_head.0", "cls_bn0": "cls_head.1", "cls_fc1": "cls_head.4", "cls_bn1": "cls_head.5",
+            "cls_out": "cls_head.8"}
 
 
-def _pg_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
-    """PointGroup's bias head and its seg head -> their module names."""
+def _heads_from_jax(heads: dict, params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+    """Dense and MaskedBatchNorm head modules (flax name -> torch name)."""
     sd = {}
-    for module, name in dict(PG_HEADS, seg_head="seg_head").items():
+    for module, name in heads.items():
         for leaf, value in params[module].items():
             if leaf == "kernel":
                 sd[f"{name}.weight"] = np.ascontiguousarray(np.asarray(value).T)
@@ -267,15 +273,16 @@ def _pg_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
 
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet,
-    PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, or Sonata-v1m1 flax trees (arrays)
-    -> the port's state dict."""
+    PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, DefaultClassifier over either, or
+    Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
     ppt = {k: v for k, v in params.items() if _is_ppt_leaf(k)}
     params = {k: v for k, v in params.items() if k not in ppt}
-    pg = {}
-    if "bias_fc1" in params:
-        pg = _pg_from_jax({k: params[k] for k in (*PG_HEADS, "seg_head")}, batch_stats)
-        params = {k: v for k, v in params.items() if k not in PG_HEADS and k != "seg_head"}
-        batch_stats = {k: v for k, v in batch_stats.items() if k not in PG_HEADS}
+    head_sd = {}
+    for marker, heads in (("bias_fc1", dict(PG_HEADS, seg_head="seg_head")), ("cls_out", CLS_HEAD)):
+        if marker in params:
+            head_sd = _heads_from_jax(heads, params, batch_stats)
+            params = {k: v for k, v in params.items() if k not in heads}
+            batch_stats = {k: v for k, v in batch_stats.items() if k not in heads}
     if "conv_input" in params.get("backbone_module", {}):
         sd = _spunet_from_jax(params, batch_stats)
     elif "teacher_backbone" in params:
@@ -283,5 +290,5 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
     else:
         sd = _ptv3_from_jax(params, batch_stats)
     sd.update(_ppt_from_jax(ppt))
-    sd.update(pg)
+    sd.update(head_sd)
     return {k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()}

@@ -65,6 +65,7 @@ class PointBatch:
     context: Optional[torch.Tensor] = None  # [1, context_channels] the condition's embedding (PPT)
     instance: Optional[torch.Tensor] = None  # [N] int32 instance ids, -1 = none (PointGroup)
     instance_centroid: Optional[torch.Tensor] = None  # [N, 3] float32 each point's instance centroid
+    category: Optional[torch.Tensor] = None  # [num_scenes] int32 each scene's class, -1 = padding (classifiers)
 
     def replace(self, **kw) -> "PointBatch":
         return dataclasses.replace(self, **kw)

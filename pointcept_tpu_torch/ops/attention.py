@@ -6,7 +6,10 @@ rows of every slot once (``qkv[slot_to_point]``, bf16) and hands them to the
 patch-attention kernels (`PatchAttention`: the forward kernel, and the
 backward kernel as its VJP); each point then reads its own slot's output row.
 Both index ops are `TakeRows` gathers: their VJP sums the cotangents of the
-slots that duplicate a point (scene tails), as JAX's `take` VJP does.
+slots that duplicate a point (scene tails, scenes smaller than a patch), as
+JAX's `take` VJP does, in a fixed order. A stage's blocks share its
+`RowRuns` (`patch_runs`), so its layouts are sorted once a step, all
+orders together.
 
 Not carried over from the JAX package, all TPU workarounds: the
 identity-layout window splice (it avoided slot gathers on the TPU and gives
@@ -21,13 +24,26 @@ from typing import Optional
 import torch
 
 from .kernels.patch_attention import PatchAttention
-from .segment_ops import TakeRows
+from .segment_ops import RowRuns, TakeRows
+
+
+def patch_runs(partitions: dict) -> dict:
+    """A stage's patch layouts ``{order: (slot_to_point [P], point_to_slot
+    [N])}`` as the `RowRuns` of their two gathers, ``{order: (slots read
+    points: into N rows, points read slots: into P rows)}``; the layouts of
+    one stage build their runs together (one sort for all orders)."""
+    keys = list(partitions)
+    s2p = [partitions[k][0] for k in keys]
+    p2s = [partitions[k][1] for k in keys]
+    reads = RowRuns.batch(s2p, p2s[0].shape[0])
+    back = RowRuns.batch(p2s, s2p[0].shape[0])
+    return {k: (reads[i], back[i]) for i, k in enumerate(keys)}
 
 
 def patch_attention(
     qkv: torch.Tensor,  # [N, 3*C]
-    slot_to_point: torch.Tensor,  # [P]
-    point_to_slot: torch.Tensor,  # [N]
+    slot_to_point: RowRuns,  # [P] slots read points (`patch_runs`)
+    point_to_slot: RowRuns,  # [N] points read slots
     num_heads: int,
     patch_size: int,
     scale: Optional[float] = None,
@@ -44,12 +60,12 @@ def patch_attention(
     h = num_heads
     d = c // h
     k = patch_size
-    p = slot_to_point.shape[0]
+    p = slot_to_point.idx.shape[0]
     assert p % k == 0
     np_ = p // k
     if scale is None:
         scale = d**-0.5
-    qkv_p = TakeRows.apply(qkv.to(compute_dtype), slot_to_point.long()).reshape(np_, k, c3)
+    qkv_p = TakeRows.apply(qkv.to(compute_dtype), slot_to_point).reshape(np_, k, c3)
     if bias is None:
         out = PatchAttention.apply(qkv_p.contiguous(), h, scale)
     else:
@@ -58,4 +74,4 @@ def patch_attention(
         s = torch.einsum("phkd,phmd->phkm", (q * scale).float(), kk.float()) + bias
         a = torch.softmax(s.float(), dim=-1).to(compute_dtype)
         out = torch.einsum("phkm,phmd->phkd", a.float(), v.float()).transpose(1, 2)
-    return TakeRows.apply(out.reshape(p, c), point_to_slot.long()).to(qkv.dtype)
+    return TakeRows.apply(out.reshape(p, c), point_to_slot).to(qkv.dtype)

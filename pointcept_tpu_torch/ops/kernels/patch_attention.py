@@ -65,18 +65,18 @@ def _check(qkv_p: torch.Tensor, num_heads: int, what: str) -> int:
     if qkv_p.requires_grad and torch.is_grad_enabled():
         raise RuntimeError(f"{what}: the raw kernel records no gradient; use PatchAttention")
     c = qkv_p.shape[2] // 3
-    if c % num_heads != 0 or (c // num_heads) not in (8, 16, 18, 24, 32):
-        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 8, 16, 18, 24 or 32")
+    if c % num_heads != 0 or (c // num_heads) not in (4, 8, 16, 18, 24, 32):
+        raise ValueError(f"{what}: head dim {c}/{num_heads} must be 4, 8, 16, 18, 24 or 32")
     if qkv_p.shape[1] % 16 != 0:
         raise ValueError(f"{what}: patch size {qkv_p.shape[1]} must be a multiple of 16")
     return c // num_heads
 
 
-# head dims the kernels take on zero-padded heads: 8 runs the D = 16
+# head dims the kernels take on zero-padded heads: 4 and 8 run the D = 16
 # kernels, 18 (Utonia's) the D = 24 ones. The zero columns add nothing to
 # q . k, and their output and gradient columns are dropped; the caller's
-# scale (1 / sqrt(8) or 1 / sqrt(18)) is passed on unchanged.
-_PAD_WIDTH = {8: 16, 18: 24}
+# scale (1 / sqrt(4), 1 / sqrt(8) or 1 / sqrt(18)) is passed on unchanged.
+_PAD_WIDTH = {4: 16, 8: 16, 18: 24}
 
 
 def _pad_heads(x: torch.Tensor, num_heads: int, parts: int, width: int = 16) -> torch.Tensor:
@@ -101,8 +101,8 @@ def attention_sizes(np_: int, k: int, c: int, num_heads: int) -> None:
 def patch_attention_fwd(qkv_p: torch.Tensor, num_heads: int, scale: float, stats: bool = False):
     """qkv_p [nP, K, 3C] slot-gathered rows (q | k | v, head-major within
     each) -> [nP, K, C]; with `stats` also the row statistics m, l that
-    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 8, 16,
-    18, 24 or 32 (8 and 18 on zero-padded heads), K a multiple of 16."""
+    `patch_attention_bwd` takes. On CUDA: bf16, contiguous, head dim 4, 8,
+    16, 18, 24 or 32 (4, 8 and 18 on zero-padded heads), K a multiple of 16."""
     if qkv_p.device.type == "cpu":
         return patch_attention_fwd_plain(qkv_p, num_heads, scale, stats=stats)
     d = _check(qkv_p, num_heads, "patch_attention_fwd")

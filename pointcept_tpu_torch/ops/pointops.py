@@ -2,12 +2,14 @@
 
 `knn_query`: the k nearest base points of each query within its scene, in
 plain PyTorch (the JAX package's is a tiled scan, not a Pallas kernel).
+`fps_numpy`: farthest point sampling on the host, for dataset loading.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 BIG = 1e10
@@ -51,3 +53,27 @@ def knn_query(k: int, base_coord: torch.Tensor, base_batch: torch.Tensor,
     exact = torch.sum(torch.square(base_coord[best_i.long()] - query_coord[:, None, :]), dim=-1)
     exact = torch.where(found, exact, torch.full((), BIG, dtype=exact.dtype, device=exact.device))
     return best_i, torch.sqrt(torch.clamp(exact, min=1e-12))
+
+
+def fps_numpy(coord: np.ndarray, num_samples: int, seed: int = 0) -> np.ndarray:
+    """Farthest point sampling on the host (ModelNet's `uniform_sampling`):
+    the first sample drawn from ``RandomState(seed)``, then each next the
+    point farthest (squared distance) from the samples so far. Returns
+    [num_samples] int64 indices. The distances are the JAX package's
+    ``sum((coord - p) ** 2, axis=1)`` term for term (the three squares
+    added in order, in coord's dtype), over contiguous columns: the same
+    bits, several times faster."""
+    n = coord.shape[0]
+    rng = np.random.RandomState(seed)
+    cols = [np.ascontiguousarray(coord[:, i]) for i in range(coord.shape[1])]
+    selected = np.zeros(num_samples, np.int64)
+    selected[0] = rng.randint(n)
+    dists = np.full(n, np.inf)
+    for i in range(1, num_samples):
+        j = selected[i - 1]
+        d = np.square(cols[0] - cols[0][j])
+        for c in cols[1:]:
+            d += np.square(c - c[j])
+        dists = np.minimum(dists, d)
+        selected[i] = np.argmax(dists)
+    return selected

@@ -5,20 +5,121 @@ from __future__ import annotations
 import torch
 
 
+RUN_CHUNK = 64  # reads a first-level partial sum of `TakeRows`' VJP adds
+
+
+def _build_runs(idx: torch.Tensor, rows: int) -> list:
+    """The runs of each row of ``idx`` [O, M] over `rows` rows (see
+    `RowRuns`), built together: one batched sort and one pass of each op
+    for the O index tensors. Returns O (order, chunk_len, row_chunks)."""
+    dev = idx.device
+    o, m = idx.shape
+    sorted_idx, order = torch.sort(idx, dim=1, stable=True)
+    bounds = torch.searchsorted(sorted_idx, torch.arange(rows + 1, device=dev).expand(o, rows + 1).contiguous())
+    length = bounds[:, 1:] - bounds[:, :-1]
+    row_chunks = (length + (RUN_CHUNK - 1)) // RUN_CHUNK
+    ends = torch.cumsum(row_chunks, 1)
+    j = torch.arange(rows + (m + RUN_CHUNK - 1) // RUN_CHUNK, device=dev).expand(o, -1).contiguous()
+    row = torch.searchsorted(ends, j, right=True)
+    rc = torch.clamp(row, max=rows - 1)
+    k = j - (ends.gather(1, rc) - row_chunks.gather(1, rc))
+    chunk_len = torch.where(row < rows, torch.clamp(length.gather(1, rc) - k * RUN_CHUNK, 0, RUN_CHUNK), 0)
+    return [(order[i], chunk_len[i], row_chunks[i]) for i in range(o)]
+
+
+class RowRuns:
+    """A gather index ``idx`` [M] into `rows` rows, and the runs of its
+    fixed-order VJP, built at the first backward and kept: the gathers that
+    share one index (the blocks of a stage share its patch layout) sort it
+    once, and the indices made together by `RowRuns.batch` (a stage's
+    layouts, one an order) are sorted together.
+
+    A stable sort of `idx` lays each row's readers out in a run of
+    consecutive positions, in the order they read it. Each run is cut into
+    chunks of `RUN_CHUNK` positions (chunk j of row r holds its readers
+    ``j * RUN_CHUNK ...``), laid out row by row in a chunk table of a static
+    length, ``rows + ceil(M / RUN_CHUNK)``, that bounds their count; the
+    tail of the table holds empty chunks. No value comes to the host."""
+
+    def __init__(self, idx: torch.Tensor, rows: int):
+        self.idx = idx.long()
+        self.rows = int(rows)
+        self._shared = None  # (the batch's holder, this index's place in it), `RowRuns.batch`
+        self._runs = None
+
+    @classmethod
+    def batch(cls, indices, rows: int) -> list:
+        """`RowRuns` of index tensors of one length over the same `rows`,
+        whose runs are built together at the first backward of any."""
+        runs = [cls(i, rows) for i in indices]
+        holder = {"indices": [r.idx for r in runs], "runs": None}
+        for n, r in enumerate(runs):
+            r._shared = (holder, n)
+        return runs
+
+    def runs(self):
+        """(order [M]: the positions sorted by row, stable; chunk_len [S]:
+        each chunk's readers; row_chunks [rows]: each row's chunks)."""
+        if self._runs is None:
+            if self._shared is None:
+                (self._runs,) = _build_runs(self.idx[None], self.rows)
+            else:
+                holder, n = self._shared
+                if holder["runs"] is None:
+                    holder["runs"] = _build_runs(torch.stack(holder["indices"]), self.rows)
+                self._runs = holder["runs"][n]
+        return self._runs
+
+
 class TakeRows(torch.autograd.Function):
-    """``x[idx]`` along rows; VJP: the cotangent rows added into an f32
-    buffer with `index_add_` (native f32 atomics on the card), cast to x's
-    dtype.
+    """``x[idx]`` along rows (`index`: a `RowRuns`, or an index tensor over
+    x's rows); VJP: each row's cotangents summed in a fixed order, in f32
+    (f64 for f64 cotangents), and rounded once to x's dtype.
 
     The static layouts repeat rows by the thousand: every dead attention
-    slot reads point 0, every padding point reads slot 0, every missing
-    child of a strided conv reads row 0. The autograd VJP (`index_put_`
-    with accumulation) serialises such duplicates, and took most of the
-    train step on the card. On the card a row repeated more than twice with
-    nonzero cotangents (a scene smaller than one patch) sums in the order
-    the atomics take; the f32 sum is rounded once. The submanifold gather
-    conv, whose rows are read by many neighbours, pulls instead
-    (`sparse_conv.NeighborGather`)."""
+    slot reads point 0, every padding point reads slot 0, and a scene
+    smaller than one patch fills it by repeating its points (a 1,024-point
+    cloud at PTv3's deepest stage fills its patch of 1,024 slots with a few
+    dozen points). On the card the sum over each row's readers runs in two
+    levels: `torch.segment_reduce` over the chunks of `RowRuns` (a chunk's
+    readers in their order, one after another), then over each row's
+    chunks. The same inputs give the same bits on every run, where the
+    card's atomics (`index_add_`) add in the order they come; a row read
+    once costs one read and two copies. On the CPU `index_add_` adds the
+    readers one after another in their order, a fixed order already, and
+    ten times faster than the CPU's `segment_reduce`. The sort-based VJP of ``x[idx]`` (`index_put_`
+    with accumulation) serialises such duplicates and took most of the
+    train step on the card. The submanifold gather conv, whose rows are
+    read by many neighbours, pulls instead (`sparse_conv.NeighborGather`);
+    a table that reads each row at most once adds (`TakeRowsOnce`)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor, index) -> torch.Tensor:
+        runs = index if isinstance(index, RowRuns) else RowRuns(index, x.shape[0])
+        if runs.rows != x.shape[0]:
+            raise ValueError(f"TakeRows: the index covers {runs.rows} rows, x has {x.shape[0]}")
+        ctx.runs, ctx.dtype = runs, x.dtype
+        return x[runs.idx]
+
+    @staticmethod
+    def backward(ctx, g: torch.Tensor):
+        acc = torch.promote_types(g.dtype, torch.float32)  # f32, f64 for f64 cotangents
+        if g.device.type == "cpu":
+            # the CPU's index_add_ adds the readers one after another, in their order
+            gx = torch.zeros((ctx.runs.rows,) + tuple(g.shape[1:]), dtype=acc, device=g.device)
+            return gx.index_add_(0, ctx.runs.idx, g.to(acc)).to(ctx.dtype), None
+        order, chunk_len, row_chunks = ctx.runs.runs()
+        part = torch.segment_reduce(g.to(acc)[order], "sum", lengths=chunk_len, axis=0, unsafe=True, initial=0)
+        gx = torch.segment_reduce(part, "sum", lengths=row_chunks, axis=0, unsafe=True, initial=0)
+        return gx.to(ctx.dtype), None
+
+
+class TakeRowsOnce(torch.autograd.Function):
+    """``x[idx]`` for an index under which each row has at most one reader
+    whose cotangent may be nonzero (the inverse conv's (parent, slot)
+    table); VJP: the cotangent rows added into an f32 buffer with
+    `index_add_`, cast to x's dtype. One nonzero term a row, so the sum is
+    exact in any order."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -76,6 +177,18 @@ def sorted_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, num_segme
     end = torch.searchsorted(ids, seg, right=True)
     mean = (prefix[:, end] - prefix[:, start]) / torch.clamp(end - start, min=1)
     return mean.T.reshape((num_segments,) + tuple(data.shape[1:])).to(data.dtype)
+
+
+def fixed_segment_mean(data: torch.Tensor, segment_ids: torch.Tensor, mask: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """Mean of the rows of `data` where `mask` holds, by segment id in any
+    order (ids outside [0, num_segments) dropped, empty segments 0), in f32
+    or wider and in a fixed order: a stable sort by id, then
+    `sorted_segment_mean`."""
+    ids = torch.where(mask & (segment_ids >= 0), segment_ids.long(), num_segments)
+    ids, order = torch.sort(ids, stable=True)
+    acc = torch.promote_types(data.dtype, torch.float32)
+    return sorted_segment_mean(data.to(acc)[order], ids, num_segments)
 
 
 def masked_segment_reduce(data: torch.Tensor, segment_ids: torch.Tensor, mask: torch.Tensor,

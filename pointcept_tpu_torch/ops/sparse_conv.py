@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from . import serialization as ser
-from .segment_ops import TakeRows
+from .segment_ops import TakeRowsOnce
 
 # Batch id used for *queries* from padding points: never matches any stored key
 # (stored padding uses BATCH_SENTINEL).
@@ -120,7 +120,7 @@ class GatherGEMM(torch.autograd.Function):
     again. The gradients are the unfused ops' under autograd, bit for bit
     (the matmul's two products, each cast back to its operand's dtype; the
     rows' VJP a pull, `NeighborGather`, for a submanifold rule map, or
-    `TakeRows`' adds for a table that reads each row at most once)."""
+    `TakeRowsOnce`' adds for a table that reads each row at most once)."""
 
     @staticmethod
     def forward(ctx, x: torch.Tensor, nbr: torch.Tensor, w: torch.Tensor, symmetric: bool) -> torch.Tensor:
@@ -167,7 +167,7 @@ def gather_conv(
     `symmetric`: `nbr` is a submanifold rule map, and the gather's VJP pulls
     (`NeighborGather`). Otherwise (a strided conv's child table, which reads
     each row at most once) it adds the cotangents into their rows as
-    `TakeRows` does: one nonzero term per row, so exact in any order. The
+    `TakeRowsOnce` does: one nonzero term per row, so exact in any order. The
     backward gathers the rows again (`GatherGEMM`) rather than keep them."""
     f = feat if compute_dtype is None else feat.to(compute_dtype)
     w = weight if compute_dtype is None else weight.to(compute_dtype)
@@ -236,7 +236,7 @@ def inverse_conv(feat_coarse: torch.Tensor, parent_of: torch.Tensor, child_slot:
     """SparseInverseConv3d k2: each fine site reads its parent through the
     weight of its child slot, out[i] = feat_coarse[parent_of[i]] @ W[child_slot[i]],
     as 8 coarse-level matmuls and one row gather. Each (parent, slot) pair
-    is read by at most one valid point, so the gather's VJP (`TakeRows`)
+    is read by at most one valid point, so the gather's VJP (`TakeRowsOnce`)
     adds one nonzero term per row."""
     m = feat_coarse.shape[0]
     k, cin, cout = weight.shape
@@ -244,7 +244,7 @@ def inverse_conv(feat_coarse: torch.Tensor, parent_of: torch.Tensor, child_slot:
     per_slot = torch.einsum("mc,kcd->kmd", feat_coarse.float(), weight.float()).to(feat_coarse.dtype)
     valid = parent_of < m
     p = torch.clamp(parent_of, max=m - 1).long()
-    out = TakeRows.apply(per_slot.reshape(8 * m, cout), child_slot.long() * m + p)
+    out = TakeRowsOnce.apply(per_slot.reshape(8 * m, cout), child_slot.long() * m + p)
     out = torch.where(valid[:, None], out, torch.zeros((), dtype=out.dtype, device=out.device))
     if bias is not None:
         out = out + bias

@@ -1,11 +1,14 @@
 """LR schedule builder (counterpart of `pointcept_tpu/utils/scheduler.py`):
 per-step `torch.optim.lr_scheduler.OneCycleLR`, which
 tests/test_torch_parity.py holds against the JAX package's pure schedule,
-and `PolyLR` (tests/test_torch_port_indoor.py). Other LR schedules are not
+`PolyLR` (tests/test_torch_port_indoor.py), `CosineAnnealingLR` and
+`MultiStepLR` (tests/test_torch_port_cls.py). Other LR schedules are not
 ported. `CosineScheduler` schedules the
 hyperparameters of SSL models (`SonataHook`)."""
 
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -42,8 +45,29 @@ def poly_lr(optimizer: torch.optim.Optimizer, total_steps: int, power: float = 0
         optimizer, lambda step: (1 - step / (total_steps + 1)) ** power)
 
 
+def cosine_annealing_lr(optimizer: torch.optim.Optimizer, total_steps: int, eta_min: float = 0.0,
+                        base_lr: float = 1.0):
+    """CosineAnnealingLR: ``eta_min + (base_lr - eta_min) * (1 + cos(pi *
+    step / total_steps)) / 2`` at step `step`, `base_lr` the optimizer's lr;
+    a param group of another lr takes the same curve scaled by its lr /
+    `base_lr` (the JAX package's group multipliers)."""
+    return torch.optim.lr_scheduler.LambdaLR(
+        optimizer,
+        lambda step: (eta_min + (base_lr - eta_min) * 0.5 * (1 + math.cos(math.pi * step / total_steps))) / base_lr)
+
+
+def multi_step_lr(optimizer: torch.optim.Optimizer, total_steps: int, milestones, gamma: float = 0.1):
+    """MultiStepLR: each param group's lr times `gamma` once for every
+    milestone ``int(r * total_steps)`` (the config's `milestones` are
+    fractions of the run) that `step` has reached."""
+    bounds = sorted(int(r * total_steps) for r in milestones)
+    return torch.optim.lr_scheduler.LambdaLR(optimizer, lambda step: gamma ** sum(step >= m for m in bounds))
+
+
 def build_scheduler(cfg: dict, optimizer: torch.optim.Optimizer, total_steps: int):
-    """``cfg = dict(type="PolyLR", power=0.9)``, or
+    """``cfg = dict(type="PolyLR", power=0.9)``,
+    ``dict(type="CosineAnnealingLR", eta_min=..., base_lr=...)``,
+    ``dict(type="MultiStepLR", milestones=[0.6, 0.8], gamma=0.1)``, or
     ``cfg = dict(type="OneCycleLR", max_lr=..., pct_start=..., ...)``; a
     `max_lr` list gives each param group its own peak (group order of
     `build_optimizer`). Momentum is not cycled: the JAX package's schedule
@@ -53,6 +77,11 @@ def build_scheduler(cfg: dict, optimizer: torch.optim.Optimizer, total_steps: in
     if stype == "PolyLR":
         cfg.pop("base_lr", None)  # the optimizer's groups hold their lrs
         return poly_lr(optimizer, total_steps, **cfg)
+    if stype == "CosineAnnealingLR":
+        return cosine_annealing_lr(optimizer, total_steps, **cfg)
+    if stype == "MultiStepLR":
+        cfg.pop("base_lr", None)
+        return multi_step_lr(optimizer, total_steps, **cfg)
     if stype != "OneCycleLR":
         raise NotImplementedError(f"build_scheduler: {stype} is not ported")
     cfg.pop("cycle_momentum", None)

@@ -19,7 +19,11 @@ linear probes), whose models are also built on the meta device; and the
 `Add` and `MultiDatasetTrainer`), whose models (with SpUNet-v1m3's PDNorm
 config beside them) are built on the meta device too; and the 35 PointGroup
 configs (PG-v1m1 / v1m2 over SpUNet and PT-v3, Sonata's and Concerto's
-PointGroup probes), whose models are built on the meta device too."""
+PointGroup probes), whose models are built on the meta device too; and
+the 15 classification and part-segmentation configs (ModelNet40's PT-v3 and
+SpUNet classifiers, the synthetic tiny one, Utonia's ScanObjectNN /
+ModelNet40 probes and its ShapeNet-Part / PartNetE part-seg configs),
+whose models are built on the meta device too."""
 
 from pathlib import Path
 
@@ -36,7 +40,7 @@ from pointcept_tpu_torch.utils.config import Config
 ROOT = Path(__file__).resolve().parents[1]
 REGISTRIES = (MODELS, LOSSES, DATASETS, TRANSFORMS, HOOKS, TESTERS, TRAINERS)
 OPTIMIZERS = {"AdamW", "SGD"}
-SCHEDULERS = {"OneCycleLR", "PolyLR"}
+SCHEDULERS = {"OneCycleLR", "PolyLR", "CosineAnnealingLR", "MultiStepLR"}
 
 INDOOR = [
     "concerto/semseg-ptv3-base-v1m1-1a-scannet200-lin.py",
@@ -133,7 +137,12 @@ PPT = sorted(
 # backbones
 INSSEG = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/insseg-*.py")
                 if "litept" not in p.name and "sgiformer" not in p.name)
-CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG
+# classification and part segmentation: DefaultClassifier, the ModelNet40,
+# ScanObjectNN, ShapeNet-Part and PartNetE datasets, ClsEvaluator, the cls,
+# voting and part-seg testers, CosineAnnealingLR and MultiStepLR
+CLS = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/*.py")
+             if p.name.startswith(("cls-", "partseg-")))
+CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG + CLS
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
@@ -179,7 +188,8 @@ def _known(path: str, name: str) -> bool:
 
 def test_census_counts():
     assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27 and len(INSSEG) == 35
-    assert len(set(CONFIGS)) == 157
+    assert len(CLS) == 15
+    assert len(set(CONFIGS)) == 172
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -229,3 +239,20 @@ def test_insseg_model_builds(path):
         model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
     assert model.seg_head.out_features == cfg.model.semantic_num_classes == cfg.data.num_classes
     assert model.bias_head[3].out_features == 3 and sum(p.numel() for p in model.parameters()) > 1e6
+
+
+@pytest.mark.parametrize("path", CLS)
+def test_cls_and_partseg_model_builds(path):
+    """The classification and part-seg configs' models on the meta device:
+    a classifier's head as wide as its classes over the backbone's pooled
+    width (the Utonia configs' backbone_embed_dim of 1,386 logged, the
+    last stage's 576 taken), a part-seg model's over the up-cast."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
+    if cfg.model.type == "DefaultClassifier":
+        assert model.cls_head[8].out_features == cfg.data.num_classes
+        assert model.cls_head[0].in_features == model.backbone.out_channels
+    else:
+        assert model.seg_head.out_features == cfg.data.num_classes == cfg.model.num_classes
+    assert sum(p.numel() for p in model.parameters()) > (1e4 if "synthetic" in path else 1e5)

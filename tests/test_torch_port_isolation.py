@@ -42,6 +42,8 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.models.point_prompt_training.point_prompt_training\n"
         "import pointcept_tpu_torch.models.point_group.point_group, pointcept_tpu_torch.ops.clustering\n"
         "import pointcept_tpu_torch.utils.instance_eval, pointcept_tpu_torch.engines.hooks.evaluator\n"
+        "import pointcept_tpu_torch.datasets.modelnet, pointcept_tpu_torch.datasets.shapenet_part\n"
+        "import pointcept_tpu_torch.datasets.partnete, pointcept_tpu_torch.datasets.synthetic\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

@@ -293,8 +293,9 @@ def cuda():
 # patch 128, and K 1024), Sonata's odd head counts (C 48 / H 3, C 384 / H 24),
 # and head dim 18 (Utonia's widths 54-576, zero-padded to the D = 24
 # kernels: stages 0, 2 and 3 at K 1024, patch 128, a patch size that is not
-# a multiple of 64) beside head dim 24 itself
-ATTN_CARD_CASES = [(4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
+# a multiple of 64) beside head dim 24 itself, and head dim 4 (the tiny
+# classifier's widths 8-32 at patch 64, zero-padded to 16)
+ATTN_CARD_CASES = [(24, 64, 8, 2), (6, 64, 32, 8), (4, 1024, 32, 2), (4, 1024, 64, 4), (4, 1024, 128, 8), (4, 1024, 256, 16),
                    (4, 1024, 512, 32), (2, 1024, 512, 32), (1, 1024, 32, 2), (3, 48, 32, 2),
                    (3, 128, 64, 4), (2, 1024, 64, 2), (2, 768, 64, 2), (40, 128, 16, 2),
                    (10, 128, 64, 8), (2, 1024, 16, 2), (4, 1024, 48, 3), (3, 1024, 384, 24),
@@ -316,7 +317,7 @@ def test_attention_kernel_matches_plain_on_card(cuda, np_, k, c, h):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("np_,k,c,h", [cs for cs in ATTN_CARD_CASES
-                                       if cs[2] // cs[3] in (8, 16, 18, 24) or cs[1] <= 768])
+                                       if cs[2] // cs[3] in (4, 8, 16, 18, 24) or cs[1] <= 768])
 def test_attention_backward_kernel_matches_plain_on_card(cuda, np_, k, c, h):
     """The forward with and without statistics gives the same bits, the
     backward matches its plain version and gives the same bits twice."""
@@ -466,3 +467,26 @@ def test_gather_conv_vjp_is_bit_identical_on_card(cuda):
     assert int((nbr >= 0).sum()) > 4 * n  # rows read by several neighbours
     for other in runs[1:]:
         assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_take_rows_vjp_is_bit_identical_on_card(cuda):
+    """The attention's slot gathers over a scene smaller than one patch (a
+    300-point cloud in a patch of 1,024 slots: each point read by 3-4 slots,
+    the dead slots all reading point 0): the fixed-order VJP of `TakeRows`
+    gives the same bits on every run and matches `index_add_` in f64."""
+    from pointcept_tpu_torch.ops.segment_ops import RowRuns, TakeRows
+
+    n, k = 300, 1024
+    slot = torch.arange(2 * k, device=cuda)
+    idx = torch.where(slot < k, slot % n, 0)  # the second patch dead
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((n, 96), generator=g, device=cuda).to(torch.bfloat16).requires_grad_()
+    cot = torch.randn((2 * k, 96), generator=g, device=cuda).to(torch.bfloat16)
+    runs = RowRuns(idx, n)
+    grads = [torch.autograd.grad(TakeRows.apply(x, runs if i % 2 else RowRuns(idx, n)), x, cot)[0]
+             for i in range(4)]
+    for other in grads[1:]:
+        assert torch.equal(grads[0], other)
+    want = torch.zeros((n, 96), dtype=torch.float64, device=cuda).index_add_(0, idx, cot.double())
+    torch.testing.assert_close(grads[0].double(), want.to(torch.bfloat16).double(), atol=1e-2, rtol=2 ** -7)

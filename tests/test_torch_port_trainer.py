@@ -218,7 +218,7 @@ def test_trainer_and_cli_raise_without_a_gpu(tmp_path):
 
 
 @pytest.mark.parametrize("option", [dict(enable_wandb=True), dict(grad_accum_steps=2),
-                                    {"optimizer.type": "Lamb"}, {"scheduler.type": "MultiStepLR"}])
+                                    {"optimizer.type": "Lamb"}, {"scheduler.type": "MultiStepWithWarmupLR"}])
 def test_unported_options_raise_at_build(tmp_path, option):
     with pytest.raises((NotImplementedError, KeyError)):
         _port_trainer(tmp_path, **option)

@@ -22,7 +22,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 OPTIMIZERS = {"AdamW", "SGD"}
-SCHEDULERS = {"OneCycleLR", "PolyLR"}
+SCHEDULERS = {"OneCycleLR", "PolyLR", "CosineAnnealingLR", "MultiStepLR"}
 
 
 def _types(node, path=""):
