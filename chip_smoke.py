@@ -74,7 +74,7 @@ each printing JSON lines:
 11. the tester: the config's test section unchanged (13 views, GridSample's
    test mode, fragments of one voxel grid sharing their geometry, four a
    forward) through `main_worker` of `tools/torch_port_test.py`, on phase
-   10's `model_best.pth` and val scene 5 drawn at 102,400 raw points, at
+   10's `model_best.pth` and val scene 5 drawn at 25,600 raw points, at
    `point_capacity_test=262144`, launch counters set to 0 just before and
    read just after; nothing dropped, the preds' mass equals the fragment
    points' count and every point has a vote from every view;
@@ -111,7 +111,7 @@ each printing JSON lines:
    decoder too for `0b`; unexpected: the teacher, the SSL heads, the mask
    token), peak memory and later steps' ms of each; then the probe's test
    section (13 views) through the test CLI's `main_worker` on one
-   102,400-point val scene, on the per-fragment path;
+   25,600-point val scene, on the per-fragment path;
 15. Utonia's linear probe and fine-tune (`configs/utonia/semseg-utonia-v1m1-0{a,c}`:
    PT-v3m3, RoPE at base 10, head dim 18, widths 54-576) through
    `main_worker` at phase 14's cuts and `in_channels=6` (no Utonia
@@ -121,7 +121,7 @@ each printing JSON lines:
 16. ScanNet200's PTv3 config (`configs/scannet200/semseg-pt-v3m1-0-base.py`,
    a 200-class head) on phase 10's scenes (their `segment200.npy`) at
    phase 14's cuts, then its test section (13 views, the grouped path) on
-   one 102,400-point val scene: nothing dropped, every point voted by every
+   one 51,200-point val scene: nothing dropped, every point voted by every
    view, 200-way preds, the benchmark submission refused with the list it
    lacks;
 17. S3DIS's SpUNet config (`configs/s3dis/semseg-spunet-v1m1-0-base.py`:
@@ -206,7 +206,7 @@ each printing JSON lines:
    (every cloud at most one patch), ClsEvaluator's allAcc, every tensor
    moved, nothing dropped; the second epoch resumed through the CLI (the
    same loss bits); ClsTester on the 40 test clouds and the voting
-   config's ClsVotingTester (100 repeats) on 4, ms a cloud; then one
+   config's ClsVotingTester (100 repeats) on 1, ms a cloud; then one
    small-depth step on the card against the CPU (f32, 4 clouds);
 30. the synthetic tiny classifier (`configs/synthetic/cls-pt-v3m1-0-tiny.py`:
    head dim 4 at patch 64, on the D = 16 kernels) as written and for 120
@@ -220,7 +220,24 @@ each printing JSON lines:
    one evaluation (24 attention forwards and backwards a step, the loaded
    and missing keys), then the config's ShapeNetPartSegTester on 16 test
    shapes (ins.mIoU, cat.mIoU, ms a shape);
-32. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+32. the ScanNet PT-v2m2 config (`configs/scannet/semseg-pt-v2m2-0-base.py`:
+   48-512 channels, depths 2/2/6/2, kNN of 16, GridPool at 0.06-0.9375 m,
+   AdamW + OneCycle, drop path 0.3) as written in model and recipe at
+   phase 14's cuts on phase 10's scenes: one 4-step epoch and its
+   evaluation, a later step's ms, data time and peak, every tensor moved;
+   two steps from one state with the same loss and gradient bits, each
+   kNN of a forward timed alone (ms a step, share of the step), each
+   GridPool's clusters against its capacity (nothing dropped); then the
+   config's test section on one val scene of 12,800 raw points (one
+   forward a fragment, every point voted by every view);
+33. PT-v2m2 and PT-v2m1 (grouped linear, position multiplier) at one block
+   a stage, f32, on the card against the CPU on a 6,144-point scene of
+   5.4 m (every stage above k points, nothing dropped): logits, then one
+   train step's loss and gradients;
+34. the Context-Aware Classifier's ScanNet configs over SpUNet (4 steps)
+   and over PT-v2m2 (2 steps): the four loss terms of every step, step ms,
+   peak, one evaluation each;
+35. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two, phases
    20-24, 26, 28 and 29's added to the attention rows and phase 24's to the
    fill and the take-back; the D = 18 rows: phase 15's fine-tune, phase
@@ -346,12 +363,13 @@ OVERFIT_ATTENTION = dict(capacity=32768, scenes=8, k=128, c=16, h=2, launches=2)
 # the tester's phase: the ScanNet config's test section on phase 10's
 # weights and val scene 5 drawn at TESTER_POINTS raw points (its 409,600-point
 # draw took 144 s, most of it the loader's fragment build; cut for the time
-# limit), at a capacity that holds a fragment without drops (the config's
+# limit to 102,400, then to 25,600 for phases 32-34; phase 24's PPT test
+# takes the same scene), at a capacity that holds a fragment without drops (the config's
 # 131,072 is per chip; at it a fragment of the sparse synthetic scene drops
 # points at the second pooling); B fragments a forward, the tester's default.
 # Phases 3-4's tester rows keep the 409,600-point scene's stage 0
 TESTER_SCENE = "scene0005_00"
-TESTER_POINTS = 102400
+TESTER_POINTS = 25600
 TESTER_OPTIONS = {"point_capacity_test": 262144, "seed": 0}
 TESTER_B = 4
 # card-vs-CPU bounds of the overfit tester's summed preds (AMP: the slice's
@@ -396,14 +414,14 @@ DOWNSTREAM_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_va
                           num_worker=4, seed=0)
 LA_POINTS = 20  # labelled points a scene of the la20 benchmark
 LR_SCENES = ("scene0001_00",)  # the lr file: one line (the JAX package cannot read it)
-# the test sections of phases 14 and 16 on one val scene of 102,400 raw
+# the test sections of phases 14 and 16 on one val scene of 51,200 raw
 # points (the per-fragment path runs one forward a fragment: the
 # 409,600-point scene's ~550 fragments would pass the time limit), phase
 # 14's linear probe at half that (its 102,400 points took 26-32 s of the
-# time limit)
+# time limit; both halved again for phases 32-34's room)
 PROBE_TEST_SCENE = "scene0007_00"
-PROBE_TEST_POINTS = 102400
-PROBE_TESTER_POINTS = 51200
+PROBE_TEST_POINTS = 51200
+PROBE_TESTER_POINTS = 25600
 # phase 15: Utonia's linear probe and fine-tune (PT-v3m3, RoPE, head dim 18)
 # at phase 14's cuts; its in_channels=9 differs from the 6 channels its
 # data section collects
@@ -560,7 +578,7 @@ CLS_CONFIG = "configs/modelnet40/cls-pt-v3m1-0-base.py"
 CLS_VOTING_CONFIG = "configs/modelnet40/cls-pt-v3m1-1-voting.py"
 CLS_FILE_POINTS = 10000  # points a file (with normals)
 CLS_SPLITS = {"train": 128, "test": 40}  # 4 steps of 32 clouds; the test split is also the config's val
-CLS_VOTE_CLOUDS = 4
+CLS_VOTE_CLOUDS = 1  # cut from 4 (5.6 s a cloud) for the time limit's room for phases 32-34
 # the config's 8,192 rows hold 4 clouds (a TPU device's share); 32 clouds
 # of 1,024 points take 32,768, and a val batch of 8 clouds 8,192. Its
 # pooling of 0.6 a stage drops points of FPS-spread clouds, whose points
@@ -597,6 +615,37 @@ SHAPENET_SYNSETS = {
     "Motorbike": "03790512", "Mug": "03797390", "Pistol": "03948459", "Rocket": "04099429",
     "Skateboard": "04225987", "Table": "04379243",
 }
+# phase 32: the ScanNet PT-v2m2 config (48-512 channels, depths 2/2/6/2, k
+# 16, AdamW + OneCycle, drop path 0.3) as written in model and recipe, at
+# phase 14's cuts (batch 2, 262,144 rows, one 4-step epoch and one
+# evaluation) on phase 10's scenes; its test section on one val scene of
+# PTV2_TEST_POINTS raw points (52 fragments; 123 at 51,200 took 18-33 s),
+# one forward a fragment at PTV2_TEST_CAPACITY rows: a fragment holds up
+# to 12,264 points, nearly one a 6 cm cell in that sparse scene, so the
+# first pooling's half of the rows must exceed that (at 16,384 rows it
+# dropped 8.8% of the points)
+PTV2_CONFIG = "configs/scannet/semseg-pt-v2m2-0-base.py"
+PTV2_TEST_POINTS = 12800
+PTV2_TEST_CAPACITY = 32768
+# phase 33: PT-v2m2 and PT-v2m1 (the grouped linear with the position
+# multiplier) at one block a stage, f32, on the card against the CPU, on a
+# scene of PTV2_SCENE (points, extent in m): its stages hold 2,908 / 758 /
+# 122 / 17 clusters, nothing dropped, the deepest more than k = 16 (at
+# 4,096 points of 1.2 m it held 5, whose repeated neighbour slots made its
+# position norm's gradient move by ~0.5 under a 1e-6 nudge on the CPU
+# alone); the config's recipe, drop path 0
+PTV2_SCENE = (6144, 5.4)
+PTV2_SMALL = dict(type="PT-v2m2", in_channels=6, num_classes=NUM_CLASSES, enc_depths=(1, 1, 1, 1),
+                  dec_depths=(1, 1, 1, 1), grid_sizes=(0.06, 0.15, 0.375, 0.9375),
+                  pool_capacity_factors=(0.5, 0.35, 0.3, 0.3))
+PTV2_RECIPE = dict(optimizer=dict(type="AdamW", lr=0.005, weight_decay=0.02), param_dicts=None,
+                   scheduler=dict(type="OneCycleLR", max_lr=0.005, pct_start=0.05, anneal_strategy="cos",
+                                  div_factor=10.0, final_div_factor=1000.0))
+# phase 34: the Context-Aware Classifier over SpUNet (4 steps) and over
+# PT-v2m2 (one epoch of 2 steps and its evaluation) at phase 14's cuts
+CAC_CONFIGS = (("cac_spunet", "configs/scannet/semseg-cac-v1m1-0-spunet-base.py", {}),
+               ("cac_ptv2", "configs/scannet/semseg-cac-v1m1-2-ptv2-lovasz.py", dict(epoch=1, eval_epoch=1)))
+CAC_LOSSES = ("seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -1297,11 +1346,11 @@ def _small_ptv3(amp: bool, **kw) -> dict:
                 pool_capacity_factors=(0.5,) * 4, **kw)
 
 
-def card_vs_cpu(device, cases=None, phase="card_vs_cpu"):
-    """Phase 6 (and SpUNet's): small depth, same weights, a small scene: the
-    port on the card (kernels) against the port on the CPU (plain
-    versions). `cases`: (amp, model config) pairs, PTv3 in f32 and AMP by
-    default."""
+def card_vs_cpu(device, cases=None, phase="card_vs_cpu", capacity=16384, extent=2.4):
+    """Phase 6 (and SpUNet's, PT-v2's): small depth, same weights, a small
+    scene of `capacity` points over `extent` m: the port on the card
+    (kernels) against the port on the CPU (plain versions). `cases`: (amp,
+    model config) pairs, PTv3 in f32 and AMP by default."""
     import numpy as np
     import torch
 
@@ -1310,8 +1359,8 @@ def card_vs_cpu(device, cases=None, phase="card_vs_cpu"):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    # a 2.4 m room keeps the point density of the 102,400-point scenes
-    arrays = scene(100, capacity=16384, extent=2.4)
+    # a 2.4 m room at 16,384 points keeps the density of the 102,400-point scenes
+    arrays = scene(100, capacity=capacity, extent=extent)
     valid = arrays["batch"] >= 0
     if cases is None:
         cases = [(amp, dict(MODEL, backbone=_small_ptv3(amp))) for amp in (False, True)]
@@ -1457,7 +1506,7 @@ def with_instances(arrays: dict) -> dict:
 
 
 def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
-                      condition=None, instances=False, batch=None):
+                      condition=None, instances=False, batch=None, vanishing_below=1e-6):
     """Phase 8 (and SpUNet's): one train step of the small-depth model on
     the card and on the CPU, same weights, batch and order permutations
     (drawn from a CPU generator of one seed; drop path 0, so nothing else is
@@ -1474,7 +1523,11 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
     after the build, the same on both devices. `capacity`, `extent`: the
     scene's points and size; `condition`: the batch's (PPT); `instances`:
     PointGroup's targets (`with_instances`); `batch`: a collated batch
-    (with ``num_scenes``) in place of the scene (the classifiers' clouds)."""
+    (with ``num_scenes``) in place of the scene (the classifiers' clouds);
+    `vanishing_below`: the share of the largest gradient under which a
+    tensor's CPU gradient counts as vanishing (PT-v2's biases before its
+    norms sit at 1e-8 to 6e-6 of it, the Linear(3, C) ones before its
+    position norms above 1e-6, its other tensors at 7e-4 and more)."""
     import numpy as np
     import torch
 
@@ -1506,17 +1559,21 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
         if not amp:
             # biases that feed only train-mode BatchNorms: zero gradient in
             # exact arithmetic, rounding noise on both devices
-            vanishing = {n for n, c in cg.items() if np.abs(c).max() < 1e-6 * gmax}
+            vanishing = {n for n, c in cg.items() if np.abs(c).max() < vanishing_below * gmax}
         worst, worst_name, low_cos = _grad_distance(gg, cg, vanishing, gmax)
         floor, floor_name, floor_cos = _grad_distance(ng, cg, vanishing, gmax)
         max_loss, max_grad, min_cos = TRAIN_BOUNDS[amp]
         max_grad = max(max_grad, 2 * floor)
         min_cos = min(min_cos, 1 - 2 * (1 - floor_cos))
         rel_loss = abs(gl - cl) / abs(cl)
+        # the five furthest tensors, each beside its own noise floor
+        errs = {n: _grad_distance({n: gg[n]}, {n: c}, set(), gmax)[0] for n, c in cg.items() if n not in vanishing}
+        furthest = [dict(tensor=n, rel_l2=errs[n], floor=_grad_distance({n: ng[n]}, {n: cg[n]}, set(), gmax)[0])
+                    for n in sorted(errs, key=errs.get, reverse=True)[:5]]
         emit(phase, amp=amp, loss=[gl, cl], rel_loss_err=rel_loss,
              worst_grad_rel_l2=worst, worst_tensor=worst_name, min_cos=low_cos,
              noise_floor=dict(loss=nl, grad_rel_l2=floor, tensor=floor_name, min_cos=floor_cos),
-             vanishing_tensors=len(vanishing), bounds=[max_loss, max_grad, min_cos])
+             vanishing_tensors=len(vanishing), bounds=[max_loss, max_grad, min_cos], furthest_tensors=furthest)
         if not (rel_loss < max_loss and worst < max_grad and low_cos > min_cos):
             raise AssertionError(f"card and CPU train steps disagree ({phase}, amp={amp})")
 
@@ -3675,8 +3732,9 @@ def cls_modelnet_path(device, card, work: str) -> dict:
     tensor moved. Then the second epoch again through the CLI (the same
     loss bits: the fixed-order VJP of `TakeRows`, every cloud smaller than
     its patch), ClsTester on the 40 test clouds, the voting config's
-    ClsVotingTester (100 repeats) on 4, and one small-depth step on the card
-    against the CPU (f32). Returns the train run's launches."""
+    ClsVotingTester (100 repeats) on CLS_VOTE_CLOUDS, and one small-depth
+    step on the card against the CPU (f32). Returns the train run's
+    launches."""
     import torch
 
     from pointcept_tpu_torch.datasets import build_dataset, point_collate_fn
@@ -3967,6 +4025,151 @@ def write_shapenet(root: str, splits=PARTSEG_SPLITS, points: int = PARTSEG_POINT
     return lists
 
 
+def ptv2_step_checks(trainer, device) -> dict:
+    """Phase 32's checks on the trained model and a batch of its train set:
+    two steps' forward and backward from one state and one generator seed
+    (the same loss and gradient bits), then one forward with each kNN timed
+    alone (the card synchronised around it) and each GridPool's clusters
+    against its capacity."""
+    import torch
+
+    from pointcept_tpu_torch.datasets import point_collate_fn
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.models.point_transformer_v2 import point_transformer_v2 as ptv2
+
+    model, cfg = trainer.model, trainer.cfg
+    ds = trainer.train_loader.dataset
+    batch = point_collate_fn([ds[i] for i in range(cfg.batch_size)], capacity=cfg.point_capacity)
+    pb = make_point_batch(batch, batch["num_scenes"], device=device)
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        model.train()
+        res = model(pb, generator=torch.Generator(device=device).manual_seed(7))
+        res["loss"].backward()
+        runs.append([res["loss"].detach()] + [p.grad.clone() for p in model.parameters() if p.grad is not None])
+    same_bits = len(runs[0]) == len(runs[1]) and all(torch.equal(a, b) for a, b in zip(*runs))
+    del runs
+
+    knn, pools = [], []
+    query = ptv2.knn_query
+
+    def timed(k, coord, batch_ids, *args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = query(k, coord, batch_ids, *args, **kw)
+        torch.cuda.synchronize()
+        knn.append(dict(k=k, rows=int(coord.shape[0]), ms=(time.perf_counter() - t0) * 1e3))
+        return out
+
+    def count(module, inputs, output):
+        pooled, _, _, dropped = output
+        pools.append(dict(capacity=int(pooled.batch.shape[0]), clusters=int((pooled.batch >= 0).sum()),
+                          dropped=int(dropped)))
+
+    hooks = [m.register_forward_hook(count) for m in model.modules() if isinstance(m, ptv2.GridPool)]
+    ptv2.knn_query = timed
+    try:
+        with torch.no_grad():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model(pb, generator=torch.Generator(device=device).manual_seed(7))
+            torch.cuda.synchronize()
+            forward_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        ptv2.knn_query = query
+        for h in hooks:
+            h.remove()
+    model.load_state_dict(state)
+    return dict(two_steps_same_bits=same_bits, knn_calls=knn, knn_ms=sum(c["ms"] for c in knn),
+                timed_forward_ms=forward_ms, pools=pools, points=int((pb.batch >= 0).sum()))
+
+
+def ptv2_path(device, card, work: str) -> dict:
+    """Phase 32: the ScanNet PT-v2m2 config through the training CLI's
+    `main_worker` at full width on phase 10's scenes (one 4-step epoch and
+    its evaluation), the step checks of `ptv2_step_checks`, every trainable
+    tensor moved; then its test section through the test CLI's
+    `main_worker` on one val scene (every point voted by every view)."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+
+    data_root = os.path.join(work, "scannet")
+    options = dict(DOWNSTREAM_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, PTV2_CONFIG, options, "ptv2")
+    cfg = trainer.cfg
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)), device=device,
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    same, moved = _moved(trainer.model, {n: p.detach().cpu() for n, p in initial.named_parameters()})
+    del initial
+    checks = _quiet(lambda: ptv2_step_checks(trainer, device), os.path.join(work, "trainer.log"))
+    times = _step_times(steps)
+    emit("ptv2", config=PTV2_CONFIG, options=options, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+         losses=[st["loss"] for st in steps], **times, peak_memory_bytes=peak, peak_gb=peak / 1e9,
+         val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], unchanged_parameters=same,
+         moved_parameters=len(moved), knn_share_of_step=checks["knn_ms"] / times["later_median_step_ms"],
+         launches=launches, **checks)
+    if same:
+        raise AssertionError(f"ptv2: {len(same)} parameters not updated, e.g. {same[:3]}")
+    if not checks["two_steps_same_bits"]:
+        raise AssertionError("ptv2: two steps from one state gave different loss or gradient bits")
+    if len(checks["pools"]) != 4 or any(p["dropped"] or p["clusters"] > p["capacity"] for p in checks["pools"]):
+        raise AssertionError(f"ptv2: GridPool dropped points: {checks['pools']}")
+    del trainer
+    release()
+
+    test_root = os.path.join(work, "ptv2_test_data")
+    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), PTV2_TEST_POINTS)
+    options = dict(TESTER_OPTIONS, point_capacity_test=PTV2_TEST_CAPACITY, num_worker=0,
+                   weight=os.path.join(work, "ptv2", "model", "model_last.pth"),
+                   **{"data.test.data_root": test_root})
+    st = test_scene(device, card, work, "ptv2_test", PTV2_CONFIG, PROBE_TEST_SCENE, raw, options, kernels=())
+    return dict(step_ms=times["later_median_step_ms"], peak_gb=peak / 1e9, knn_ms=checks["knn_ms"],
+                test_scene_ms=st["scene_ms"])
+
+
+def ptv2_card_vs_cpu(device):
+    """Phase 33: PT-v2m2 and PT-v2m1 (grouped linear, position multiplier)
+    at one block a stage, f32: the logits, then one train step (loss and
+    every gradient), on the card against the CPU, on the PTV2_SCENE scene."""
+    capacity, extent = PTV2_SCENE
+    cases = [(False, dict(type="DefaultSegmentor", backbone=dict(PTV2_SMALL, **kw),
+                          criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)]))
+             for kw in ({}, dict(type="PT-v2m1", pe_multiplier=True))]
+    for (amp, cfg), tag in zip(cases, ("m2", "m1")):
+        card_vs_cpu(device, [(amp, cfg)], phase=f"ptv2_{tag}_card_vs_cpu", capacity=capacity, extent=extent)
+        card_vs_cpu_train(device, [(amp, cfg, PTV2_RECIPE)], phase=f"ptv2_{tag}_card_vs_cpu_train",
+                          capacity=capacity, extent=extent, vanishing_below=1e-4)
+
+
+def cac_path(device, card, work: str) -> dict:
+    """Phase 34: the Context-Aware Classifier's ScanNet configs over SpUNet
+    and over PT-v2m2 through the training CLI's `main_worker` at phase 14's
+    cuts: each step's four loss terms finite, the step ms and the peak."""
+    data_root = os.path.join(work, "scannet")
+    out = {}
+    for tag, config, extra in CAC_CONFIGS:
+        options = dict(DOWNSTREAM_OPTIONS, **extra,
+                       **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+        trainer, steps, evals, launches, peak, seconds = _run_config(device, work, config, options, tag)
+        rows = _metrics(os.path.join(work, tag))
+        terms = {k: [r[k] for r in rows] for k in CAC_LOSSES}
+        emit(tag, config=config, options=options, card=card, seconds=seconds,
+             parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+             losses=[st["loss"] for st in steps], loss_terms=terms, **_step_times(steps), peak_memory_bytes=peak,
+             peak_gb=peak / 1e9, val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches)
+        if not all(len(v) == len(steps) and all(math.isfinite(x) for x in v) for v in terms.values()):
+            raise AssertionError(f"{tag}: loss terms {terms}")
+        out[tag] = dict(steps=len(steps), peak_gb=peak / 1e9)
+        del trainer
+        release()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4036,6 +4239,9 @@ def main() -> int:
         cls = cls_modelnet_path(device, card, work)
         tiny = cls_tiny_path(device, card, work)
         partseg = partseg_path(device, card, work)
+        ptv2_path(device, card, work)
+        ptv2_card_vs_cpu(device)
+        cac_path(device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
 

@@ -1,6 +1,7 @@
 from .builder import DATASETS, build_dataset
 from .defaults import ConcatDataset, DefaultDataset
 from .loader import DataLoader
+from .matterport import AEODataset, MatterportDataset
 from .modelnet import ModelNetDataset
 from .nuscenes import NuScenesDataset
 from .partnete import PartNetEDataset
@@ -16,8 +17,8 @@ from .variants import (NuScenesColorNormalDataset, ScanObjectNNHardestDataset, S
                        WaymoColorNormalDataset)
 from .waymo import WaymoDataset
 
-__all__ = ["DATASETS", "TRANSFORMS", "Compose", "ConcatDataset", "DataLoader", "DefaultDataset",
-           "ModelNetDataset", "NuScenesColorNormalDataset", "NuScenesDataset", "PartNetEDataset", "S3DISDataset",
+__all__ = ["DATASETS", "TRANSFORMS", "AEODataset", "Compose", "ConcatDataset", "DataLoader", "DefaultDataset",
+           "MatterportDataset", "ModelNetDataset", "NuScenesColorNormalDataset", "NuScenesDataset", "PartNetEDataset", "S3DISDataset",
            "ScanNet200Dataset", "ScanNetDataset", "ScanNetPPDataset", "ScanObjectNNDataset",
            "ScanObjectNNHardestDataset", "SemanticKITTIColorNormalDataset", "SemanticKITTIDataset",
            "ShapeNetPartDataset", "Structured3DDataset", "SyntheticClsDataset", "SyntheticSemSegDataset", "WaymoColorNormalDataset", "WaymoDataset", "build_dataset",

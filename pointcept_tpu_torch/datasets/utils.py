@@ -77,8 +77,9 @@ def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = N
                        drop_overflow: bool = True) -> Dict[str, np.ndarray]:
     """Pad a collated ragged batch into fixed-capacity PointBatch arrays
     (coord/feat/grid_coord/batch/segment, and instance, instance_centroid,
-    the batch's ``condition`` and each scene's ``category`` where present;
-    padding has batch -1, label -1, centroid -1.0, category -1). A batch
+    the batch's ``condition`` and each scene's ``category`` or ``cls_token``
+    where present; padding has batch -1, label -1, centroid -1.0, category
+    and cls_token -1). A batch
     of more points than `capacity` is subsampled uniformly at random
     (`np.random.choice`, as the JAX package's training collate), or raises
     without `drop_overflow`."""
@@ -119,11 +120,12 @@ def pad_to_point_batch(batch: dict, capacity: int, num_scenes: Optional[int] = N
         out["instance_centroid"][:eff] = _sel(np.asarray(batch["instance_centroid"], np.float32))
     if "condition" in batch:
         out["condition"] = batch["condition"]
-    if "category" in batch:
-        # one class a scene; scenes past the batch's samples carry -1
-        v = np.asarray(batch["category"]).reshape(-1).astype(np.int32)
-        out["category"] = np.full((num_scenes,), -1, np.int32)
-        out["category"][: len(v)] = v
+    for key in ("category", "cls_token"):
+        if key in batch:
+            # one class a scene; scenes past the batch's samples carry -1
+            v = np.asarray(batch[key]).reshape(-1).astype(np.int32)
+            out[key] = np.full((num_scenes,), -1, np.int32)
+            out[key][: len(v)] = v
     out["num_scenes"] = num_scenes
     return out
 

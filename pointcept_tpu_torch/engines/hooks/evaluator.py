@@ -1,7 +1,8 @@
-"""Per-epoch evaluation (counterparts of `SemSegEvaluator`, `ClsEvaluator`
-and `InsSegEvaluator` in `pointcept_tpu/engines/hooks/evaluator.py`; parity
-target: reference `pointcept/engines/hooks/evaluator.py:118`, `:14`,
-`:247`)."""
+"""Per-epoch evaluation (counterparts of `SemSegEvaluator`, `ClsEvaluator`,
+`InsSegEvaluator`, `ShapeNetPartSegEvaluator` and `PartNetEPartSegEvaluator`
+in `pointcept_tpu/engines/hooks/evaluator.py`; parity target: reference
+`pointcept/engines/hooks/evaluator.py:118`, `:14`, `:247`, `:648`,
+`:790`)."""
 
 from __future__ import annotations
 
@@ -209,3 +210,128 @@ def scene_records(masks, classes, scores, host: dict, num_scenes: int, num_class
             gt_counts[c] = gt_counts.get(c, 0) + cnt
         counts.append(int(mine.sum()))
     return counts
+
+
+class _PartSegEvaluator(HookBase):
+    """After each epoch: the eval forward of every val batch, its logits and
+    labels read to the host, then `scene_ious` of each shape the batch
+    holds (a scene whose ``key`` is -1 pads the batch; a batch without
+    ``key`` raises, where the JAX hooks score every shape as category 0).
+    Sets ``comm_info["current_metric_value"]`` (`metric`) and
+    ``comm_info["eval_result"]`` (with each batch's ms and the points the
+    static capacities dropped)."""
+
+    key = metric = ""
+
+    def after_epoch(self):
+        if self.trainer.cfg.get("evaluate", True) and self.trainer.val_loader is not None:
+            self.eval()
+
+    def reset(self, dataset):
+        raise NotImplementedError
+
+    def scene_ious(self, dataset, label: int, logits: np.ndarray, segment: np.ndarray):
+        raise NotImplementedError
+
+    def summary(self, dataset) -> dict:
+        raise NotImplementedError
+
+    def eval(self) -> dict:
+        from ..train import make_point_batch
+
+        trainer = self.trainer
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Evaluation >>>>>>>>>>>>>>>>")
+        model, dataset = trainer.model, trainer.val_loader.dataset
+        model.eval()
+        self.reset(dataset)
+        batch_ms, overflow = [], 0
+        for batch in trainer.val_loader:
+            if self.key not in batch:
+                raise ValueError(f"{type(self).__name__}: the val batches carry no `{self.key}`; keep it in the "
+                                 "val pipeline's Collect keys")
+            t0 = time.perf_counter()
+            pb = make_point_batch(batch, batch["num_scenes"], device=trainer.device)
+            with torch.no_grad():
+                res = model(pb)
+            dropped = sum(v for vs in res["diagnostics"].values() for v in vs)
+            logits, scene, segment = (t.cpu().numpy() for t in (res["seg_logits"].float(), pb.batch, pb.segment))
+            overflow += int(dropped)
+            for s, label in enumerate(np.asarray(batch[self.key]).reshape(-1)):
+                if label >= 0:
+                    sel = scene == s
+                    self.scene_ious(dataset, int(label), logits[sel], segment[sel])
+            batch_ms.append((time.perf_counter() - t0) * 1e3)
+        result = self.summary(dataset)
+        trainer.logger.info("Val result: " + " ".join(f"{k} {v:.4f}" for k, v in result.items()))
+        if trainer.storage is not None:
+            for k, v in result.items():
+                trainer.storage.put_scalar(f"val/{k}", v, smoothing_hint=False)
+        trainer.logger.info("<<<<<<<<<<<<<<<<< End Evaluation <<<<<<<<<<<<<<<<<")
+        trainer.comm_info["current_metric_value"] = result[self.metric]
+        trainer.comm_info["current_metric_name"] = self.metric
+        result.update(batch_ms=batch_ms, overflow=overflow)
+        trainer.comm_info["eval_result"] = result
+        return result
+
+    def after_train(self):
+        self.trainer.logger.info("Best {}: {:.4f}".format(self.metric, self.trainer.best_metric_value))
+
+
+@HOOKS.register_module()
+class ShapeNetPartSegEvaluator(_PartSegEvaluator):
+    """ShapeNet-Part (counterpart of the JAX package's hook; reference
+    `hooks/evaluator.py:648`): each shape's argmax over its category's part
+    range, its mean part IoU (`engines.test.part_ious`: 1 for a part
+    neither the labels nor the prediction hold); ``ins.mIoU`` over the
+    shapes (the checkpoint saver's metric), ``cat.mIoU`` over the categories
+    that have shapes. A shape's category is the batch's ``category``."""
+
+    key, metric = "category", "ins.mIoU"
+
+    def reset(self, dataset):
+        self.per_cat = {}
+
+    def scene_ious(self, dataset, label, logits, segment):
+        from ..test import part_ious
+
+        parts = dataset.category2part[dataset.categories[label]]
+        self.per_cat.setdefault(label, []).append(float(np.mean(part_ious(logits, segment, parts))))
+
+    def summary(self, dataset) -> dict:
+        shapes = [v for lst in self.per_cat.values() for v in lst]
+        return {"ins.mIoU": float(np.mean(shapes)) if shapes else 0.0,
+                "cat.mIoU": float(np.mean([np.mean(v) for v in self.per_cat.values()])) if shapes else 0.0}
+
+
+@HOOKS.register_module()
+class PartNetEPartSegEvaluator(_PartSegEvaluator):
+    """PartNetE (counterpart of the JAX package's hook; reference
+    `hooks/evaluator.py:790`): for each part of a sample's category but
+    "other" (the first), where the labels or the argmax hold it, its IoU
+    (labels shifted by one) into that part's running mean; ``part.mIoU``
+    over the parts seen (the checkpoint saver's metric), ``cat.mIoU`` over
+    the categories' means. A sample's category is the batch's
+    ``cls_token``."""
+
+    key, metric = "cls_token", "part.mIoU"
+
+    def reset(self, dataset):
+        self.iou_sum = np.zeros(int(sum(dataset.num_parts)), np.float64)
+        self.iou_cnt = np.zeros_like(self.iou_sum)
+
+    def scene_ious(self, dataset, label, logits, segment):
+        pred = logits.argmax(-1)
+        for part_id in dataset.category2part[dataset.categories[label]][1:]:
+            gid = part_id + 1
+            union = ((pred == gid) | (segment == gid)).sum()
+            if union:
+                self.iou_sum[part_id] += ((pred == gid) & (segment == gid)).sum() / union
+                self.iou_cnt[part_id] += 1
+
+    def summary(self, dataset) -> dict:
+        seen = self.iou_cnt > 0
+        part = np.where(seen, self.iou_sum / np.maximum(self.iou_cnt, 1), 0.0)
+        cats = [np.mean([part[p] for p in ids]) for ids in
+                ([p for p in dataset.category2part[c][1:] if seen[p]] for c in dataset.categories) if ids]
+        return {"part.mIoU": float(part[seen].mean()) if seen.any() else 0.0,
+                "cat.mIoU": float(np.mean(cats)) if cats else 0.0}

@@ -2,7 +2,8 @@
 pretraining (counterparts of `pointcept_tpu/engines/hooks/misc.py`; parity
 targets: reference `pointcept/engines/hooks/misc.py` IterationTimer `:34`,
 InformationWriter `:81`, CheckpointSaver `:169`, CheckpointLoader `:230`,
-WeightDecaySchedular `:500`).
+PreciseEvaluator `:278`, RuntimeProfilerV2 `:427`, WeightDecaySchedular
+`:500`).
 
 Checkpoints are the reference Pointcept format, not the JAX package's Orbax
 directories: ``save_path/model/model_last.pth`` is a `torch.save` of
@@ -219,6 +220,85 @@ class CheckpointLoader(HookBase):
             trainer.optimizer.load_state_dict(checkpoint["optimizer"])
             trainer.scheduler.load_state_dict(checkpoint["scheduler"])
             trainer.logger.info(f"Resuming train at eval epoch: {trainer.start_epoch}")
+
+
+@HOOKS.register_module()
+class PreciseEvaluator(HookBase):
+    """After training: the config's tester (``cfg.test``) on the trainer's
+    model, with ``model_best.pth``'s weights loaded into it first unless
+    `test_last` (the last epoch's weights as they are); the tester's result
+    goes to ``comm_info["precise_result"]``."""
+
+    def __init__(self, test_last: bool = False):
+        self.test_last = test_last
+
+    def after_train(self):
+        from ..test import TESTERS
+
+        trainer, cfg = self.trainer, self.trainer.cfg
+        trainer.logger.info(">>>>>>>>>>>>>>>> Start Precise Evaluation >>>>>>>>>>>>>>>>")
+        best = os.path.join(cfg.save_path, "model", "model_best.pth")
+        if self.test_last or not os.path.isfile(best):
+            trainer.logger.info("=> Testing on model_last ...")
+        else:
+            trainer.logger.info("=> Testing on model_best ...")
+            checkpoint = torch.load(best, map_location=trainer.device, weights_only=False)
+            trainer.model.load_state_dict(remap_state_dict(checkpoint["state_dict"]), strict=True)
+        tester = TESTERS.build(dict(cfg.test, cfg=cfg, model=trainer.model, device=trainer.device))
+        trainer.comm_info["precise_result"] = tester.test()
+
+
+@HOOKS.register_module()
+class RuntimeProfilerV2(HookBase):
+    """`torch.profiler` over the first epoch's steps in cycles of `wait`,
+    `warmup` and `active` steps, `repeat` cycles (the reference's
+    schedule): each cycle's profiler starts at its first warmup step, keeps
+    its active steps and writes them as a Chrome trace to
+    ``save_path/profile/cycle{n}/trace.json``, the card's kernels too on a
+    CUDA device. Each step of a window is a ``train_step {iter}`` span."""
+
+    def __init__(self, wait: int = 1, warmup: int = 1, active: int = 2, repeat: int = 1):
+        self.wait, self.warmup, self.active, self.repeat = wait, warmup, active, repeat
+        self._cycle_len = wait + warmup + active
+        self._prof = self._span = None
+
+    def before_step(self):
+        trainer = self.trainer
+        cycle, pos = divmod(trainer.comm_info["iter"], self._cycle_len)
+        if trainer.epoch != 0 or cycle >= self.repeat:
+            return
+        if pos == self.wait:
+            trace_dir = os.path.join(trainer.cfg.save_path, "profile", f"cycle{cycle}")
+            os.makedirs(trace_dir, exist_ok=True)
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if trainer.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self._prof = torch.profiler.profile(
+                activities=activities,
+                schedule=torch.profiler.schedule(wait=0, warmup=self.warmup, active=self.active, repeat=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(os.path.join(trace_dir, "trace.json")))
+            self._prof.start()
+            trainer.logger.info(f"RuntimeProfilerV2: cycle {cycle} -> {trace_dir}")
+        if self._prof is not None:
+            self._span = torch.profiler.record_function(f"train_step {trainer.comm_info['iter']}")
+            self._span.__enter__()
+
+    def after_step(self):
+        if self._prof is None:
+            return
+        self._span.__exit__(None, None, None)
+        if self.trainer.device.type == "cuda":
+            torch.cuda.synchronize(self.trainer.device)
+        self._prof.step()
+        if self.trainer.comm_info["iter"] % self._cycle_len == self._cycle_len - 1:
+            self._prof.stop()
+            self._prof = None
+            self.trainer.logger.info("RuntimeProfilerV2: cycle complete")
+
+    def after_epoch(self):
+        if self._prof is not None:  # an epoch shorter than the cycle
+            self._prof.stop()
+            self._prof = None
 
 
 @HOOKS.register_module()

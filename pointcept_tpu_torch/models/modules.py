@@ -29,14 +29,52 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), b)
 
 
+class _MaskedBatchNormFn(torch.autograd.Function):
+    """Train-mode `MaskedBatchNorm` of [R, C] rows as one autograd node that
+    keeps only its input for the backward (the composed ops keep four
+    [R, C] tensors: at PT-v2's [rows, k, C] neighbourhoods that is most of a
+    step's memory). The backward is the gradient in closed form: with
+    ``xhat = (x - mean) * rstd`` and ``gy = dy * weight`` summed over every
+    row ``j`` (every row's output reads the statistics), a row in the mask
+    gets ``rstd * (gy - (sum gy + xhat * sum gy * xhat) / count)`` and a row
+    outside it ``rstd * gy``. Returns (y, mean, biased var, count)."""
+
+    @staticmethod
+    def forward(ctx, x, mask, weight, bias, eps: float):
+        xf = x.float()
+        mf = mask.float()[:, None]
+        cnt = torch.clamp(mf.sum(), min=1.0)
+        mean = (xf * mf).sum(dim=0) / cnt
+        var = torch.clamp((torch.square(xf - mean) * mf).sum(dim=0) / cnt, min=0.0)
+        rstd = torch.rsqrt(var + eps)
+        y = (x - mean.to(x.dtype)) * rstd.to(x.dtype)
+        out = y * weight.to(y.dtype) + bias.to(y.dtype)
+        ctx.save_for_backward(x, mask, weight, mean, rstd, cnt)
+        ctx.mark_non_differentiable(mean, var, cnt)
+        return out, mean, var, cnt
+
+    @staticmethod
+    def backward(ctx, g, _g_mean, _g_var, _g_cnt):
+        x, mask, weight, mean, rstd, cnt = ctx.saved_tensors
+        gf = g.float()
+        xhat = (x.float() - mean) * rstd
+        gw = (gf * xhat).sum(dim=0)
+        gb = gf.sum(dim=0)
+        gy = gf * weight.float()
+        shift = (gy.sum(dim=0) + xhat * (gy * xhat).sum(dim=0)) / cnt
+        gx = rstd * (gy - mask.float()[:, None] * shift)
+        return gx.to(x.dtype), None, gw.to(weight.dtype), gb.to(weight.dtype), None
+
+
 class MaskedBatchNorm(nn.Module):
     """BatchNorm1d over the valid rows only (torch semantics, eps 1e-3,
     momentum 0.01, affine); normalisation in the activation dtype (the bf16
     stream stays bf16).
 
-    Train mode: f32 batch statistics over the rows where `mask` holds, the
-    variance in two passes (shifted), biased for the normalisation and
-    unbiased for the running update. Eval: the running statistics."""
+    Train mode (`_MaskedBatchNormFn`): f32 batch statistics over the rows
+    where `mask` holds (every row without one), the variance in two passes
+    (shifted), biased for the normalisation and unbiased for the running
+    update. Eval: the running statistics."""
 
     def __init__(self, channels: int, eps: float = 1e-3, momentum: float = 0.01):
         super().__init__()
@@ -49,20 +87,16 @@ class MaskedBatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor] = None) -> torch.Tensor:
         if self.training:
-            xf = x.float()
-            mf = (torch.ones((x.shape[0], 1), device=x.device) if mask is None
-                  else mask.float()[:, None])
-            cnt = torch.clamp(mf.sum(), min=1.0)
-            mean = (xf * mf).sum(dim=0) / cnt
-            var = torch.clamp((torch.square(xf - mean) * mf).sum(dim=0) / cnt, min=0.0)
+            if mask is None:
+                mask = torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+            y, mean, var, cnt = _MaskedBatchNormFn.apply(x, mask, self.weight, self.bias, self.eps)
             with torch.no_grad():
                 unbiased = var * cnt / torch.clamp(cnt - 1.0, min=1.0)
                 self.running_mean.mul_(1 - self.momentum).add_(self.momentum * mean)
                 self.running_var.mul_(1 - self.momentum).add_(self.momentum * unbiased)
-        else:
-            mean, var = self.running_mean, self.running_var
-        inv = torch.rsqrt(var + self.eps)
-        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+            return y
+        inv = torch.rsqrt(self.running_var + self.eps)
+        y = (x - self.running_mean.to(x.dtype)) * inv.to(x.dtype)
         return y * self.weight.to(y.dtype) + self.bias.to(y.dtype)
 
 

@@ -41,6 +41,14 @@ heads (``bias_fc1``, ``bias_norm``, ``bias_fc2``) map to the reference's
 DefaultClassifier's (``cls_fc0``, ``cls_bn0``, ``cls_fc1``, ``cls_bn1``,
 ``cls_out``) to ``cls_head.0``, ``.1``, ``.4``, ``.5`` and ``.8``
 (`CLS_HEAD`).
+
+PT-v2 (m1, m2, m3 under DefaultSegmentor) maps to the reference names that
+`convert_ptv2` reads back (`_PTV2_TOP`, `_PTV2_BLOCK`): a PointBN's ``bn``
+to the PointBatchNorm's ``.norm``, m1's ``attn/we_grouped_weight`` [1, C]
+to ``attn.weight_encoding.0.weight`` as it is, m3's PDNorm children to
+``bns.{i}``, ``bn`` and ``modulation.1`` (SpUNet-v1m3's PDBatchNorm
+names). CAC-v1m1's own leaves (`CAC_HEADS`; ``seg_head_kernel [C, cls]``
+-> ``seg_head.weight``) map beside its backbone's.
 """
 
 from __future__ import annotations
@@ -205,6 +213,62 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
+# PT-v2: flax module path under the backbone -> the reference's module name
+_PTV2_TOP = {"patch_proj": "patch_embed.proj.0", "patch_norm": "patch_embed.proj.1",
+             "seg_head_fc1": "seg_head.0", "seg_head_norm": "seg_head.1", "seg_head_fc2": "seg_head.3"}
+_PTV2_DOWN = {"fc": "fc", "norm": "norm"}
+_PTV2_UP = {"proj_fc": "proj.0", "proj_norm": "proj.1", "skip_fc": "proj_skip.0", "skip_norm": "proj_skip.1"}
+_PTV2_BLOCK = {"fc1": "fc1", "fc3": "fc3", "norm1": "norm1", "norm2": "norm2", "norm3": "norm3", "attn": "attn",
+               "attn/linear_q": "attn.linear_q.0", "attn/q_norm": "attn.linear_q.1",
+               "attn/linear_k": "attn.linear_k.0", "attn/k_norm": "attn.linear_k.1",
+               "attn/linear_v": "attn.linear_v"}
+for _flax, _torch in (("pem", "linear_p_multiplier"), ("peb", "linear_p_bias"), ("we", "weight_encoding")):
+    _PTV2_BLOCK.update({f"attn/{_flax}_fc1": f"attn.{_torch}.0", f"attn/{_flax}_norm": f"attn.{_torch}.1",
+                        f"attn/{_flax}_fc2": f"attn.{_torch}.3"})
+
+
+def _ptv2_plain(path: str) -> str:
+    """A PT-v2 flax module path (PointBN's ``bn`` -> ``.norm``) -> torch name."""
+    if path.endswith("/bn"):
+        return _ptv2_plain(path[: -len("/bn")]) + ".norm"
+    assert path.startswith("backbone_module/"), path
+    p = path[len("backbone_module/"):]
+    if p in _PTV2_TOP:
+        return f"backbone.{_PTV2_TOP[p]}"
+    for pattern, prefix, table in ((r"patch_embed/block(\d+)/(.+)", "patch_embed.blocks.blocks.{0}", _PTV2_BLOCK),
+                                   (r"enc(\d+)_blocks/block(\d+)/(.+)", "enc_stages.{0}.blocks.blocks.{1}",
+                                    _PTV2_BLOCK),
+                                   (r"dec(\d+)_blocks/block(\d+)/(.+)", "dec_stages.{0}.blocks.blocks.{1}",
+                                    _PTV2_BLOCK),
+                                   (r"enc(\d+)_down/(.+)", "enc_stages.{0}.down", _PTV2_DOWN),
+                                   (r"dec(\d+)_up/(.+)", "dec_stages.{0}.up", _PTV2_UP)):
+        m = re.fullmatch(pattern, p)
+        if m and m.groups()[-1] in table:
+            return f"backbone.{prefix.format(*m.groups())}.{table[m.groups()[-1]]}"
+    raise KeyError(f"no torch name for flax module {path}")
+
+
+def _ptv2_module(path: str) -> str:
+    return _pd_module(path, _ptv2_plain, ("bns", "bn"))
+
+
+def _ptv2_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+    sd = {}
+    for key, value in _flat(params).items():
+        path, leaf = "/".join(key[:-1]), key[-1]
+        if leaf == "we_grouped_weight":
+            sd[f"{_ptv2_module(path)}.weight_encoding.0.weight"] = value
+        elif leaf == "kernel":
+            sd[f"{_ptv2_module(path)}.weight"] = np.ascontiguousarray(value.T)
+        elif leaf in ("scale", "bias"):
+            sd[f"{_ptv2_module(path)}.{'weight' if leaf == 'scale' else leaf}"] = value
+        else:
+            raise KeyError(f"unknown flax leaf {'/'.join(key)}")
+    for key, value in _flat(batch_stats).items():
+        sd[f"{_ptv2_module('/'.join(key[:-1]))}.running_{key[-1]}"] = value
+    return sd
+
+
 def _is_ppt_leaf(name: str) -> bool:
     return name in ("embedding_table", "proj_head", "class_embedding", "logit_scale") or bool(
         re.fullmatch(r"seg_head\d+", name))
@@ -257,6 +321,13 @@ CLS_HEAD = {"cls_fc0": "cls_head.0", "cls_bn0": "cls_head.1", "cls_fc1": "cls_he
             "cls_out": "cls_head.8"}
 
 
+# CAC-v1m1's own modules: flax name -> the reference's (its classifier's
+# kernel and bias are leaves of the segmentor, `seg_head_kernel` / `seg_head_bias`)
+CAC_HEADS = {"proj_fc1": "proj.0", "proj_fc2": "proj.2", "apd_fc1": "apd_proj.0", "apd_fc2": "apd_proj.2",
+             "featproj_fc1": "feat_proj_layer.0", "featproj_norm": "feat_proj_layer.1",
+             "featproj_fc2": "feat_proj_layer.3"}
+
+
 def _heads_from_jax(heads: dict, params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     """Dense and MaskedBatchNorm head modules (flax name -> torch name)."""
     sd = {}
@@ -272,19 +343,26 @@ def _heads_from_jax(heads: dict, params: dict, batch_stats: dict) -> Dict[str, n
 
 
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet,
-    PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, DefaultClassifier over either, or
-    Sonata-v1m1 flax trees (arrays) -> the port's state dict."""
+    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet or
+    PT-v2m1/m2/m3, PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, DefaultClassifier over
+    either, CAC-v1m1 over SpUNet or PT-v2, or Sonata-v1m1 flax trees (arrays) -> the port's
+    state dict."""
     ppt = {k: v for k, v in params.items() if _is_ppt_leaf(k)}
     params = {k: v for k, v in params.items() if k not in ppt}
     head_sd = {}
-    for marker, heads in (("bias_fc1", dict(PG_HEADS, seg_head="seg_head")), ("cls_out", CLS_HEAD)):
+    for marker, heads in (("bias_fc1", dict(PG_HEADS, seg_head="seg_head")), ("cls_out", CLS_HEAD),
+                          ("proj_fc1", CAC_HEADS)):
         if marker in params:
             head_sd = _heads_from_jax(heads, params, batch_stats)
             params = {k: v for k, v in params.items() if k not in heads}
             batch_stats = {k: v for k, v in batch_stats.items() if k not in heads}
+    if "seg_head_kernel" in params:  # CAC's classifier
+        head_sd["seg_head.weight"] = np.ascontiguousarray(np.asarray(params.pop("seg_head_kernel")).T)
+        head_sd["seg_head.bias"] = np.asarray(params.pop("seg_head_bias"))
     if "conv_input" in params.get("backbone_module", {}):
         sd = _spunet_from_jax(params, batch_stats)
+    elif {"patch_norm", "patch_embed"} & {*params.get("backbone_module", {}), *batch_stats.get("backbone_module", {})}:
+        sd = _ptv2_from_jax(params, batch_stats)
     elif "teacher_backbone" in params:
         sd = _sonata_from_jax(params, batch_stats)
     else:

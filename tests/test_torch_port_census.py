@@ -23,7 +23,10 @@ PointGroup probes), whose models are built on the meta device too; and
 the 15 classification and part-segmentation configs (ModelNet40's PT-v3 and
 SpUNet classifiers, the synthetic tiny one, Utonia's ScanObjectNN /
 ModelNet40 probes and its ShapeNet-Part / PartNetE part-seg configs),
-whose models are built on the meta device too."""
+whose models are built on the meta device too; and the 33 configs PT-v2,
+CAC, the Matterport3D / AEO datasets, PreciseEvaluator and
+RuntimeProfilerV2 complete, whose models are built on the meta device
+too."""
 
 from pathlib import Path
 
@@ -142,7 +145,16 @@ INSSEG = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs")
 # voting and part-seg testers, CosineAnnealingLR and MultiStepLR
 CLS = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/*.py")
              if p.name.startswith(("cls-", "partseg-")))
-CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG + CLS
+# Point Transformer V2 (PT-v2m1 / m2), the Context-Aware Classifier (over
+# SpUNet and PT-v2m2), the Matterport3D and AEO datasets, PreciseEvaluator
+# and RuntimeProfilerV2
+PTV2 = sorted(
+    [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/semseg-*.py")
+     if p.name.startswith(("semseg-pt-v2m", "semseg-cac-v1m1-"))]
+    + [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/matterport3d").glob("*.py")]
+    + [f"sonata/semseg-sonata-v1m1-4{t}-aeo-{m}.py" for t, m in (("a", "lin"), ("c", "ft"))]
+    + ["scannet/semseg-spunet-v1m1-1-precise-eval.py", "scannet/semseg-spunet-v1m1-3-enable-profiler.py"])
+CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG + CLS + PTV2
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
@@ -188,8 +200,8 @@ def _known(path: str, name: str) -> bool:
 
 def test_census_counts():
     assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27 and len(INSSEG) == 35
-    assert len(CLS) == 15
-    assert len(set(CONFIGS)) == 172
+    assert len(CLS) == 15 and len(PTV2) == 33
+    assert len(set(CONFIGS)) == 205
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -256,3 +268,20 @@ def test_cls_and_partseg_model_builds(path):
     else:
         assert model.seg_head.out_features == cfg.data.num_classes == cfg.model.num_classes
     assert sum(p.numel() for p in model.parameters()) > (1e4 if "synthetic" in path else 1e5)
+
+
+@pytest.mark.parametrize("path", PTV2)
+def test_ptv2_model_builds(path):
+    """The PT-v2 and CAC configs' models build on the meta device: a PT-v2
+    seg head as wide as the config's classes, CAC's classifier over its
+    backbone's features (PT-v2's num_classes defaults to 0 where the
+    CAC-over-PT-v2 configs' ``_delete_`` drops it)."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
+    if cfg.model.type == "CAC-v1m1":
+        assert model.backbone.out_channels == cfg.model.backbone_out_channels
+        assert model.seg_head.out_features == cfg.data.num_classes
+    elif str(cfg.model.backbone.type).startswith("PT-v2"):
+        assert model.backbone.seg_head[3].out_features == cfg.data.num_classes
+    assert sum(p.numel() for p in model.parameters()) > 1e6

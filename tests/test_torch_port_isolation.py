@@ -44,6 +44,9 @@ def test_import_loads_no_jax():
         "import pointcept_tpu_torch.utils.instance_eval, pointcept_tpu_torch.engines.hooks.evaluator\n"
         "import pointcept_tpu_torch.datasets.modelnet, pointcept_tpu_torch.datasets.shapenet_part\n"
         "import pointcept_tpu_torch.datasets.partnete, pointcept_tpu_torch.datasets.synthetic\n"
+        "import pointcept_tpu_torch.models.point_transformer_v2.point_transformer_v2\n"
+        "import pointcept_tpu_torch.models.context_aware_classifier.context_aware_classifier\n"
+        "import pointcept_tpu_torch.datasets.matterport\n"
         "print(' '.join(sorted(m for m in sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,

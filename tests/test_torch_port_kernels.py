@@ -490,3 +490,84 @@ def test_take_rows_vjp_is_bit_identical_on_card(cuda):
         assert torch.equal(grads[0], other)
     want = torch.zeros((n, 96), dtype=torch.float64, device=cuda).index_add_(0, idx, cot.double())
     torch.testing.assert_close(grads[0].double(), want.to(torch.bfloat16).double(), atol=1e-2, rtol=2 ** -7)
+
+
+@pytest.mark.gpu
+def test_knn_no_neighbour_index_is_fixed_on_card(cuda):
+    """`knn_query` on the card: a query of a scene without base points (and
+    every padding row) gets index 0 and distance sqrt(BIG) in every slot,
+    not what `topk` left in an all-BIG row; the scene-bounded chunks give
+    the same indices and distances as one chunk over every column."""
+    from pointcept_tpu_torch.ops.pointops import BIG, knn_query
+
+    g = torch.Generator(device=cuda).manual_seed(0)
+    coord = torch.rand((6000, 3), generator=g, device=cuda) * 4
+    batch = torch.cat([torch.zeros(3000, dtype=torch.int32, device=cuda), torch.ones(2500, dtype=torch.int32,
+                                                                                    device=cuda),
+                       torch.full((500,), -1, dtype=torch.int32, device=cuda)])
+    queries = torch.where(batch >= 0, batch, -2)
+    queries[5400:5500] = 2  # no base point of scene 2
+    idx, dist = knn_query(16, coord, batch, coord, queries, chunk=512)
+    whole_idx, whole_dist = knn_query(16, coord, batch, coord, queries, chunk=8192)
+    assert torch.equal(idx, whole_idx) and torch.equal(dist, whole_dist)
+    none = queries < 0
+    none[5400:5500] = True
+    assert (idx[none] == 0).all() and (dist[none] == torch.tensor(BIG, device=cuda).sqrt()).all()
+    assert (idx[~none] >= 0).all() and (batch[idx[~none].long()] == queries[~none, None]).all()
+
+
+@pytest.mark.gpu
+def test_grid_pool_means_are_bit_stable_on_card(cuda):
+    """GridPool's pooled coordinates (a fixed-order f64-prefix mean over the
+    key order) and its feature max with their gradients give the same bits
+    on every run."""
+    from pointcept_tpu_torch.models.point_transformer_v2.point_transformer_v2 import GridPool
+    from pointcept_tpu_torch.models.utils.structure import PointBatch
+
+    g = torch.Generator(device=cuda).manual_seed(1)
+    n = 200_000
+    coord = torch.rand((n, 3), generator=g, device=cuda) * torch.tensor([6.0, 6.0, 3.0], device=cuda)
+    batch = (torch.arange(n, device=cuda) >= n // 2).to(torch.int32)
+    pb = PointBatch(coord=coord, feat=None, grid_coord=None, batch=batch, num_scenes=2)
+    pool = GridPool(32, 48, 0.06).to(cuda).train()
+    feat = torch.randn((n, 32), generator=g, device=cuda)
+    runs = []
+    for _ in range(3):
+        f = feat.clone().requires_grad_()
+        pooled, new_feat, cluster, dropped = pool(pb, f, n)
+        grad, = torch.autograd.grad(new_feat.square().sum(), f)
+        runs.append((pooled.coord, new_feat.detach(), cluster, grad))
+    assert int(dropped) == 0
+    for other in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(runs[0], other))
+
+
+@pytest.mark.gpu
+def test_ptv2_train_steps_are_bit_identical_on_card(cuda):
+    """Two PT-v2m2 train steps (drop path on, two scenes) from one state
+    and one generator seed give the same loss and gradient bits."""
+    from pointcept_tpu_torch.engines import make_point_batch
+    from pointcept_tpu_torch.models import build_model
+
+    backbone = dict(type="PT-v2m2", in_channels=6, num_classes=13, enc_depths=(1, 1, 1, 1),
+                    dec_depths=(1, 1, 1, 1), drop_path_rate=0.3)
+    cfg = dict(type="DefaultSegmentor", backbone=backbone,
+               criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)])
+    rs = np.random.RandomState(0)
+    cap, n = 65536, 60000
+    arrays = dict(coord=np.zeros((cap, 3), np.float32), feat=np.zeros((cap, 6), np.float32),
+                  batch=np.full(cap, -1, np.int32), segment=np.full(cap, -1, np.int32))
+    arrays["coord"][:n] = rs.rand(n, 3) * [6, 6, 3]
+    arrays["feat"][:n] = rs.randn(n, 6)
+    arrays["batch"][:n] = np.arange(n) >= n // 2
+    arrays["segment"][:n] = rs.randint(0, 13, n)
+    model = build_model(cfg, device=cuda).train()
+    state = {k: v.clone() for k, v in model.state_dict().items()}
+    runs = []
+    for _ in range(2):
+        model.load_state_dict(state)
+        model.zero_grad(set_to_none=True)
+        res = model(make_point_batch(arrays, 2, device=cuda), generator=torch.Generator(device=cuda).manual_seed(3))
+        res["loss"].backward()
+        runs.append([res["loss"].detach()] + [p.grad.clone() for p in model.parameters()])
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
