@@ -18,8 +18,13 @@ each printing JSON lines:
    head dim 18 (stage 0: C 54, H 3; stage 3: C 432, H 24) and at
    Concerto-large's LoRA fine-tune (stage 0: C 64, H 4; stage 4: C 768,
    H 48) over a fine-tune step's two scenes of 262,144 rows, ModelNet40's
-   classifier (stage 0: C 32, H 2; stage 4: C 512, H 32; 32 clouds) and
-   the tiny classifier's head dim 4 at patch 64 (C 8-32, zero-padded to 16),
+   classifier (stage 0: C 32, H 2; stage 4: C 512, H 32; 32 clouds),
+   the tiny classifier's head dim 4 at patch 64 (C 8-32, zero-padded to 16)
+   and LitePT's attention stages at head dim 18 (stage 3: C 252, H 14;
+   stage 4: C 504, H 28); the biased (RPE) forward and backward at the S3DIS
+   RPE config's stages 0 and 4 (patch 128), their outputs, statistics and
+   the table's gradient, each run twice and bit-identical, their memory
+   under half of one dense bias,
    the backward at the train step's (K 1024) and, for the TPU's whole-K
    kernels, at K 128, both run twice at stage 0 and bit-identical; the
    fill and the take-back at 4^3 and 8^3
@@ -80,7 +85,7 @@ each printing JSON lines:
    points' count and every point has a vote from every view;
 12. the two overfit configs of `configs/synthetic/` (PTv3 with head dim 8,
    AMP, its second pooling's factor raised to 0.75; SpUNet) through the
-   trainer: train loss < 0.05, val mIoU > 0.80, no point dropped; then the
+   trainer for 100 steps: train loss < 0.05, val mIoU > 0.80, no point dropped; then the
    PTv3 config's own test section (Copy, GridSample `return_inverse`, the
    full-resolution mapping) through the tester on its trained weights:
    mIoU > 0.80, allAcc > 0.90, nothing dropped, a second `test()` from the
@@ -189,7 +194,7 @@ each printing JSON lines:
    step on the card against the CPU (f32, 4,096 points);
 27. the SpUNet PointGroup config (`configs/scannet/insseg-pointgroup-v1m1-0-spunet-base.py`:
    its model, SGD + PolyLR and transforms) overfitting one synthetic 3 m
-   room for 150 steps, then InsSegEvaluator on that room: AP50 above 0.5;
+   room for 75 steps, then InsSegEvaluator on that room: AP50 above 0.5;
 28. Sonata's PointGroup linear probe (`configs/sonata/insseg-sonata-v1m1-0a-scannet-pg-lin.py`)
    on phase 13's checkpoint at phase 14's cuts: the missing and
    unexpected keys, every backbone tensor as loaded bit for bit (the
@@ -237,11 +242,32 @@ each printing JSON lines:
 34. the Context-Aware Classifier's ScanNet configs over SpUNet (4 steps)
    and over PT-v2m2 (2 steps): the four loss terms of every step, step ms,
    peak, one evaluation each;
-35. one {"kernels": [...]} line (launches: the training paths', PTv3's for
+35. the S3DIS RPE config (`configs/s3dis/semseg-pt-v3m1-1-rpe.py`: PT-v3m1-base
+   at patch 128 with a relative-position table in every block, the block
+   engine) on phase 17's offices at phase 14's cuts: 4 steps and one
+   evaluation, 22 biased attention forwards and backwards a step on their
+   own counters, every tensor moved (the tables among them), nothing
+   dropped;
+36. LitePT-v1 at its class defaults (widths 36-504, head dim 18) through the
+   ScanNet LitePT config's data, transforms and recipe on phase 10's scenes
+   at phase 14's cuts: 4 steps, one evaluation, 8 attention forwards and
+   backwards a step, every tensor moved, nothing dropped;
+37. its test section on one val scene of 12,800 raw points (every point
+   voted by every view);
+38. LitePT and PT-v3m1 with RPE at one block a stage, f32, on the card
+   against the CPU: logits, then one train step;
+39. one {"kernels": [...]} line (launches: the training paths', PTv3's for
    its four kernels and SpUNet's for the fused block conv's two, phases
    20-24, 26, 28 and 29's added to the attention rows and phase 24's to the
    fill and the take-back; the D = 18 rows: phase 15's fine-tune, phase
-   23's Utonia fine-tune and phase 31's; the D = 4 rows: phase 30's).
+   23's Utonia fine-tune and phase 31's, and phase 36's LitePT; the D = 4
+   rows: phase 30's; the biased rows: phase 35's).
+
+Each phase prints its own seconds. The CPU sides of the card-vs-CPU phases
+(6, 8, 9, 13, 15, 19, 24, 26, 29, 33, 38) run in a spawned worker process
+ahead of their phases, beside the card's work; the resumed epochs of
+phases 10, 13 and 29 (CLI children, mostly start-up) run beside phases
+11-12, 17 and 29's testers.
 
 The last line is {"ok": true, "device": {...}}. Any failure raises and exits
 nonzero; nothing falls back to the CPU. It imports nothing of JAX.
@@ -250,6 +276,8 @@ nonzero; nothing falls back to the CPU. It imports nothing of JAX.
 from __future__ import annotations
 
 import contextlib
+import copy
+import functools
 import gc
 import json
 import math
@@ -352,10 +380,12 @@ BARE_STEPS = 4
 # one card holds the batch at 8 x 4,096; PTv3's second pooling keeps ~11,300
 # of its 16,384 rows, above the config's factor 0.5, and would drop ~3,000
 # points a step
+# 100 of the configs' 150 steps, for the time limit (both losses were under
+# 0.05 by step 50 at 150)
 OVERFIT_CONFIGS = {
     "configs/synthetic/semseg-pt-v3m1-1-overfit.py":
-        {"point_capacity": 32768, "model.backbone.pool_capacity_factors": (0.5, 0.75)},
-    "configs/synthetic/semseg-spunet-v1m1-1-overfit.py": {"point_capacity": 32768},
+        {"point_capacity": 32768, "model.backbone.pool_capacity_factors": (0.5, 0.75), "epoch": 100},
+    "configs/synthetic/semseg-spunet-v1m1-1-overfit.py": {"point_capacity": 32768, "epoch": 100},
 }
 # the overfit config's stage-0 attention (head dim 8): that batch in patches
 # of 128, its encoder and decoder block a step
@@ -414,14 +444,15 @@ DOWNSTREAM_OPTIONS = dict(batch_size=2, point_capacity=262144, point_capacity_va
                           num_worker=4, seed=0)
 LA_POINTS = 20  # labelled points a scene of the la20 benchmark
 LR_SCENES = ("scene0001_00",)  # the lr file: one line (the JAX package cannot read it)
-# the test sections of phases 14 and 16 on one val scene of 51,200 raw
+# the test sections of phases 14 and 16 on one val scene of 25,600 raw
 # points (the per-fragment path runs one forward a fragment: the
 # 409,600-point scene's ~550 fragments would pass the time limit), phase
 # 14's linear probe at half that (its 102,400 points took 26-32 s of the
-# time limit; both halved again for phases 32-34's room)
+# time limit; both halved again for phases 32-34's room, and again for
+# phases 35-38's: at 51,200 and 25,600 they took 17.7 and 27.8 s on an H100)
 PROBE_TEST_SCENE = "scene0007_00"
-PROBE_TEST_POINTS = 51200
-PROBE_TESTER_POINTS = 25600
+PROBE_TEST_POINTS = 25600
+PROBE_TESTER_POINTS = 12800
 # phase 15: Utonia's linear probe and fine-tune (PT-v3m3, RoPE, head dim 18)
 # at phase 14's cuts; its in_channels=9 differs from the 6 channels its
 # data section collects
@@ -557,13 +588,15 @@ INSSEG_CONFIG = "configs/scannet/insseg-pointgroup-v1m2-0-ptv3-base.py"
 # config's 0.4 of them, as phase 24's rooms: the first pooling at 0.65
 INSSEG_POOL_OPTIONS = {"model.backbone.pool_capacity_factors": (0.65, 0.4, 0.4, 0.4)}
 # phase 27: the SpUNet PointGroup config's own model, SGD + PolyLR and
-# transforms on one synthetic scene of a 3 m room, 150 steps of one scene
-# (loop 150 of one epoch), then InsSegEvaluator on that scene
+# transforms on one synthetic scene of a 3 m room, INSSEG_OVERFIT_OPTIONS'
+# steps of one scene (the loop of one epoch), then InsSegEvaluator on that scene
 INSSEG_OVERFIT_CONFIG = "configs/scannet/insseg-pointgroup-v1m1-0-spunet-base.py"
 # (the val pipeline does not crop: the whole scene's ~30k voxels pool into
 # more than 0.5 of 32,768 rows, so the val batch has 65,536)
+# 75 steps (150 before, for the time limit: AP50 0.0 at 150, a convergence
+# figure the run reports)
 INSSEG_OVERFIT_OPTIONS = dict(batch_size=1, batch_size_val=1, point_capacity=32768, point_capacity_val=65536,
-                              epoch=150, eval_epoch=1, num_worker=4, seed=0)
+                              epoch=75, eval_epoch=1, num_worker=4, seed=0)
 INSSEG_OVERFIT_SCENE = dict(seed=31, points=30000, extent=3.0)
 INSSEG_OVERFIT_AP50 = 0.5
 # phase 28: Sonata's PointGroup linear probe (PT-v3m2 with a decoder, frozen,
@@ -573,7 +606,7 @@ INSSEG_PROBE_CONFIG = "configs/sonata/insseg-sonata-v1m1-0a-scannet-pg-lin.py"
 # 2/2/2/6/2, patch 1024) at the config's batch of 32 clouds on one card, on
 # synthetic clouds in the modelnet40_normal_resampled layout
 # the attention paths phase 4 times (every shape of every path is checked)
-TIMED_PATHS = ("eval", "train", "patch 128", "overfit train", "modelnet")
+TIMED_PATHS = ("eval", "train", "patch 128", "overfit train", "modelnet", "litept")
 CLS_CONFIG = "configs/modelnet40/cls-pt-v3m1-0-base.py"
 CLS_VOTING_CONFIG = "configs/modelnet40/cls-pt-v3m1-1-voting.py"
 CLS_FILE_POINTS = 10000  # points a file (with normals)
@@ -646,6 +679,46 @@ PTV2_RECIPE = dict(optimizer=dict(type="AdamW", lr=0.005, weight_decay=0.02), pa
 CAC_CONFIGS = (("cac_spunet", "configs/scannet/semseg-cac-v1m1-0-spunet-base.py", {}),
                ("cac_ptv2", "configs/scannet/semseg-cac-v1m1-2-ptv2-lovasz.py", dict(epoch=1, eval_epoch=1)))
 CAC_LOSSES = ("seg_loss", "pre_loss", "pre_self_loss", "kl_loss")
+# phase 35: PT-v3m1's relative position encoding through the S3DIS RPE
+# config (PT-v3m1-base at patch 128, a [93, H] table a block, the block
+# engine) on phase 17's offices at phase 14's cuts: batch 2 in 262,144 rows
+# (two of SphereCrop's 204,800-point rooms, subsampled by the loader),
+# 4 steps, one evaluation; the first pooling at 0.65 (at the config's 0.5 a
+# pair of rooms held up to ~146,000 clusters against its 131,072) and the
+# val capacity from the Area_5 room's 2 cm voxels (~364,000)
+RPE_CONFIG = "configs/s3dis/semseg-pt-v3m1-1-rpe.py"
+RPE_POOL = (0.65, 0.5, 0.5, 0.5)
+RPE_OPTIONS = dict(S3DIS_OPTIONS, **{"model.backbone.pool_capacity_factors": RPE_POOL})
+RPE_KERNELS = ("patch_attention_rpe", "patch_attention_rpe_bwd", "block_fill", "take_back")
+# the biased kernels' shapes: its stage 0 (C 32, H 2) and stage 4 (C 512,
+# H 32) over a step's 262,144 rows at patch 128, (stage, C, H, launches a
+# step, forward and backward)
+RPE_ATTENTION = ((0, 32, 2, 2), (4, 512, 32, 2))
+# phases 36-37: LitePT-v1 through the ScanNet LitePT config's data, transforms,
+# AdamW + OneCycle, loss and `block` lr group, its backbone at the class
+# defaults (widths 36-504, heads 2-28: head dim 18 at every stage; the
+# config's patch_size and head dim 16 run in neither package) at the
+# config's input width and depth, and the default decoder's 72 channels for
+# the head; on phase 10's scenes at phase 14's cuts; its test section on one
+# val scene of LITEPT_TEST_POINTS raw points at PT-v2's 32,768 rows a fragment
+LITEPT_CONFIG = "configs/scannet/semseg-litept-v1m1-0-small.py"
+LITEPT_OPTIONS = {"model.backbone": dict(_delete_=True, type="LitePT-v1", in_channels=6, serialize_depth=11),
+                  "model.backbone_out_channels": 72}
+LITEPT_POOL = (0.5, 0.5, 0.5, 0.5)
+# its attention stages 3 (C 252, H 14, 6 blocks) and 4 (C 504, H 28, 2
+# blocks) at K 1024, D 18 on heads padded to 24, (stage, C, H, launches a step)
+LITEPT_ATTENTION = ((3, 252, 14, 6), (4, 504, 28, 2))
+LITEPT_TEST_POINTS = 12800
+LITEPT_TEST_CAPACITY = 32768
+# phase 38: card against CPU (f32, one block a stage) of LitePT at the class
+# widths and of PT-v3m1 with RPE at patch 128, on a scene of (points, extent
+# in m) as phases 8 and 26's, every pooling at factor 1.0 (at 0.5 LitePT's
+# first drops ~1,200 of its points), PT-v3 on the gather engine (its block
+# tables at 1/8 drop ~2,300 points there; phases 6 and 8 hold the block
+# engine against the CPU)
+LITEPT_SMALL = dict(type="LitePT-v1", in_channels=6, enc_depths=(1,) * 5, drop_path=0.0, serialize_depth=11,
+                    pool_capacity_factors=(1.0,) * 4)
+SMALL_SCENE = (4096, 1.2)
 # card-vs-CPU bounds of one train step (tests/test_torch_port_train.py):
 # loss relative error, per-tensor gradient relative L2 error, cosine; the
 # gradient bounds widen to twice the run's own noise floor (phase 8)
@@ -658,6 +731,99 @@ _START = time.perf_counter()
 def emit(phase: str, **kw) -> None:
     """One JSON line; ``t``: seconds since the script started."""
     print(json.dumps({"phase": phase, **kw, "t": time.perf_counter() - _START}), flush=True)
+
+
+# The card-vs-CPU phases hold the port on the card against its plain
+# versions on the CPU. Their CPU sides need nothing the card computes, so one
+# spawned worker process computes them ahead, beside the card's phases: main()
+# submits every such job whose inputs exist at the start, in phase order (a
+# phase that writes its inputs submits its own), and each phase computes its
+# card side, then waits for its CPU side. The checks, sizes and bounds are the
+# same as when the CPU side ran inline.
+_CPU = {"pool": None, "jobs": {}}
+CPU_JOB_TIMEOUT = 900
+
+
+def _cpu_worker_init(root: str, threads: int) -> None:
+    sys.path.insert(0, root)
+    import torch
+
+    torch.set_num_threads(threads)
+
+
+def start_cpu_worker(threads: int) -> None:
+    import multiprocessing
+
+    _CPU["pool"] = multiprocessing.get_context("spawn").Pool(1, initializer=_cpu_worker_init,
+                                                             initargs=(ROOT, threads))
+
+
+def stop_cpu_worker(finished: bool) -> None:
+    """Close the worker (after its jobs when `finished`, at once else) and wait for it."""
+    pool = _CPU["pool"]
+    if pool is not None:
+        if finished:
+            pool.close()
+        else:
+            pool.terminate()
+        pool.join()
+    _CPU.update(pool=None, jobs={})
+
+
+def cpu_prefetch(jobs) -> None:
+    """Queue CPU-worker jobs (key, function, arguments) ahead of their phases."""
+    for key, fn, args in jobs:
+        if _CPU["pool"] is not None and key not in _CPU["jobs"]:
+            _CPU["jobs"][key] = _CPU["pool"].apply_async(fn, args)
+
+
+def cpu_result(key: str, fn, args):
+    """A job's result: the queued one, or queued now; in this process when
+    no worker runs (a phase driven alone)."""
+    job = _CPU["jobs"].pop(key, None)
+    if job is None:
+        if _CPU["pool"] is None:
+            return fn(*args)
+        job = _CPU["pool"].apply_async(fn, args)
+    return job.get(timeout=CPU_JOB_TIMEOUT)
+
+
+# the card-vs-CPU arguments of phases 8 and 9 (SpUNet's)
+PHASE8_CVCT = dict(capacity=4096, extent=1.2)
+SPUNET_CVC = dict(cases=[(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
+# at a quarter of the scene (4,096 points, 1.2 m): its CPU steps took 112 s of the time limit at
+# 16,384 and 27-62 s at 8,192
+SPUNET_CVCT = dict(cases=[(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL), SPUNET_RECIPE)],
+                   phase="spunet_card_vs_cpu_train", capacity=4096, extent=1.2)
+
+
+def static_cpu_jobs() -> list:
+    """The CPU-worker jobs of every card-vs-CPU phase whose inputs exist at
+    the start, in phase order (phase 29's waits for its clouds)."""
+    jobs = card_vs_cpu_jobs() + card_vs_cpu_train_jobs(**PHASE8_CVCT)
+    jobs += card_vs_cpu_jobs(**SPUNET_CVC) + card_vs_cpu_train_jobs(**SPUNET_CVCT) + [SONATA_CPU_JOB]
+    for kw in (utonia_cvct(), lora_cvct(), ppt_cvct(), insseg_cvct()):
+        jobs += card_vs_cpu_train_jobs(**kw)
+    for logits, train in ptv2_cvc() + small_cvc():
+        jobs += card_vs_cpu_jobs(**logits) + card_vs_cpu_train_jobs(**train)
+    return jobs
+
+
+def _phase_runner():
+    """`phase(label, fn, *args, **kw)` runs one phase, prints its own
+    seconds (the `t` stamps of `emit` are cumulative) and keeps them in
+    ``phase.seconds``."""
+    seconds = {}
+
+    def phase(label, fn, *args, **kw):
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        seconds[label] = time.perf_counter() - t0
+        emit("phase_seconds", of=label, seconds=seconds[label])
+        return out
+
+    phase.seconds = seconds
+    return phase
 
 
 def release() -> None:
@@ -676,11 +842,14 @@ def nvidia_smi(query: str) -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+@functools.lru_cache(maxsize=None)
 def scene(seed, capacity: int = CAPACITY, extent: float = 6.0, labelled: bool = False):
     """Collated ScanNet-like synthetic scenes at 0.02 m (numpy): the
     repository's benchmark scene (a 6 m room, 4x oversampled, center-cropped
     to `capacity` points), one per seed (`seed` an int or a tuple of seeds),
-    labels dropped unless `labelled`."""
+    labels dropped unless `labelled`. Made once for each set of arguments
+    (PTv3's and SpUNet's phases read the same scenes): callers copy before
+    they change one."""
     from pointcept_tpu_torch.datasets import scene_batch
 
     seeds = (seed,) if isinstance(seed, int) else tuple(seed)
@@ -780,8 +949,10 @@ def kernel_cases(device, arrays):
     exp_rate = EXP_PER_CLOCK_PER_SM * sms * clock_hz
     results = {}
 
-    # A. attention, forward and backward (D in the function below)
+    # A. attention, forward and backward (D in the function below), with
+    # and without the RPE bias
     results.update(attention_cases(device, gen, exp_rate))
+    results.update(rpe_attention_cases(device, gen, exp_rate))
     pb, t = stage0_tables(arrays, device)
 
     # B. block fill at the stem (Cin=6) and the first convs (Cin=32), and
@@ -970,6 +1141,8 @@ def attention_cases(device, gen, exp_rate):
     cases += [("modelnet", CLS_SCENES, stage, c, h, n) for stage, c, h, n in CLS_ATTENTION]
     # the tiny classifier's head dim 4 at patch 64 (8 clouds a step), zero-padded to 16
     cases += [("cls tiny", 8, stage, c, h, n) for stage, c, h, n in CLS_TINY_ATTENTION]
+    # LitePT's attention stages at head dim 18 (two scenes a step), forward and backward
+    cases += [("litept", 2, stage, c, h, n) for stage, c, h, n in LITEPT_ATTENTION]
     tiny_pool = CLS_TINY_OPTIONS["model.backbone.pool_capacity_factors"]
     for path, scenes, stage, c, h, launches in cases:
         kk_ = 64 if path == "cls tiny" else k if isinstance(stage, int) else 128
@@ -981,6 +1154,7 @@ def attention_cases(device, gen, exp_rate):
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, UTONIA_POOL) if path == "utonia"
                else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LORA_POOL) if path == "lora"
                else _patches(PPT_OPTIONS["point_capacity"], stage, scenes, PPT_POOL) if path == "ppt"
+               else _patches(DOWNSTREAM_OPTIONS["point_capacity"], stage, scenes, LITEPT_POOL) if path == "litept"
                else _patches(OUTDOOR_CAPACITY[path], stage, scenes, OUTDOOR_ATTENTION_POOL[path])
                if path in OUTDOOR_ATTENTION_POOL
                else _patches(scenes * CAPACITY, stage, scenes) if isinstance(stage, int)
@@ -1068,6 +1242,115 @@ def attention_cases(device, gen, exp_rate):
     for (path, name), ms in sums.items():
         emit("attention_sum", path=path, kernel=name, ms_per_forward_or_step=ms,
              note="sum of launches (from the config) x kernel ms over the shapes above (L2-warm, back to back)")
+    return results
+
+
+def rpe_attention_cases(device, gen, exp_rate):
+    """The biased (RPE) kernels against their plain versions at the S3DIS
+    RPE config's stages 0 and 4 (a step's 262,144 rows at patch 128): the
+    forward (output and statistics) and the backward (dq dk dv, and the
+    table's gradient), each run twice and bit-identical; the peak memory of
+    a forward and backward (their outputs and scratch) under half of one
+    [nP, H, K, K] f32 bias, which the kernels never build; each timed in turns with SDPA given the bias as a
+    bf16 float mask (materialised before the timing, not timed), beside
+    its bound and plain version. Returns the rows of the kernels line
+    (stage 0)."""
+    import torch
+    import torch.nn.functional as F
+
+    from pointcept_tpu_torch.ops.kernels import patch_attention_bwd_plain, patch_attention_fwd_plain
+    from pointcept_tpu_torch.ops.kernels import patch_attention_rpe_bwd as rpe_bwd
+    from pointcept_tpu_torch.ops.kernels import patch_attention_rpe_fwd as rpe_fwd
+    from pointcept_tpu_torch.ops.kernels.patch_attention import rpe_bound, rpe_lookup
+
+    k = 128
+    b = rpe_bound(k)
+    results = {}
+    for stage, c, h, launches in RPE_ATTENTION:
+        np_ = _patches(RPE_OPTIONS["point_capacity"], stage, 2, RPE_POOL, k=k)
+        d = c // h
+        scale = d**-0.5
+        shape = dict(path="rpe", stage=stage, nP=np_, K=k, C=c, H=h, pairs=np_ * h, bound=b)
+        label = f"rpe,stage={stage},C={c},K={k}"
+        qkv = torch.randn((np_, k, 3 * c), generator=gen, device=device).to(torch.bfloat16)
+        table = torch.randn((3 * (2 * b + 1), h), generator=gen, device=device) * 0.5
+        # grid coordinates in a box of 3b + 1 cells: some differences clip
+        coords = torch.randint(0, 3 * b + 1, (np_, k, 3), generator=gen, device=device, dtype=torch.int32)
+        dout = torch.randn((np_, k, c), generator=gen, device=device).to(torch.bfloat16)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(device)
+        torch.cuda.reset_peak_memory_stats(device)
+        out, m_, l_ = rpe_fwd(qkv, h, scale, table, coords, stats=True)
+        dqkv, dtab = rpe_bwd(qkv, out, dout, m_, l_, h, scale, table, coords)
+        torch.cuda.synchronize()
+        extra = torch.cuda.max_memory_allocated(device) - base
+        dense = np_ * h * k * k * 4
+        emit("check", kernel=f"patch_attention_rpe memory[{label}]", peak_extra_bytes=extra,
+             dense_bias_bytes=dense, ok=extra < dense // 2)
+        if extra >= dense // 2:
+            raise AssertionError(f"rpe attention: {extra} bytes beside a dense bias of {dense}")
+        want = patch_attention_fwd_plain(qkv, h, scale, stats=True, rpe=(table, coords))
+        err_f = check_close(f"patch_attention_rpe[{label}]", out, want[0], atol=2e-2, rtol=2e-2)
+        check_close(f"patch_attention_rpe m[{label}]", m_, want[1], atol=1e-4, rtol=1e-4)
+        check_close(f"patch_attention_rpe l[{label}]", l_, want[2], atol=1e-3, rtol=1e-3)
+        wq, wt = patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale, rpe=(table, coords))
+        err_b = check_close(f"patch_attention_rpe_bwd[{label}]", dqkv, wq,
+                            atol=2e-2 * float(wq.float().abs().max()), rtol=2e-2)
+        # f32 sums of the unrounded dS' in two orders, p from ex2.approx
+        check_close(f"patch_attention_rpe_bwd table[{label}]", dtab, wt, atol=1e-3 * float(wt.abs().max()),
+                    rtol=1e-2)
+        again = rpe_fwd(qkv, h, scale, table, coords, stats=True)
+        fwd_same = all(torch.equal(x, y) for x, y in zip((out, m_, l_), again))
+        bwd_again = rpe_bwd(qkv, out, dout, m_, l_, h, scale, table, coords)
+        bwd_same = torch.equal(dqkv, bwd_again[0]) and torch.equal(dtab, bwd_again[1])
+        torch.cuda.synchronize()
+        for name, same in (("patch_attention_rpe (out, m, l)", fwd_same),
+                           ("patch_attention_rpe_bwd (dqkv, table)", bwd_same)):
+            emit("check", kernel=f"{name} twice[{label}]", bit_identical=same, ok=same)
+            if not same:
+                raise AssertionError(f"{name}: two runs on the same inputs differ ({label})")
+        del want, wq, wt, again, bwd_again
+        mask = rpe_lookup(table, coords).to(torch.bfloat16)  # [nP, H, K, K]
+        q, kk, v = (qkv.view(np_, k, 3, h, d)[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        exps = np_ * h * k * k
+        for kern in ("fwd", "bwd"):
+            if kern == "fwd":
+                with torch.no_grad():
+                    row = paired_ms(lambda: rpe_fwd(qkv, h, scale, table, coords, stats=True),
+                                    lambda: F.scaled_dot_product_attention(q, kk, v, attn_mask=mask, scale=scale))
+                row.update(shape=shape, max_abs_err=err_f, plain_ms=time_ms(
+                    lambda: patch_attention_fwd_plain(qkv, h, scale, stats=True, rpe=(table, coords)),
+                    samples=3, reps=1))
+                # qkv, the coordinates and the table read once; out, m and l written once
+                bytes_ = np_ * k * 4 * c * 2 + np_ * h * k * 8 + np_ * k * 12 + table.numel() * 4
+                flops = 4 * exps * d
+                name, library = "patch_attention_rpe", "F.scaled_dot_product_attention (bias as attn_mask)"
+            else:
+                leaves = [x.detach().requires_grad_() for x in (q, kk, v)]
+                sdpa = F.scaled_dot_product_attention(*leaves, attn_mask=mask, scale=scale)
+                do4 = dout.view(np_, k, h, d).transpose(1, 2).contiguous()
+                row = paired_ms(lambda: rpe_bwd(qkv, out, dout, m_, l_, h, scale, table, coords),
+                                lambda: torch.autograd.grad(sdpa, leaves, do4, retain_graph=True))
+                row.update(shape=shape, max_abs_err=err_b, plain_ms=time_ms(
+                    lambda: patch_attention_bwd_plain(qkv, out, dout, m_, l_, h, scale, rpe=(table, coords)),
+                    samples=3, reps=1))
+                # qkv, out, dout, m, l, the coordinates and the table read once; dqkv and the table's gradient
+                # written once
+                bytes_ = (np_ * k * (3 * c * 2 + c * 2 + c * 2 + 3 * c * 2) + np_ * h * k * 8 + np_ * k * 12
+                          + 2 * table.numel() * 4)
+                flops = 10 * exps * d
+                name, library = "patch_attention_rpe_bwd", "backward of F.scaled_dot_product_attention (attn_mask)"
+                del leaves, sdpa
+            row["bound_ms"] = max(bytes_ / PEAK_BYTES, exps / exp_rate, flops / PEAK_BF16) * 1e3
+            row["bound_by"] = "bytes" if bytes_ / PEAK_BYTES >= exps / exp_rate else "operations"
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["vs_library"] = row["ms"] / row["library_ms"]
+            row["launches_per_step"] = launches
+            emit("time", kernel=name, library=library, **_named(row))
+            if stage == 0:
+                results[name] = row
+        del qkv, out, dout, dqkv, dtab, mask, q, kk, v
+        release()
     return results
 
 
@@ -1346,45 +1629,65 @@ def _small_ptv3(amp: bool, **kw) -> dict:
                 pool_capacity_factors=(0.5,) * 4, **kw)
 
 
-def card_vs_cpu(device, cases=None, phase="card_vs_cpu", capacity=16384, extent=2.4):
-    """Phase 6 (and SpUNet's, PT-v2's): small depth, same weights, a small
-    scene of `capacity` points over `extent` m: the port on the card
-    (kernels) against the port on the CPU (plain versions). `cases`: (amp,
-    model config) pairs, PTv3 in f32 and AMP by default."""
-    import numpy as np
+def _cvc_cases(cases):
+    return cases if cases is not None else [(amp, dict(MODEL, backbone=_small_ptv3(amp))) for amp in (False, True)]
+
+
+def _logits(cfg, capacity: int, extent: float, device) -> dict:
+    """One eval forward of `cfg` (weights of seed 1) on `device` on the
+    `capacity`-point scene of `extent` m: the valid rows' logits, seconds,
+    overflow counters."""
     import torch
 
     from pointcept_tpu_torch.engines import make_point_batch
     from pointcept_tpu_torch.models import build_model
 
+    arrays = scene(100, capacity=capacity, extent=extent)
+    model = build_model(cfg, device=device, generator=torch.Generator().manual_seed(1))
+    t0 = time.perf_counter()
+    res = model(make_point_batch(arrays, 1, device=device))
+    logits = res["seg_logits"].float().cpu().numpy()[arrays["batch"] >= 0]
+    return dict(logits=logits, seconds=time.perf_counter() - t0,
+                overflow=[int(v) for vs in res["diagnostics"].values() for v in vs])
+
+
+def _cpu_logits(cfg, capacity: int, extent: float) -> dict:
+    """The CPU side of `card_vs_cpu` (plain versions), run by the CPU worker."""
+    return _logits(cfg, capacity, extent, "cpu")
+
+
+def card_vs_cpu_jobs(cases=None, phase="card_vs_cpu", capacity=16384, extent=2.4) -> list:
+    """The CPU sides of `card_vs_cpu` with these arguments, as CPU-worker
+    jobs (key, function, arguments)."""
+    return [(f"{phase}[{amp}]", _cpu_logits, (cfg, capacity, extent)) for amp, cfg in _cvc_cases(cases)]
+
+
+def card_vs_cpu(device, cases=None, phase="card_vs_cpu", capacity=16384, extent=2.4):
+    """Phase 6 (and SpUNet's, PT-v2's): small depth, same weights, a small
+    scene of `capacity` points over `extent` m: the port on the card
+    (kernels) against the port on the CPU (plain versions, computed by the
+    CPU worker). `cases`: (amp, model config) pairs, PTv3 in f32 and AMP by
+    default."""
+    import numpy as np
+    import torch
+
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     # a 2.4 m room at 16,384 points keeps the density of the 102,400-point scenes
-    arrays = scene(100, capacity=capacity, extent=extent)
-    valid = arrays["batch"] >= 0
-    if cases is None:
-        cases = [(amp, dict(MODEL, backbone=_small_ptv3(amp))) for amp in (False, True)]
-    for amp, cfg in cases:
-        out = {}
-        for dev in (device, "cpu"):
-            model = build_model(cfg, device=dev, generator=torch.Generator().manual_seed(1))
-            t0 = time.perf_counter()
-            res = model(make_point_batch(arrays, 1, device=dev))
-            out[str(dev)] = res["seg_logits"].float().cpu().numpy()[valid]
-            out[f"{dev}_s"] = time.perf_counter() - t0
-            out[f"{dev}_overflow"] = [int(v) for vs in res["diagnostics"].values() for v in vs]
-        gpu, cpu = out[str(device)], out["cpu"]
-        rel = float(np.abs(gpu - cpu).max() / np.abs(cpu).max())
-        agree = float((gpu.argmax(1) == cpu.argmax(1)).mean())
+    for (amp, cfg), job in zip(_cvc_cases(cases), card_vs_cpu_jobs(cases, phase, capacity, extent)):
+        card = _logits(cfg, capacity, extent, device)
+        cpu = cpu_result(*job)
+        gpu, ref = card["logits"], cpu["logits"]
+        rel = float(np.abs(gpu - ref).max() / np.abs(ref).max())
+        agree = float((gpu.argmax(1) == ref.argmax(1)).mean())
         max_rel, min_agree = SLICE_BOUNDS[amp]
-        emit(phase, amp=amp, points=int(valid.sum()), rel_max_err=rel, bound=max_rel,
-             argmax_agreement=agree, agreement_bound=min_agree, cpu_seconds=out["cpu_s"],
-             overflow=out["cpu_overflow"])
+        emit(phase, amp=amp, points=int(gpu.shape[0]), rel_max_err=rel, bound=max_rel,
+             argmax_agreement=agree, agreement_bound=min_agree, cpu_seconds=cpu["seconds"],
+             overflow=cpu["overflow"])
         if not (rel < max_rel and agree > min_agree):
             raise AssertionError(f"card and CPU disagree ({phase}, amp={amp}): rel {rel}, agreement {agree}")
-        if any(out["cpu_overflow"]) or out["cpu_overflow"] != out[f"{device}_overflow"]:
-            raise AssertionError(f"{phase}: overflow {out['cpu_overflow']} (CPU), "
-                                 f"{out[f'{device}_overflow']} (card)")
+        if any(cpu["overflow"]) or cpu["overflow"] != card["overflow"]:
+            raise AssertionError(f"{phase}: overflow {cpu['overflow']} (CPU), {card['overflow']} (card)")
 
 
 def _train_setup(cfg, device, seed, recipe=PTV3_RECIPE, init=None):
@@ -1505,33 +1808,16 @@ def with_instances(arrays: dict) -> dict:
     return dict(arrays, instance=instance, instance_centroid=centroid)
 
 
-def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
-                      condition=None, instances=False, batch=None, vanishing_below=1e-6):
-    """Phase 8 (and SpUNet's): one train step of the small-depth model on
-    the card and on the CPU, same weights, batch and order permutations
-    (drawn from a CPU generator of one seed; drop path 0, so nothing else is
-    drawn). `cases`: (amp, model config, recipe), PTv3 in f32 and AMP by
-    default; the first must be f32.
+def _cvct_cases(cases):
+    if cases is not None:
+        return cases
+    return [(amp, dict(TRAIN_MODEL, backbone=_small_ptv3(amp, shuffle_orders=True, drop_path=0.0)), PTV3_RECIPE)
+            for amp in (False, True)]
 
-    The gradients of one step are sensitive by nature: attention operands
-    round to bf16 and pooling takes a max, so a change of the input far
-    below any rounding moves some gradient tensors by several percent. The
-    run measures that noise floor itself: the CPU step again, on features
-    scaled by 1 + 1e-6 * N(0, 1). The card must agree with the CPU within
-    the slice test's bounds, or within twice the floor where the floor of
-    this model and scene is above them. `init(model)` changes the weights
-    after the build, the same on both devices. `capacity`, `extent`: the
-    scene's points and size; `condition`: the batch's (PPT); `instances`:
-    PointGroup's targets (`with_instances`); `batch`: a collated batch
-    (with ``num_scenes``) in place of the scene (the classifiers' clouds);
-    `vanishing_below`: the share of the largest gradient under which a
-    tensor's CPU gradient counts as vanishing (PT-v2's biases before its
-    norms sit at 1e-8 to 6e-6 of it, the Linear(3, C) ones before its
-    position norms above 1e-6, its other tensors at 7e-4 and more)."""
+
+def _cvct_data(capacity, extent, condition, instances, batch) -> tuple:
+    """The batch of `card_vs_cpu_train` and its nudged copy."""
     import numpy as np
-    import torch
-
-    from pointcept_tpu_torch.engines import make_point_batch
 
     if batch is not None:
         arrays = dict(batch)
@@ -1541,19 +1827,70 @@ def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, 
         arrays = with_instances(arrays)
     nudged = dict(arrays, feat=arrays["feat"] * (1 + 1e-6 * np.random.RandomState(0).randn(
         *arrays["feat"].shape).astype(np.float32)))
+    return arrays, nudged
+
+
+def _train_grads(cfg, recipe, init, data, device) -> tuple:
+    """One train step of `cfg` (weights of seed 1, order permutations of a
+    CPU generator of seed 5) on `data`: (loss, every gradient as numpy)."""
+    import torch
+
+    from pointcept_tpu_torch.engines import make_point_batch
+
+    model, step = _train_setup(cfg, device, seed=1, recipe=recipe, init=init)
+    res = step(make_point_batch(data, data["num_scenes"], device=device), torch.Generator().manual_seed(5))
+    # (a parameter the step does not reach, as Utonia's mask token, has no gradient)
+    return float(res["loss"]), {n: p.grad.float().cpu().numpy() for n, p in model.named_parameters()
+                                if p.grad is not None}
+
+
+def _cpu_train(cfg, recipe, init, capacity, extent, condition, instances, batch) -> dict:
+    """The CPU sides of `card_vs_cpu_train` (plain versions), run by the
+    CPU worker: the step on the batch and on its nudged copy."""
+    arrays, nudged = _cvct_data(capacity, extent, condition, instances, batch)
+    return {"cpu": _train_grads(cfg, recipe, init, arrays, "cpu"),
+            "cpu_nudged": _train_grads(cfg, recipe, init, nudged, "cpu")}
+
+
+def card_vs_cpu_train_jobs(cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
+                           condition=None, instances=False, batch=None, vanishing_below=1e-6) -> list:
+    """The CPU sides of `card_vs_cpu_train` with these arguments, as
+    CPU-worker jobs (key, function, arguments)."""
+    return [(f"{phase}[{amp}]", _cpu_train, (cfg, recipe, init, capacity, extent, condition, instances, batch))
+            for amp, cfg, recipe in _cvct_cases(cases)]
+
+
+def card_vs_cpu_train(device, cases=None, phase="card_vs_cpu_train", init=None, capacity=16384, extent=2.4,
+                      condition=None, instances=False, batch=None, vanishing_below=1e-6):
+    """Phase 8 (and SpUNet's): one train step of the small-depth model on
+    the card and on the CPU, same weights, batch and order permutations
+    (drawn from a CPU generator of one seed; drop path 0, so nothing else is
+    drawn). `cases`: (amp, model config, recipe), PTv3 in f32 and AMP by
+    default; the first must be f32. The CPU steps run in the CPU worker.
+
+    The gradients of one step are sensitive by nature: attention operands
+    round to bf16 and pooling takes a max, so a change of the input far
+    below any rounding moves some gradient tensors by several percent. The
+    run measures that noise floor itself: the CPU step again, on features
+    scaled by 1 + 1e-6 * N(0, 1). The card must agree with the CPU within
+    the slice test's bounds, or within twice the floor where the floor of
+    this model and scene is above them. `init(model)` (a module-level
+    function, for the worker) changes the weights after the build, the same
+    on both devices. `capacity`, `extent`: the scene's points and size;
+    `condition`: the batch's (PPT); `instances`: PointGroup's targets
+    (`with_instances`); `batch`: a collated batch (with ``num_scenes``) in
+    place of the scene (the classifiers' clouds); `vanishing_below`: the
+    share of the largest gradient under which a tensor's CPU gradient
+    counts as vanishing (PT-v2's biases before its norms sit at 1e-8 to
+    6e-6 of it, the Linear(3, C) ones before its position norms above 1e-6,
+    its other tensors at 7e-4 and more)."""
+    import numpy as np
+
+    arrays, _ = _cvct_data(capacity, extent, condition, instances, batch)
+    jobs = card_vs_cpu_train_jobs(cases, phase, init, capacity, extent, condition, instances, batch)
     vanishing = set()
-    if cases is None:
-        cases = [(amp, dict(TRAIN_MODEL, backbone=_small_ptv3(amp, shuffle_orders=True, drop_path=0.0)),
-                  PTV3_RECIPE) for amp in (False, True)]
-    for amp, cfg, recipe in cases:
-        out = {}
-        for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays),
-                                ("cpu_nudged", "cpu", nudged)):
-            model, step = _train_setup(cfg, dev, seed=1, recipe=recipe, init=init)
-            res = step(make_point_batch(data, data["num_scenes"], device=dev), torch.Generator().manual_seed(5))
-            # (a parameter the step does not reach, as Utonia's mask token, has no gradient)
-            out[name] = (float(res["loss"]), {n: p.grad.float().cpu().numpy()
-                                              for n, p in model.named_parameters() if p.grad is not None})
+    for (amp, cfg, recipe), job in zip(_cvct_cases(cases), jobs):
+        out = dict(card=_train_grads(cfg, recipe, init, arrays, device), **cpu_result(*job))
         (gl, gg), (cl, cg), (nl, ng) = out["card"], out["cpu"], out["cpu_nudged"]
         gmax = max(float(np.abs(g).max()) for g in cg.values())
         if not amp:
@@ -1638,7 +1975,8 @@ def _metrics(save_path: str) -> list:
 
 def trainer_path(device, card, work: str, bare_step_ms: float):
     """Phase 10: the ScanNet config through the port's trainer at full
-    width, then its second epoch resumed through the CLI."""
+    width and its steady state; returns its second epoch resumed through
+    the CLI, started (`start_resume`)."""
     import torch
 
     from pointcept_tpu_torch.engines import default_config_parser, main_worker
@@ -1695,8 +2033,9 @@ def trainer_path(device, card, work: str, bare_step_ms: float):
     del trainer
     release()
 
-    _resume_bits(work, SCANNET_CONFIG, options, first, "trainer")
     steady_state(device, card, work, dict(options, **STEADY_OPTIONS), bare_step_ms)
+    # the resumed epoch runs beside phases 11-12 (its ~20 GB beside their 10 GB)
+    return start_resume(work, SCANNET_CONFIG, options, first, "trainer")
 
 
 def _step_times(steps: list) -> dict:
@@ -1961,9 +2300,10 @@ def _hyper_rows(model, steps_per_epoch: int, epochs: int, start_epoch: int = 0) 
 
 def sonata_path(device, card, work: str):
     """Phase 13: the Sonata pretraining config through the port's trainer at
-    full width on phase 10's train scenes; its hooks' values, the EMA, the
-    checkpoint and the resumed epoch; its steady state; one small-depth step
-    on the card against the CPU; then the supervised PT-v3m2 config."""
+    full width on phase 10's train scenes; its hooks' values, the EMA and
+    the checkpoint; its steady state; one small-depth step on the card
+    against the CPU; then the supervised PT-v3m2 config. Returns the
+    arguments of its resumed epoch (`start_resume`), which runs later."""
     import torch
 
     from pointcept_tpu_torch.engines import default_config_parser, main_worker
@@ -2045,8 +2385,6 @@ def sonata_path(device, card, work: str):
     del trainer
     release()
 
-    _resume_bits(work, SONATA_CONFIG, options, first, "sonata", losses)
-
     # the steady state: one epoch of STEADY_STEPS steps
     save = os.path.join(work, "sonata_steady")
     cfg = default_config_parser(os.path.join(ROOT, SONATA_CONFIG), dict(options, save_path=save, **SONATA_STEADY))
@@ -2064,6 +2402,8 @@ def sonata_path(device, card, work: str):
     release()
     sonata_card_vs_cpu(device)
     scratch_path(device, card, work)
+    # the resumed epoch (~51 GB) runs later, beside phase 17 (~10 GB)
+    return (work, SONATA_CONFIG, options, first, "sonata", losses)
 
 
 def sonata_ema_check(trainer, device):
@@ -2092,26 +2432,19 @@ def sonata_ema_check(trainer, device):
         raise AssertionError(f"sonata: teacher tensors off the EMA: {[n for n, ok in same.items() if not ok][:5]}")
 
 
-def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
-    """One small-depth Sonata train step (the config's widths and heads, one
-    block a stage, pool factors 0.85, in f32: under AMP a 1e-6 nudge of the
-    input moves some gradient tensors by their own size; orders unshuffled,
-    drop path 0) on
-    the card and on the CPU, same weights, batch (the config's pipeline on a
-    small scene) and mask scores: losses and student gradients against the
-    slice's bounds, or twice the CPU's own noise floor (the step again on
-    features nudged by 1e-6)."""
+def _sonata_case() -> dict:
+    """The small-depth Sonata step of `sonata_card_vs_cpu`: its model and
+    recipe, the batch (the config's pipeline on a small scene, numpy's and
+    Python's generators at seed 0), its nudged copy, the mask scores and the
+    hyper-parameters."""
+    import random
+
     import numpy as np
     import torch
 
     from pointcept_tpu_torch.datasets import Compose, point_collate_fn, synthesize_scene
-    from pointcept_tpu_torch.engines import build_train_step, make_inputs
-    from pointcept_tpu_torch.models import build_model
-    from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
     from pointcept_tpu_torch.utils.config import Config
 
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
     cfg = Config.fromfile(os.path.join(ROOT, SONATA_CONFIG))
     # pool factors 0.85: the views of one small scene fill its capacity
     # closer than two full scenes fill 262,144 rows (at 0.75 the 5,000-point
@@ -2119,7 +2452,10 @@ def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
     model_cfg = dict(cfg.model, backbone=dict(cfg.model.backbone, enc_depths=(1,) * 5, shuffle_orders=False,
                                               drop_path=0.0, pool_capacity_factors=(0.85,) * 4))
     pipeline = Compose([t for t in cfg.data.train.transform])
+    # its transforms draw from numpy's and Python's generators: both seeded,
+    # so that this process and the CPU worker make the same batch
     np.random.seed(0)
+    random.seed(0)
     # the point density of phase 10's scenes (409,600 points in a 6 m room),
     # at an eighth of the scene this phase first had (20,000 points, 1.4 m:
     # its CPU steps took 95-108 s of the time limit; 10,000 at 1.0 m took 99
@@ -2132,23 +2468,61 @@ def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
     nudged = dict(arrays)
     for key in ("global_feat", "local_feat"):
         nudged[key] = arrays[key] * (1 + 1e-6 * np.random.RandomState(0).randn(*arrays[key].shape).astype(np.float32))
-    scores = torch.rand(arrays["global_coord"].shape[0], generator=torch.Generator().manual_seed(3))
-    hyper = dict(mask_size=0.4, mask_ratio=0.5, teacher_temp=0.07, momentum=0.996)
-    out = {}
-    for name, dev, data in (("card", device, arrays), ("cpu", "cpu", arrays), ("cpu_nudged", "cpu", nudged)):
-        model = build_model(model_cfg, device=dev, generator=torch.Generator().manual_seed(1))
-        forward = model.forward
-        model.forward = lambda d, generator=None, hyper=None, f=forward, s=scores.to(dev): f(d, generator, hyper,
-                                                                                              mask_scores=s)
-        optimizer = build_optimizer(dict(cfg.optimizer), model, cfg.param_dicts)
-        step = build_train_step(model, optimizer, build_scheduler(dict(cfg.scheduler), optimizer, TOTAL_STEPS))
-        t0 = time.perf_counter()
-        res = step(make_inputs(data, device=dev), torch.Generator(device=dev), hyper)
-        out[name] = dict(losses={k: float(v) for k, v in res.items() if k.endswith("loss")},
-                         overflow=int(res["pool_overflow"]) + int(res["block_overflow"]),
-                         grads={n: p.grad.float().cpu().numpy() for n, p in model.student.named_parameters()},
-                         seconds=time.perf_counter() - t0)
-        del model, optimizer, step
+    return dict(model_cfg=model_cfg, optimizer=dict(cfg.optimizer), param_dicts=cfg.param_dicts,
+                scheduler=dict(cfg.scheduler), arrays=arrays, nudged=nudged,
+                scores=torch.rand(arrays["global_coord"].shape[0], generator=torch.Generator().manual_seed(3)),
+                hyper=dict(mask_size=0.4, mask_ratio=0.5, teacher_temp=0.07, momentum=0.996))
+
+
+def _sonata_step(case: dict, data: dict, dev) -> dict:
+    """One Sonata train step of `case` on `data` on `dev`: the losses,
+    overflow, the student's gradients and the seconds."""
+    import torch
+
+    from pointcept_tpu_torch.engines import build_train_step, make_inputs
+    from pointcept_tpu_torch.models import build_model
+    from pointcept_tpu_torch.utils import build_optimizer, build_scheduler
+
+    model = build_model(case["model_cfg"], device=dev, generator=torch.Generator().manual_seed(1))
+    forward = model.forward
+    model.forward = lambda d, generator=None, hyper=None, f=forward, s=case["scores"].to(dev): f(
+        d, generator, hyper, mask_scores=s)
+    optimizer = build_optimizer(case["optimizer"], model, case["param_dicts"])
+    step = build_train_step(model, optimizer, build_scheduler(case["scheduler"], optimizer, TOTAL_STEPS))
+    t0 = time.perf_counter()
+    res = step(make_inputs(data, device=dev), torch.Generator(device=dev), case["hyper"])
+    return dict(losses={k: float(v) for k, v in res.items() if k.endswith("loss")},
+                overflow=int(res["pool_overflow"]) + int(res["block_overflow"]),
+                grads={n: p.grad.float().cpu().numpy() for n, p in model.student.named_parameters()},
+                seconds=time.perf_counter() - t0)
+
+
+def _cpu_sonata() -> dict:
+    """The CPU sides of `sonata_card_vs_cpu`, run by the CPU worker."""
+    case = _sonata_case()
+    return {"cpu": _sonata_step(case, case["arrays"], "cpu"), "cpu_nudged": _sonata_step(case, case["nudged"], "cpu")}
+
+
+SONATA_CPU_JOB = ("sonata_card_vs_cpu", _cpu_sonata, ())
+
+
+def sonata_card_vs_cpu(device, phase: str = "sonata_card_vs_cpu"):
+    """One small-depth Sonata train step (the config's widths and heads, one
+    block a stage, pool factors 0.85, in f32: under AMP a 1e-6 nudge of the
+    input moves some gradient tensors by their own size; orders unshuffled,
+    drop path 0) on
+    the card and on the CPU (the CPU worker), same weights, batch (the
+    config's pipeline on a small scene) and mask scores: losses and student
+    gradients against the slice's bounds, or twice the CPU's own noise floor
+    (the step again on features nudged by 1e-6)."""
+    import numpy as np
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    case = _sonata_case()
+    arrays = case["arrays"]
+    out = dict(card=_sonata_step(case, arrays, device), **cpu_result(*SONATA_CPU_JOB))
     card, cpu, floor_run = out["card"], out["cpu"], out["cpu_nudged"]
     gmax = max(float(np.abs(g).max()) for g in cpu["grads"].values())
     # biases that feed only the poolings' train-mode BatchNorms: zero
@@ -2363,7 +2737,6 @@ def utonia_path(device, card, work: str) -> dict:
     import torch
 
     from pointcept_tpu_torch.models import apply_amp_policy, build_model
-    from pointcept_tpu_torch.utils.config import Config
 
     data_root = os.path.join(work, "scannet")
     options = dict(DOWNSTREAM_OPTIONS, **UTONIA_OPTIONS, **{"data.train.data_root": data_root,
@@ -2405,12 +2778,20 @@ def utonia_path(device, card, work: str) -> dict:
         release()
 
     # one small-depth fine-tune step (f32) on the card against the CPU
+    card_vs_cpu_train(device, **utonia_cvct())
+    return result["0c"]
+
+
+def utonia_cvct() -> dict:
+    """Phase 15's `card_vs_cpu_train` arguments: one small-depth step of the
+    fine-tune config (f32)."""
+    from pointcept_tpu_torch.utils.config import Config
+
     cfg = Config.fromfile(os.path.join(ROOT, UTONIA_CONFIGS[1][1]))
     small = dict(cfg.model, backbone=dict(cfg.model.backbone, in_channels=6, enc_depths=(1,) * 5, drop_path=0.0,
                                           pool_capacity_factors=(0.5,) * 4))
     recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=cfg.param_dicts, scheduler=dict(cfg.scheduler))
-    card_vs_cpu_train(device, [(False, small, recipe)], phase="utonia_card_vs_cpu_train")
-    return result["0c"]
+    return dict(cases=[(False, small, recipe)], phase="utonia_card_vs_cpu_train")
 
 
 def _run_checked(device, work: str, config: str, options: dict, tag: str, kernels=()):
@@ -2551,7 +2932,8 @@ def s3dis_path(device, card, work: str):
     evaluation, each step's lr against PolyLR's formula; then its one-view
     test section on the Area_5 room at a `point_capacity_test` set from the
     room, its `record.npz` read by `tools/test_s3dis_6fold.py`; then the
-    tester refusing a room over its static capacities."""
+    tester refusing a room over its static capacities. Returns the rooms'
+    points and voxel counts."""
     import torch
 
     from pointcept_tpu_torch.engines import default_config_parser
@@ -2618,6 +3000,7 @@ def s3dis_path(device, card, work: str):
     if "point_capacity_test" not in refusals.get("fragment", "") or \
             "eval_overflow_tolerance" not in refusals.get("pooling", ""):
         raise AssertionError(f"s3dis: a room over capacity was not refused: {refusals}")
+    return rooms
 
 
 def scannetpp_path(device, card, work: str):
@@ -2713,17 +3096,31 @@ def lora_path(device, card, work: str):
     del trainer, model
     release()
 
-    def adapters_at_work(model):
-        gen = torch.Generator().manual_seed(12)
-        with torch.no_grad():
-            for name, p in model.named_parameters():
-                if name.endswith(".lora_b"):
-                    p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+    card_vs_cpu_train(device, **lora_cvct())
 
+
+def _lora_adapters_at_work(model) -> None:
+    """`lora_b` drawn N(0, 0.5) (seed 12), so that every adapter has a gradient."""
+    import torch
+
+    gen = torch.Generator().manual_seed(12)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if name.endswith(".lora_b"):
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.5)
+
+
+def lora_cvct() -> dict:
+    """Phase 19's `card_vs_cpu_train` arguments: one small-depth LoRA step
+    (f32) with the adapters at work."""
+    from pointcept_tpu_torch.utils.config import Config
+
+    cfg = Config.fromfile(os.path.join(ROOT, LORA_CONFIG))
+    cfg.merge_from_dict(LORA_OPTIONS)
     small = dict(cfg.model, backbone=dict(cfg.model.backbone, enc_depths=(1,) * 5, drop_path=0.0,
                                           pool_capacity_factors=(0.5,) * 4))
     recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=cfg.param_dicts, scheduler=dict(cfg.scheduler))
-    card_vs_cpu_train(device, [(False, small, recipe)], phase="lora_card_vs_cpu_train", init=adapters_at_work)
+    return dict(cases=[(False, small, recipe)], phase="lora_card_vs_cpu_train", init=_lora_adapters_at_work)
 
 
 def street(seed: int, height: float) -> dict:
@@ -3095,34 +3492,54 @@ def kitti_path(device, card, work: str) -> dict:
     return result
 
 
-def _resume_bits(work: str, config: str, options: dict, first: str, tag: str, keys=("loss",)):
-    """The second epoch again through the training CLI, resumed from
-    `first`'s epoch_1.pth: its losses (`keys` of metrics.jsonl) against the
-    straight run's, bit for bit. The child shares the card with this
-    process, which holds at most its CUDA context and live tensors then."""
+_RESUMES = []  # the resume children started and not yet finished
+
+
+def start_resume(work: str, config: str, options: dict, first: str, tag: str, keys=("loss",)) -> dict:
+    """Start the second epoch again through the training CLI, resumed from
+    `first`'s epoch_1.pth, in a child process; `finish_resume` holds its
+    losses (`keys` of metrics.jsonl) against the straight run's, bit for
+    bit. The child is mostly start-up on the host (two steps on the card)
+    and runs beside the next phases, which share the card with it: those
+    phases' times include its two steps, and their peaks plus its own stay
+    under the card's memory (the callers pick such phases)."""
     import torch
 
     release()
-    parent_reserved = torch.cuda.memory_reserved()
-    rows = _metrics(first)
     resumed = os.path.join(work, f"{tag}_resumed")
     argv = [sys.executable, os.path.join(ROOT, "tools", "torch_port_train.py"), "--config-file",
             os.path.join(ROOT, config), "--options"]
-    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True,
+    # no evaluation after the resumed epoch: the check reads its losses alone
+    argv += [f"{k}={v}" for k, v in dict(options, save_path=resumed, resume=True, evaluate=False,
                                           weight=os.path.join(first, "model", "epoch_1.pth")).items()]
-    t0 = time.perf_counter()
-    proc = subprocess.run(argv, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    run = dict(proc=subprocess.Popen(argv, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True),
+               t0=time.perf_counter(), parent_reserved=torch.cuda.memory_reserved(), first=first,
+               resumed=resumed, tag=tag, keys=keys)
+    _RESUMES.append(run)
+    return run
+
+
+def finish_resume(run: dict) -> None:
+    """Wait for a `start_resume` child and check its losses."""
+    proc = run["proc"]
+    _RESUMES.remove(run)
+    try:
+        out, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
     if proc.returncode != 0:
-        print(proc.stdout[-4000:], file=sys.stderr)
-        print(proc.stderr[-4000:], file=sys.stderr)
+        print(out[-4000:], file=sys.stderr)
+        print(err[-4000:], file=sys.stderr)
         raise AssertionError(f"the training CLI exited with {proc.returncode} "
-                             f"(this process held {parent_reserved} bytes of the card)")
-    want = [[r[k] for k in keys] for r in rows if r["epoch"] == 2]
-    got = [[r[k] for k in keys] for r in _metrics(resumed)]
-    emit(f"{tag}_resume", seconds=time.perf_counter() - t0, parent_reserved_bytes=parent_reserved, losses=got,
-         first_run=want, bit_identical=got == want)
+                             f"(this process held {run['parent_reserved']} bytes of the card at its start)")
+    want = [[r[k] for k in run["keys"]] for r in _metrics(run["first"]) if r["epoch"] == 2]
+    got = [[r[k] for k in run["keys"]] for r in _metrics(run["resumed"])]
+    emit(f"{run['tag']}_resume", seconds=time.perf_counter() - run["t0"], parent_reserved_bytes=run["parent_reserved"],
+         losses=got, first_run=want, bit_identical=got == want)
     if got != want:
-        raise AssertionError(f"{tag}: resumed epoch 2 losses {got} differ from the first run's {want}")
+        raise AssertionError(f"{run['tag']}: resumed epoch 2 losses {got} differ from the first run's {want}")
 
 
 def nuscenes_path(device, card, work: str) -> dict:
@@ -3433,6 +3850,11 @@ def ppt_card_vs_cpu(device):
     ScanNet condition, within phase 8's bounds, on a scene of 8,192 points
     (1.7 m, phase 8's density; at phase 8's 16,384 its three steps took 54 s
     of the time limit)."""
+    card_vs_cpu_train(device, **ppt_cvct())
+
+
+def ppt_cvct() -> dict:
+    """Phase 24's `card_vs_cpu_train` arguments."""
     from pointcept_tpu_torch.utils.config import Config
 
     cfg = Config.fromfile(os.path.join(ROOT, PPT_CONFIG))
@@ -3440,8 +3862,8 @@ def ppt_card_vs_cpu(device):
                     block_engine_min_points=4096, block_capacity_factor=(1 / 8,) * 5, pool_capacity_factors=(0.5,) * 4)
     model = dict(cfg.model, backbone=backbone)
     recipe = dict(optimizer=dict(cfg.optimizer), param_dicts=list(cfg.param_dicts), scheduler=dict(cfg.scheduler))
-    card_vs_cpu_train(device, [(False, model, recipe)], phase="ppt_card_vs_cpu_train", capacity=8192, extent=1.7,
-                      condition="ScanNet")
+    return dict(cases=[(False, model, recipe)], phase="ppt_card_vs_cpu_train", capacity=8192, extent=1.7,
+                condition="ScanNet")
 
 
 def _val_scene5(work: str) -> str:
@@ -3465,7 +3887,6 @@ def insseg_ptv3_path(device, card, work: str) -> dict:
     import torch
 
     from pointcept_tpu_torch.models import apply_amp_policy, build_model
-    from pointcept_tpu_torch.utils.config import Config
 
     data_root = os.path.join(work, "scannet")
     options = dict(DOWNSTREAM_OPTIONS, **INSSEG_POOL_OPTIONS,
@@ -3503,14 +3924,22 @@ def insseg_ptv3_path(device, card, work: str) -> dict:
     insseg_tester(device, card, work, INSSEG_CONFIG, os.path.join(work, "insseg", "model", "model_last.pth"),
                   "insseg_test")
 
+    card_vs_cpu_train(device, **insseg_cvct())
+    return launches
+
+
+def insseg_cvct() -> dict:
+    """Phase 26's `card_vs_cpu_train` arguments: one small-depth PointGroup
+    step (f32)."""
+    from pointcept_tpu_torch.utils.config import Config
+
     base = Config.fromfile(os.path.join(ROOT, INSSEG_CONFIG))
     backbone = dict(base.model.backbone, enc_depths=(1,) * 5, dec_depths=(1,) * 4, drop_path=0.0, amp=False,
                     pool_capacity_factors=(0.5,) * 4)
     recipe = dict(optimizer=dict(base.optimizer), param_dicts=list(base.param_dicts), scheduler=dict(base.scheduler))
     # at 4,096 points (1.2 m, as SpUNet's): the time limit's room for phases 29-31
-    card_vs_cpu_train(device, [(False, dict(base.model, backbone=backbone), recipe)], phase="insseg_card_vs_cpu_train",
-                      capacity=4096, extent=1.2, instances=True)
-    return launches
+    return dict(cases=[(False, dict(base.model, backbone=backbone), recipe)], phase="insseg_card_vs_cpu_train",
+                capacity=4096, extent=1.2, instances=True)
 
 
 def insseg_tester(device, card, work: str, config: str, weight: str, phase: str, data_root=None) -> dict:
@@ -3546,7 +3975,7 @@ def insseg_tester(device, card, work: str, config: str, weight: str, phase: str,
 def insseg_overfit_path(device, card, work: str) -> dict:
     """Phase 27: the SpUNet PointGroup config's own model, optimizer,
     schedule and transforms on one synthetic scene (train and val its one
-    scene) for INSSEG_OVERFIT_OPTIONS' 150 steps, then InsSegEvaluator on
+    scene) for INSSEG_OVERFIT_OPTIONS' steps, then InsSegEvaluator on
     it: the limit is AP50 > INSSEG_OVERFIT_AP50 on the scene it trained on
     (the offsets, the clustering and the matching working together)."""
     import numpy as np
@@ -3594,8 +4023,8 @@ def batch_stats_ap(trainer) -> dict:
     """The evaluator's AP again, on a copy of the model whose norms take
     each val batch's own statistics (train mode, no gradient): what the
     offsets, the clustering and the matching give apart from the running
-    statistics, which after 150 steps at the config's momentum 0.01 still
-    hold 0.99^150 = 22% of their initial values."""
+    statistics, which after 75 steps at the config's momentum 0.01 still
+    hold 0.99^75 = 47% of their initial values."""
     import copy
     from types import SimpleNamespace
 
@@ -3751,6 +4180,18 @@ def cls_modelnet_path(device, card, work: str) -> dict:
     options = dict(CLS_OPTIONS, **{f"data.{s}.data_root": root for s in ("train", "val", "test")})
     emit("cls_setup", config=CLS_CONFIG, options=options, clouds={k: len(v) for k, v in splits.items()},
          file_points=CLS_FILE_POINTS, write_seconds=written)
+    # one small-depth step (one block a stage, f32) on 4 clouds, card against
+    # CPU: its CPU side queued now that the clouds exist
+    run_cfg = Config.fromfile(os.path.join(ROOT, CLS_CONFIG))
+    run_cfg.merge_from_dict(options)
+    small = dict(base.model, backbone=dict(base.model.backbone, enc_depths=(1,) * 5, drop_path=0.0,
+                                           pool_capacity_factors=CLS_OPTIONS["model.backbone.pool_capacity_factors"]))
+    recipe = dict(optimizer=dict(base.optimizer), param_dicts=None,
+                  scheduler=dict(base.scheduler, base_lr=base.optimizer.lr))
+    train_ds = build_dataset(dict(run_cfg.data.train))
+    cvct = dict(cases=[(False, small, recipe)], phase="cls_card_vs_cpu_train",
+                batch=point_collate_fn([train_ds[i] for i in range(4)], capacity=4096))
+    cpu_prefetch(card_vs_cpu_train_jobs(**cvct))
     trainer, steps, evals, launches, peak, seconds = _run_config(device, work, CLS_CONFIG, options, "cls_modelnet")
     cfg, model = trainer.cfg, trainer.model
     initial = build_model(apply_amp_policy(dict(cfg.model), cfg.enable_amp), device="cpu",
@@ -3777,7 +4218,8 @@ def cls_modelnet_path(device, card, work: str) -> dict:
         raise AssertionError(f"cls_modelnet: geometry {geometry}, {dropped} points dropped")
     del trainer, model
     release()
-    _resume_bits(work, CLS_CONFIG, options, os.path.join(work, "cls_modelnet"), "cls_modelnet")
+    # the resumed epoch (~9 GB) runs beside the testers below
+    resume = start_resume(work, CLS_CONFIG, options, os.path.join(work, "cls_modelnet"), "cls_modelnet")
 
     weight = os.path.join(work, "cls_modelnet", "model", "model_last.pth")
     test_options = dict(options, weight=weight, num_worker=0)
@@ -3794,13 +4236,8 @@ def cls_modelnet_path(device, card, work: str) -> dict:
         del tester
         release()
 
-    # one small-depth step (one block a stage, f32) on 4 clouds, card against CPU
-    small = dict(base.model, backbone=dict(base.model.backbone, enc_depths=(1,) * 5, drop_path=0.0,
-                                           pool_capacity_factors=CLS_OPTIONS["model.backbone.pool_capacity_factors"]))
-    recipe = dict(optimizer=dict(base.optimizer), param_dicts=None,
-                  scheduler=dict(base.scheduler, base_lr=base.optimizer.lr))
-    card_vs_cpu_train(device, [(False, small, recipe)], phase="cls_card_vs_cpu_train",
-                      batch=point_collate_fn([ds[i] for i in range(4)], capacity=4096))
+    card_vs_cpu_train(device, **cvct)
+    finish_resume(resume)
     return launches
 
 
@@ -4093,18 +4530,10 @@ def ptv2_path(device, card, work: str) -> dict:
     its evaluation), the step checks of `ptv2_step_checks`, every trainable
     tensor moved; then its test section through the test CLI's
     `main_worker` on one val scene (every point voted by every view)."""
-    import torch
-
-    from pointcept_tpu_torch.models import apply_amp_policy, build_model
-
     data_root = os.path.join(work, "scannet")
     options = dict(DOWNSTREAM_OPTIONS, **{"data.train.data_root": data_root, "data.val.data_root": data_root})
     trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, PTV2_CONFIG, options, "ptv2")
-    cfg = trainer.cfg
-    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)), device=device,
-                          generator=torch.Generator().manual_seed(cfg.shared_seed))
-    same, moved = _moved(trainer.model, {n: p.detach().cpu() for n, p in initial.named_parameters()})
-    del initial
+    same, moved = _moved_from_init(trainer, device)
     checks = _quiet(lambda: ptv2_step_checks(trainer, device), os.path.join(work, "trainer.log"))
     times = _step_times(steps)
     emit("ptv2", config=PTV2_CONFIG, options=options, card=card, seconds=seconds,
@@ -4136,14 +4565,22 @@ def ptv2_card_vs_cpu(device):
     """Phase 33: PT-v2m2 and PT-v2m1 (grouped linear, position multiplier)
     at one block a stage, f32: the logits, then one train step (loss and
     every gradient), on the card against the CPU, on the PTV2_SCENE scene."""
+    for logits, train in ptv2_cvc():
+        card_vs_cpu(device, **logits)
+        card_vs_cpu_train(device, **train)
+
+
+def ptv2_cvc() -> list:
+    """Phase 33's (`card_vs_cpu`, `card_vs_cpu_train`) arguments, m2 then m1."""
     capacity, extent = PTV2_SCENE
-    cases = [(False, dict(type="DefaultSegmentor", backbone=dict(PTV2_SMALL, **kw),
-                          criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)]))
-             for kw in ({}, dict(type="PT-v2m1", pe_multiplier=True))]
-    for (amp, cfg), tag in zip(cases, ("m2", "m1")):
-        card_vs_cpu(device, [(amp, cfg)], phase=f"ptv2_{tag}_card_vs_cpu", capacity=capacity, extent=extent)
-        card_vs_cpu_train(device, [(amp, cfg, PTV2_RECIPE)], phase=f"ptv2_{tag}_card_vs_cpu_train",
-                          capacity=capacity, extent=extent, vanishing_below=1e-4)
+    out = []
+    for kw, tag in (({}, "m2"), (dict(type="PT-v2m1", pe_multiplier=True), "m1")):
+        cfg = dict(type="DefaultSegmentor", backbone=dict(PTV2_SMALL, **kw),
+                   criteria=[dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1)])
+        out.append((dict(cases=[(False, cfg)], phase=f"ptv2_{tag}_card_vs_cpu", capacity=capacity, extent=extent),
+                    dict(cases=[(False, cfg, PTV2_RECIPE)], phase=f"ptv2_{tag}_card_vs_cpu_train", capacity=capacity,
+                         extent=extent, vanishing_below=1e-4)))
+    return out
 
 
 def cac_path(device, card, work: str) -> dict:
@@ -4170,6 +4607,195 @@ def cac_path(device, card, work: str) -> dict:
     return out
 
 
+def _moved_from_init(trainer, device) -> tuple:
+    """(names of the trainer's parameters still at their seeded init, of
+    those that moved): the config's model built again from its seed."""
+    import torch
+
+    from pointcept_tpu_torch.models import apply_amp_policy, build_model
+
+    cfg = trainer.cfg
+    initial = build_model(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)), device=device,
+                          generator=torch.Generator().manual_seed(cfg.shared_seed))
+    same, moved = _moved(trainer.model, {n: p.detach().cpu() for n, p in initial.named_parameters()})
+    del initial
+    return same, moved
+
+
+def rpe_path(device, card, work: str, rooms: dict) -> dict:
+    """Phase 35: the S3DIS RPE config through the training CLI's
+    `main_worker` on phase 17's offices (`rooms`: their voxel counts) at
+    phase 14's cuts: a later step's ms, data time and peak; 22 biased
+    attention forwards and backwards a step on their own counters and no
+    unbiased launch; the fill and the take-back launched (the block
+    engine); every tensor moved, each block's `rpe_table` among them;
+    nothing dropped at any pooling. Returns the launches."""
+    root = os.path.join(work, "s3dis")
+    val = rooms["Area_5/office_1"]["2cm"]
+    options = dict(RPE_OPTIONS, point_capacity_val=-(-val // 4096) * 4096 + 4096,
+                   **{"data.train.data_root": root, "data.val.data_root": root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, RPE_CONFIG, options, "rpe",
+                                                                  RPE_KERNELS)
+    same, moved = _moved_from_init(trainer, device)
+    tables = [n for n, _ in trainer.model.named_parameters() if n.endswith("attn.rpe.rpe_table")]
+    bb = trainer.cfg.model.backbone
+    blocks = sum(bb.enc_depths) + sum(bb.dec_depths)
+    fwd = (launches["patch_attention_rpe"] - len(evals["batch_ms"]) * blocks) / len(steps)
+    bwd = launches["patch_attention_rpe_bwd"] / len(steps)
+    emit("rpe", config=RPE_CONFIG, options=options, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+         losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9,
+         val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches,
+         rpe_fwd_per_step=fwd, rpe_bwd_per_step=bwd, rpe_tables=len(tables),
+         rpe_tables_moved=sum(n in moved for n in tables), unchanged_parameters=same)
+    if fwd != blocks or bwd != blocks or blocks != 22:
+        raise AssertionError(f"rpe: {fwd} biased attention forwards and {bwd} backwards a step, {blocks} blocks")
+    if launches["patch_attention"] or launches["patch_attention_bwd"]:
+        raise AssertionError(f"rpe: unbiased attention launched: {launches}")
+    if same or len(tables) != blocks:
+        raise AssertionError(f"rpe: {len(same)} parameters not updated, e.g. {same[:3]}; {len(tables)} tables")
+    del trainer
+    release()
+    return launches
+
+
+def litept_path(device, card, work: str) -> dict:
+    """Phases 36-37: LitePT-v1 at the class defaults through the ScanNet
+    LitePT config's recipe and the training CLI's `main_worker` on phase
+    10's scenes at phase 14's cuts: a later step's ms, data time and peak,
+    8 attention forwards and backwards a step (head dim 18), every tensor
+    moved, nothing dropped at any pooling; then its test section through
+    the test CLI's `main_worker` on one val scene (every point voted by
+    every view). Returns the launches of the train run."""
+    data_root = os.path.join(work, "scannet")
+    # (a fresh copy each time: parsing a config pops the `_delete_` of its options)
+    options = dict(DOWNSTREAM_OPTIONS, **copy.deepcopy(LITEPT_OPTIONS),
+                   **{"data.train.data_root": data_root, "data.val.data_root": data_root})
+    trainer, steps, evals, launches, peak, seconds = _run_checked(device, work, LITEPT_CONFIG, options, "litept",
+                                                                  ("patch_attention", "patch_attention_bwd"))
+    same, moved = _moved_from_init(trainer, device)
+    bb = trainer.model.backbone
+    blocks = sum(1 for m in bb.modules() if hasattr(m, "attn"))
+    fwd, bwd = _attention_per_step(launches, len(steps), evals, blocks)
+    emit("litept", config=LITEPT_CONFIG, options=options, card=card, seconds=seconds,
+         parameters=sum(p.numel() for p in trainer.model.parameters()), steps=len(steps),
+         losses=[st["loss"] for st in steps], **_step_times(steps), peak_memory_bytes=peak, peak_gb=peak / 1e9,
+         val_mIoU=evals["mIoU"], eval_ms_per_scene=evals["batch_ms"], launches=launches,
+         attention_fwd_per_step=fwd, attention_bwd_per_step=bwd, head_dims=sorted({
+             m.attn.qkv.in_features // m.attn.num_heads for m in bb.modules() if hasattr(m, "attn")}),
+         unchanged_parameters=same, optimizer_groups=len(trainer.optimizer.param_groups))
+    if fwd != blocks or bwd != blocks or blocks != 8:
+        raise AssertionError(f"litept: {fwd} attention forwards and {bwd} backwards a step, {blocks} blocks")
+    if same:
+        raise AssertionError(f"litept: {len(same)} parameters not updated, e.g. {same[:3]}")
+    del trainer
+    release()
+
+    test_root = os.path.join(work, "litept_test_data")
+    raw = write_scannet_scene(test_root, "val", int(PROBE_TEST_SCENE[5:9]), LITEPT_TEST_POINTS)
+    options = dict(TESTER_OPTIONS, **copy.deepcopy(LITEPT_OPTIONS), point_capacity_test=LITEPT_TEST_CAPACITY,
+                   num_worker=0,
+                   weight=os.path.join(work, "litept", "model", "model_last.pth"),
+                   **{"data.test.data_root": test_root})
+    test_scene(device, card, work, "litept_test", LITEPT_CONFIG, PROBE_TEST_SCENE, raw, options,
+               kernels=("patch_attention",))
+    return launches
+
+
+def small_card_vs_cpu(device):
+    """Phase 38: LitePT at the class widths and PT-v3m1 with RPE at patch
+    128, one block a stage, f32: the logits, then one train step (loss and
+    every gradient), on the card against the CPU on a SMALL_SCENE scene."""
+    for logits, train in small_cvc():
+        card_vs_cpu(device, **logits)
+        card_vs_cpu_train(device, **train)
+
+
+def small_cvc() -> list:
+    """Phase 38's (`card_vs_cpu`, `card_vs_cpu_train`) arguments, LitePT then RPE."""
+    capacity, extent = SMALL_SCENE
+    criteria = [dict(type="CrossEntropyLoss", loss_weight=1.0, ignore_index=-1),
+                dict(type="LovaszLoss", mode="multiclass", loss_weight=1.0, ignore_index=-1)]
+    litept = dict(MODEL, backbone_out_channels=72, backbone=LITEPT_SMALL, criteria=criteria)
+    rpe = dict(MODEL, backbone=dict(_small_ptv3(False), enable_rpe=True, enc_patch_size=(128,) * 5,
+                                    dec_patch_size=(128,) * 4, drop_path=0.0, pool_capacity_factors=(1.0,) * 4,
+                                    conv_engine="gather"))
+    rpe_train = dict(TRAIN_MODEL, backbone=dict(rpe["backbone"], shuffle_orders=True))
+    return [(dict(cases=[(False, cfg)], phase=f"{tag}_card_vs_cpu", capacity=capacity, extent=extent),
+             dict(cases=[(False, train_cfg, PTV3_RECIPE)], phase=f"{tag}_card_vs_cpu_train", capacity=capacity,
+                  extent=extent))
+            for tag, cfg, train_cfg in (("litept", litept, litept), ("rpe", rpe, rpe_train))]
+
+
+def _phases(device, card, build) -> tuple:
+    """Phases 2-38, each timed by `_phase_runner`; returns what the kernels
+    line reads."""
+    build_seconds = _build(build)
+    phase = _phase_runner()
+    kernels = phase("3-4 kernels", kernel_cases, device, scene(1000))
+    phase("5 serving", main_path, device, card)
+    phase("6 card_vs_cpu", card_vs_cpu, device)
+    launches, bare_step_ms = phase("7 train", train_path, device, card)
+    # at a quarter of the scene (4,096 points, 1.2 m, the density of 2.4 m at
+    # 16,384), as SpUNet's and phase 26's: the time limit's room for phases 29-31
+    # (8,192 at 1.7 m before)
+    phase("8 card_vs_cpu_train", card_vs_cpu_train, device, **PHASE8_CVCT)
+
+    phase("9 spunet_serving", main_path, device, card, SPUNET_MODEL, SPUNET_EVAL_KERNELS, phase="spunet_serving")
+    phase("9 spunet_card_vs_cpu", card_vs_cpu, device, **SPUNET_CVC)
+    spunet, _ = phase("9 spunet_train", train_path, device, card, SPUNET_MODEL, SPUNET_RECIPE,
+                      SPUNET_TRAIN_KERNELS, phase="spunet_train_path")
+    phase("9 spunet_card_vs_cpu_train", card_vs_cpu_train, device, **SPUNET_CVCT)
+    launches.update({name: spunet[name] for name in ("tap_conv_fwd", "tap_conv_dw")})
+
+    work = os.path.join(ROOT, "build", "chip_smoke_trainer")
+    shutil.rmtree(work, ignore_errors=True)
+    try:
+        trainer_resume = phase("10 trainer", trainer_path, device, card, work, bare_step_ms)
+        phase("11 tester", tester_path, device, card, work)
+        phase("12 overfit", overfit_runs, device, card, work)
+        phase("10 trainer_resume (beside 11-12)", finish_resume, trainer_resume)
+        sonata_resume = phase("13 sonata", sonata_path, device, card, work)
+        phase("14 downstream", downstream_path, device, card, work)
+        utonia = phase("15 utonia", utonia_path, device, card, work)
+        phase("16 scannet200", scannet200_path, device, card, work)
+        sonata_resume = start_resume(*sonata_resume)
+        rooms = phase("17 s3dis", s3dis_path, device, card, work)
+        phase("13 sonata_resume (beside 17)", finish_resume, sonata_resume)
+        phase("18 scannetpp", scannetpp_path, device, card, work)
+        phase("19 lora", lora_path, device, card, work)
+        outdoor = [phase("20 kitti", kitti_path, device, card, work),
+                   phase("21 nuscenes", nuscenes_path, device, card, work),
+                   phase("22 waymo", waymo_path, device, card, work)]
+        probes = phase("23 outdoor_probes", outdoor_probe_path, device, card, work)
+        ppt = phase("24 ppt_extreme", ppt_path, device, card, work, PPT_CONFIG, "ppt_extreme", s3d_rooms=4,
+                    test=True)
+        phase("24 ppt_card_vs_cpu", ppt_card_vs_cpu, device)
+        phase("25 ppt_spunet", ppt_path, device, card, work, PPT_SPUNET_CONFIG, "ppt_spunet", s3d_rooms=3,
+              test=False)
+        insseg = phase("26 insseg", insseg_ptv3_path, device, card, work)
+        phase("27 insseg_overfit", insseg_overfit_path, device, card, work)
+        insseg_probe = phase("28 insseg_probe", insseg_probe_path, device, card, work)
+        cls = phase("29 cls_modelnet", cls_modelnet_path, device, card, work)
+        tiny = phase("30 cls_tiny", cls_tiny_path, device, card, work)
+        partseg = phase("31 partseg", partseg_path, device, card, work)
+        phase("32 ptv2", ptv2_path, device, card, work)
+        phase("33 ptv2_card_vs_cpu", ptv2_card_vs_cpu, device)
+        phase("34 cac", cac_path, device, card, work)
+        rpe = phase("35 rpe", rpe_path, device, card, work, rooms)
+        litept = phase("36-37 litept", litept_path, device, card, work)
+        phase("38 small_card_vs_cpu", small_card_vs_cpu, device)
+    finally:
+        for run in list(_RESUMES):  # a phase failed: its resume children go
+            run["proc"].kill()
+            run["proc"].communicate()
+            _RESUMES.remove(run)
+        shutil.rmtree(work, ignore_errors=True)
+    emit("phase_seconds_all", seconds=phase.seconds, phases_1_34=sum(
+        v for k, v in phase.seconds.items() if int(k.split()[0].split("-")[0]) <= 34) + build_seconds)
+    return kernels, launches, utonia, probes, partseg, tiny, outdoor, ppt, insseg, insseg_probe, cls, rpe, litept
+
+
 def main() -> int:
     import torch
 
@@ -4185,66 +4811,46 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = nvidia_smi("name,power.limit")
     cap = torch.cuda.get_device_capability(device)
-    emit("device", torch=torch.__version__, cuda=torch.version.cuda, card=card, capability=list(cap))
+    cores = len(os.sched_getaffinity(0))
+    emit("device", torch=torch.__version__, cuda=torch.version.cuda, card=card, capability=list(cap), cores=cores,
+         torch_threads=torch.get_num_threads(), cpu_worker_threads=max(1, cores // 2))
     if cap != (9, 0):
         raise RuntimeError(f"needs a Hopper card (capability 9.0), got {cap}")
 
+    # the CPU sides of the card-vs-CPU phases, ahead of them in a worker of
+    # half the cores, from before the build (they need no kernel)
+    start_cpu_worker(max(1, cores // 2))
+    finished = False
+    try:
+        cpu_prefetch(static_cpu_jobs())
+        out = _phases(device, card, build)
+        finished = True
+    finally:
+        stop_cpu_worker(finished)
+    kernels, launches, utonia, probes, partseg, tiny, outdoor, ppt, insseg, insseg_probe, cls, rpe, litept = out
+    _kernels_line(card, kernels, launches, utonia, probes, partseg, tiny, outdoor, ppt, insseg, insseg_probe, cls,
+                  rpe, litept)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                            "count": torch.cuda.device_count()}}))
+    return 0
+
+
+def _build(build) -> float:
+    """Phase 2: every kernel library, one nvcc a source in parallel; returns
+    the seconds since the start."""
     t0 = time.perf_counter()
-    logs = build.build_all(["patch_attention", "patch_attention_bwd", "block_fill", "take_back", "tap_conv"])
+    logs = build.build_all(["patch_attention", "patch_attention_bwd", "patch_attention_rpe", "patch_attention_bwd_rpe",
+                            "block_fill", "take_back", "tap_conv"])
     build.load_host("clustering")  # PointGroup's host BFS (g++), built before any phase times it
     ptxas = {n: [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
              for n, log in logs.items()}
     emit("build", seconds=time.perf_counter() - t0, ptxas=ptxas)
+    return time.perf_counter() - _START
 
-    kernels = kernel_cases(device, scene(1000))
-    main_path(device, card)
-    card_vs_cpu(device)
-    launches, bare_step_ms = train_path(device, card)
-    # at a quarter of the scene (4,096 points, 1.2 m, the density of 2.4 m at
-    # 16,384), as SpUNet's and phase 26's: the time limit's room for phases 29-31
-    # (8,192 at 1.7 m before)
-    card_vs_cpu_train(device, capacity=4096, extent=1.2)
 
-    main_path(device, card, SPUNET_MODEL, SPUNET_EVAL_KERNELS, phase="spunet_serving")
-    card_vs_cpu(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL))], phase="spunet_card_vs_cpu")
-    spunet, _ = train_path(device, card, SPUNET_MODEL, SPUNET_RECIPE, SPUNET_TRAIN_KERNELS,
-                           phase="spunet_train_path")
-    # at a quarter of the scene (4,096 points, 1.2 m): its CPU steps took 112 s of the time limit at
-    # 16,384 and 27-62 s at 8,192
-    card_vs_cpu_train(device, [(False, dict(SPUNET_MODEL, backbone=SPUNET_SMALL), SPUNET_RECIPE)],
-                      phase="spunet_card_vs_cpu_train", capacity=4096, extent=1.2)
-    launches.update({name: spunet[name] for name in ("tap_conv_fwd", "tap_conv_dw")})
-
-    work = os.path.join(ROOT, "build", "chip_smoke_trainer")
-    shutil.rmtree(work, ignore_errors=True)
-    try:
-        trainer_path(device, card, work, bare_step_ms)
-        tester_path(device, card, work)
-        overfit_runs(device, card, work)
-        sonata_path(device, card, work)
-        downstream_path(device, card, work)
-        utonia = utonia_path(device, card, work)
-        scannet200_path(device, card, work)
-        s3dis_path(device, card, work)
-        scannetpp_path(device, card, work)
-        lora_path(device, card, work)
-        outdoor = [kitti_path(device, card, work), nuscenes_path(device, card, work), waymo_path(device, card, work)]
-        probes = outdoor_probe_path(device, card, work)
-        ppt = ppt_path(device, card, work, PPT_CONFIG, "ppt_extreme", s3d_rooms=4, test=True)
-        ppt_card_vs_cpu(device)
-        ppt_path(device, card, work, PPT_SPUNET_CONFIG, "ppt_spunet", s3d_rooms=3, test=False)
-        insseg = insseg_ptv3_path(device, card, work)
-        insseg_overfit_path(device, card, work)
-        insseg_probe = insseg_probe_path(device, card, work)
-        cls = cls_modelnet_path(device, card, work)
-        tiny = cls_tiny_path(device, card, work)
-        partseg = partseg_path(device, card, work)
-        ptv2_path(device, card, work)
-        ptv2_card_vs_cpu(device)
-        cac_path(device, card, work)
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
-
+def _kernels_line(card, kernels, launches, utonia, probes, partseg, tiny, outdoor, ppt, insseg, insseg_probe, cls,
+                  rpe, litept) -> None:
+    """The {"kernels": [...]} line (phase 39), after the card's name and power limit."""
     sources = {"patch_attention": "pointcept_tpu_torch/csrc/patch_attention.cu",
                "patch_attention_bwd": "pointcept_tpu_torch/csrc/patch_attention_bwd.cu",
                "block_fill": "pointcept_tpu_torch/csrc/block_fill.cu",
@@ -4279,6 +4885,15 @@ def main() -> int:
                            + ppt[name] + insseg[name] + insseg_probe[name] + cls[name])
     for name in ("block_fill", "take_back"):
         launches[name] += ppt[name]
+    # LitePT's attention stages at D = 18 (phase 36)
+    for name in ("patch_attention", "patch_attention_bwd"):
+        launches[f"{name}[D=18]"] += litept[name]
+    # the biased (RPE) rows: the same two sources with the score bias, launched by phase 35
+    for name, base, source in (("patch_attention_rpe", "patch_attention", "patch_attention_rpe.cu"),
+                               ("patch_attention_rpe_bwd", "patch_attention_bwd", "patch_attention_bwd_rpe.cu")):
+        sources[name] = f"pointcept_tpu_torch/csrc/{source}"
+        replaces[name] = replaces[base] + " with a score bias, which the TPU kernels do not take"
+        launches[name] = rpe[name]
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name], "replaces": replaces[name],
          "launches": launches[name], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
@@ -4288,9 +4903,6 @@ def main() -> int:
     ]}
     print(card)
     print(json.dumps(line))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                                            "count": torch.cuda.device_count()}}))
-    return 0
 
 
 if __name__ == "__main__":

@@ -43,17 +43,51 @@
 // For the backward (csrc/patch_attention_bwd.cu) it also writes, when asked,
 // each row's f32 max m and denominator l ([nP, H, K] each).
 //
+// With a score bias (PT-v3m1's relative position encoding, RPE) the block
+// also stages its K keys' grid coordinates (int4 rows, 16 bytes a key) and
+// its head's column of the f32 table [3 * (2b + 1), H], scaled by log2(e),
+// in shared memory. Each score then gets
+//   t[clip(dx) + b] + t[(2b+1) + clip(dy) + b] + t[2(2b+1) + clip(dz) + b],
+// (dx, dy, dz) the query's coordinate minus the key's, clipped to [-b, b],
+// added after the scale: the softmax runs over s * scale + bias, in log2
+// units (u = s * scale * log2e + bias * log2e), and m is the row max of the
+// biased scores. The query rows' coordinates sit in registers. The bias is
+// recomputed in both passes (three table reads a score) and never written
+// to device memory: at K = 128 a [nP, H, K, K] f32 bias of two 262,144-row
+// scenes would be 268 MB a block.
+//
 // Grid: one block per (patch, head, tile of 256 or 128 query rows); 8 warps.
 
 #include <math.h>
 
 #include "attention_common.cuh"
 
+// PATCH_ATTENTION_RPE = 1 (set by patch_attention_rpe.cu, which includes this
+// file) builds the score-biased instances in place of the unbiased ones: a
+// library of their own, which nvcc compiles beside this one.
+#ifndef PATCH_ATTENTION_RPE
+#define PATCH_ATTENTION_RPE 0
+#endif
+
 namespace {
 
 using namespace attn;
 
 constexpr int kWarps = 8;
+
+// the staged RPE of a block: the keys' coordinates and the head's table
+// rows, each axis's pointer at its bin 0 (so a clipped difference indexes it)
+struct Rpe {
+  const int4* kc;
+  const float* tx;
+  const float* ty;
+  const float* tz;
+  int b;
+  __device__ __forceinline__ float operator()(const int3& q, const int4& k) const {
+    return tx[min(max(q.x - k.x, -b), b)] + ty[min(max(q.y - k.y, -b), b)] +
+           tz[min(max(q.z - k.z, -b), b)];
+  }
+};
 
 template <int D, int MT>
 __device__ __forceinline__ void scores(float (&s)[MT][2][4], const uint32_t (&qa)[MT][kSteps<D>][4],
@@ -68,11 +102,14 @@ __device__ __forceinline__ void scores(float (&s)[MT][2][4], const uint32_t (&qa
     }
 }
 
-// MT m16 tiles of query rows a warp: a block holds 8 * 16 * MT rows
-template <int D, int MT>
-__global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_fwd_kernel(
+// MT m16 tiles of query rows a warp: a block holds 8 * 16 * MT rows. BIAS:
+// the RPE score bias from `table` [3 * (2 * bnd + 1), H] f32 and `coords`
+// [nP, K, 3] int32 (the slots' grid coordinates).
+template <int D, int MT, bool BIAS>
+__global__ void __launch_bounds__(32 * kWarps, D == 16 ? (BIAS ? 2 : 3) : 2) patch_attention_fwd_kernel(
     const __nv_bfloat16* __restrict__ qkv, __nv_bfloat16* __restrict__ out,
-    float* __restrict__ m_out, float* __restrict__ l_out, int K, int C, int H, float scale) {
+    float* __restrict__ m_out, float* __restrict__ l_out, int K, int C, int H, float scale,
+    const float* __restrict__ table, const int* __restrict__ coords, int bnd) {
   constexpr int kWarpRows = 16 * MT;
   constexpr int kRows = kWarpRows * kWarps;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -96,6 +133,29 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   const int r0 = tile * kRows + warp * kWarpRows;
   const bool active = r0 < K;  // K % 16 == 0: a later m16 tile may lie past K
 
+  // RPE: the keys' coordinates and the head's table (x log2e) in shared
+  // memory, made visible by the barrier before pass 1; the query rows'
+  // coordinates (rows g, g + 8 of each m16 tile, clamped as q is) in registers
+  Rpe rpe{};
+  int3 qc[MT][2];
+  if constexpr (BIAS) {
+    const int nb = 2 * bnd + 1;
+    int4* kc = reinterpret_cast<int4*>(smem + 4 * (size_t)K * D);
+    float* tab = reinterpret_cast<float*>(kc + K);
+    const int* crd = coords + p * K * 3;
+    for (int i = threadIdx.x; i < K; i += blockDim.x)
+      kc[i] = make_int4(crd[3 * i], crd[3 * i + 1], crd[3 * i + 2], 0);
+    for (int i = threadIdx.x; i < 3 * nb; i += blockDim.x) tab[i] = table[(size_t)i * H + h] * kLog2e;
+    rpe = Rpe{kc, tab + bnd, tab + nb + bnd, tab + 2 * nb + bnd, bnd};
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int* q = crd + 3 * min(r0 + 16 * mt + g + 8 * i, K - 1);
+        qc[mt][i] = make_int3(q[0], q[1], q[2]);
+      }
+  }
+
   // A fragments of q (rows past K repeat row K - 1 and are not stored)
   uint32_t qa[MT][kSteps<D>][4];
   if (active) {
@@ -110,19 +170,35 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   for (int mt = 0; mt < MT; ++mt) mx[mt][0] = mx[mt][1] = -INFINITY;
   cp_async_wait<1>();
   __syncthreads();
+  const float c = scale * kLog2e;
   if (active) {
     for (int k0 = 0; k0 < K; k0 += 16) {
       uint32_t kb[2][kSteps<D>][2];
       frag_b_rows<D>(kb, kbase, k0, lane);
       float s[MT][2][4];
       scores<D, MT>(s, qa, kb);
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
+      if constexpr (BIAS) {
+        // the biased scores in log2 units; keys k0 + 8n + 2t, +1
 #pragma unroll
         for (int n = 0; n < 2; ++n) {
-          mx[mt][0] = fmaxf(mx[mt][0], fmaxf(s[mt][n][0], s[mt][n][1]));
-          mx[mt][1] = fmaxf(mx[mt][1], fmaxf(s[mt][n][2], s[mt][n][3]));
+          const int4 k_0 = rpe.kc[k0 + 8 * n + 2 * t], k_1 = rpe.kc[k0 + 8 * n + 2 * t + 1];
+#pragma unroll
+          for (int mt = 0; mt < MT; ++mt) {
+            mx[mt][0] = fmaxf(mx[mt][0], fmaxf(fmaf(s[mt][n][0], c, rpe(qc[mt][0], k_0)),
+                                               fmaf(s[mt][n][1], c, rpe(qc[mt][0], k_1))));
+            mx[mt][1] = fmaxf(mx[mt][1], fmaxf(fmaf(s[mt][n][2], c, rpe(qc[mt][1], k_0)),
+                                               fmaf(s[mt][n][3], c, rpe(qc[mt][1], k_1))));
+          }
         }
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            mx[mt][0] = fmaxf(mx[mt][0], fmaxf(s[mt][n][0], s[mt][n][1]));
+            mx[mt][1] = fmaxf(mx[mt][1], fmaxf(s[mt][n][2], s[mt][n][3]));
+          }
+      }
     }
   }
   float m[MT][2], mb[MT][2];
@@ -133,10 +209,14 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
       float v = mx[mt][i];
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
       v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-      m[mt][i] = v * scale;     // the row max of s * scale
-      mb[mt][i] = m[mt][i] * kLog2e;
+      if constexpr (BIAS) {
+        mb[mt][i] = v;  // the row max of the biased scores, log2 units
+        m[mt][i] = v * (1.f / kLog2e);
+      } else {
+        m[mt][i] = v * scale;     // the row max of s * scale
+        mb[mt][i] = m[mt][i] * kLog2e;
+      }
     }
-  const float c = scale * kLog2e;
 
   // pass 2: p = exp(s * scale - m), the sum of the unrounded p, o += bf16(p) v
   float acc[MT][D / 8][4];
@@ -157,15 +237,30 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
     frag_b_cols<D>(vb, vbase, k0, lane);
     float s[MT][2][4];
     scores<D, MT>(s, qa, kb);
+    int4 kc2[2][2];  // RPE: the coordinates of keys k0 + 8n + 2t, +1
+    if constexpr (BIAS) {
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        kc2[n][0] = rpe.kc[k0 + 8 * n + 2 * t];
+        kc2[n][1] = rpe.kc[k0 + 8 * n + 2 * t + 1];
+      }
+    }
 #pragma unroll
     for (int mt = 0; mt < MT; ++mt) {
       uint32_t pa[4];
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
-        const float e0 = ex2(fmaf(s[mt][n][0], c, -mb[mt][0]));
-        const float e1 = ex2(fmaf(s[mt][n][1], c, -mb[mt][0]));
-        const float e2 = ex2(fmaf(s[mt][n][2], c, -mb[mt][1]));
-        const float e3 = ex2(fmaf(s[mt][n][3], c, -mb[mt][1]));
+        float o0 = -mb[mt][0], o1 = -mb[mt][0], o2 = -mb[mt][1], o3 = -mb[mt][1];
+        if constexpr (BIAS) {
+          o0 += rpe(qc[mt][0], kc2[n][0]);
+          o1 += rpe(qc[mt][0], kc2[n][1]);
+          o2 += rpe(qc[mt][1], kc2[n][0]);
+          o3 += rpe(qc[mt][1], kc2[n][1]);
+        }
+        const float e0 = ex2(fmaf(s[mt][n][0], c, o0));
+        const float e1 = ex2(fmaf(s[mt][n][1], c, o1));
+        const float e2 = ex2(fmaf(s[mt][n][2], c, o2));
+        const float e3 = ex2(fmaf(s[mt][n][3], c, o3));
         l[mt][0] += e0 + e1;
         l[mt][1] += e2 + e3;
         // the S fragment of keys [k0 + 8n, +8) is the A fragment's columns 8n..
@@ -205,18 +300,26 @@ __global__ void __launch_bounds__(32 * kWarps, D == 16 ? 3 : 2) patch_attention_
   }
 }
 
-template <int D, int MT>
+// Shared memory of a block: K and V of its (patch, head), bf16; with BIAS
+// also the keys' coordinates (int4 a key) and the head's table column.
+template <int D, bool BIAS>
+size_t fwd_smem(int K, int bnd) {
+  const size_t kv = 2 * (size_t)K * D * sizeof(__nv_bfloat16);
+  return BIAS ? kv + (size_t)K * sizeof(int4) + 3 * (2 * (size_t)bnd + 1) * sizeof(float) : kv;
+}
+
+template <int D, int MT, bool BIAS>
 int launch_rows(const void* qkv, void* out, float* m, float* l, int np, int K, int C, int H,
-                float scale, cudaStream_t stream) {
-  const size_t smem = 2 * (size_t)K * D * sizeof(__nv_bfloat16);
-  cudaError_t err = cudaFuncSetAttribute(patch_attention_fwd_kernel<D, MT>,
+                float scale, const float* table, const int* coords, int bnd, cudaStream_t stream) {
+  const size_t smem = fwd_smem<D, BIAS>(K, bnd);
+  cudaError_t err = cudaFuncSetAttribute(patch_attention_fwd_kernel<D, MT, BIAS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int rows = 16 * MT * kWarps;
   const unsigned blocks = (unsigned)np * H * ((K + rows - 1) / rows);
-  patch_attention_fwd_kernel<D, MT><<<blocks, 32 * kWarps, smem, stream>>>(
+  patch_attention_fwd_kernel<D, MT, BIAS><<<blocks, 32 * kWarps, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(out), m, l, K, C, H,
-      scale);
+      scale, table, coords, bnd);
   return (int)cudaGetLastError();
 }
 
@@ -227,9 +330,9 @@ int launch_rows(const void* qkv, void* out, float* m, float* l, int np, int K, i
 // H100 at K = 1024, D = 16 that is 80 and 112 (patch, head) pairs of the
 // main paths, 4-9% faster there, and the larger wins or ties at the other
 // ten (PERF.md).
-template <int D>
+template <int D, bool BIAS>
 int launch(const void* qkv, void* out, float* m, float* l, int np, int K, int C, int H,
-           float scale, cudaStream_t stream) {
+           float scale, const float* table, const int* coords, int bnd, cudaStream_t stream) {
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -238,28 +341,42 @@ int launch(const void* qkv, void* out, float* m, float* l, int np, int K, int C,
   const long busiest256 = (pairs * ((K + 255) / 256) + sms - 1) / sms * 256;
   const long busiest128 = (pairs * ((K + 127) / 128) + sms - 1) / sms * 128;
   const int mt = 9 * busiest128 <= 8 * busiest256 ? 1 : 2;
-  return mt == 1 ? launch_rows<D, 1>(qkv, out, m, l, np, K, C, H, scale, stream)
-                 : launch_rows<D, 2>(qkv, out, m, l, np, K, C, H, scale, stream);
+  return mt == 1 ? launch_rows<D, 1, BIAS>(qkv, out, m, l, np, K, C, H, scale, table, coords, bnd, stream)
+                 : launch_rows<D, 2, BIAS>(qkv, out, m, l, np, K, C, H, scale, table, coords, bnd, stream);
+}
+
+template <int D>
+int launch_any(const void* qkv, void* out, float* m, float* l, int np, int K, int C, int H,
+               float scale, const float* table, const int* coords, int bnd, cudaStream_t stream) {
+  return launch<D, PATCH_ATTENTION_RPE != 0>(qkv, out, m, l, np, K, C, H, scale, table, coords, bnd, stream);
 }
 
 }  // namespace
 
 // qkv [np, K, 3C] bf16 row-major (q | k | v, heads of D columns each) ->
 // out [np, K, C] bf16, and when m and l are not null the row statistics
-// m, l [np, H, K] f32; D 16, 24 or 32, K % 16 == 0. Returns the cudaError_t of the launch.
+// m, l [np, H, K] f32; D 16, 24 or 32, K % 16 == 0. The RPE library
+// (PATCH_ATTENTION_RPE) takes the bias: table [3 * (2 * bnd + 1), H] f32,
+// coords [np, K, 3] int32; the unbiased one null table and coords. Returns
+// the cudaError_t of the launch.
 extern "C" int patch_attention_fwd(const void* qkv, void* out, void* m, void* l, int np, int K,
-                                   int C, int H, int D, float scale, void* stream) {
+                                   int C, int H, int D, float scale, const void* table,
+                                   const void* coords, int bnd, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (K % 16 != 0 || (table != nullptr) != (PATCH_ATTENTION_RPE != 0) ||
+      (table != nullptr && (coords == nullptr || bnd < 0)))
+    return (int)cudaErrorInvalidValue;
   auto* mf = static_cast<float*>(m);
   auto* lf = static_cast<float*>(l);
+  const auto* tf = static_cast<const float*>(table);
+  const auto* ci = static_cast<const int*>(coords);
   switch (D) {
     case 16:
-      return launch<16>(qkv, out, mf, lf, np, K, C, H, scale, s);
+      return launch_any<16>(qkv, out, mf, lf, np, K, C, H, scale, tf, ci, bnd, s);
     case 24:
-      return launch<24>(qkv, out, mf, lf, np, K, C, H, scale, s);
+      return launch_any<24>(qkv, out, mf, lf, np, K, C, H, scale, tf, ci, bnd, s);
     case 32:
-      return launch<32>(qkv, out, mf, lf, np, K, C, H, scale, s);
+      return launch_any<32>(qkv, out, mf, lf, np, K, C, H, scale, tf, ci, bnd, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -66,6 +66,21 @@
 // cluster of 4 blocks split the keys (on an H100 at Utonia's stages 0 and
 // 3, 28% faster than one tile a warp in a cluster of 8, PERF.md).
 //
+// With a score bias (PT-v3m1's RPE, as in the forward: the keys' and
+// queries' grid coordinates index the head's table column, scaled by
+// log2 e), p is recomputed with the same bias, and the kernel also emits the
+// table's gradient: dS' = p (dP - D_) (the gradient of the biased score,
+// before the scale) summed over every score whose clipped relative
+// coordinate falls in a bin, for each axis. No atomics: each thread adds
+// its scores, in its own fixed order, into its own column of a [bins,
+// threads] f32 tile in shared memory (a thread's column is one bank, so the
+// read-modify-writes do not conflict); at the end the block adds the
+// columns of each bin in thread order and writes one partial a block,
+// [nP * H * S, bins], which the wrapper sums over patches and cluster ranks
+// (a fixed-order reduction). The result is the same bits on every run. The
+// query rows' coordinates (int4 rows) and the table sit in shared memory
+// beside Q and dO; each warp's keys' coordinates in registers.
+//
 // Grid: S blocks (one cluster) per (patch, head), W warps a block; the plan
 // (S, W, T) comes from the wrapper (ops/kernels/patch_attention.py, bwd_plan).
 
@@ -73,6 +88,13 @@
 #include <math.h>
 
 #include "attention_common.cuh"
+
+// PATCH_ATTENTION_RPE = 1 (set by patch_attention_bwd_rpe.cu, which includes
+// this file) builds the score-biased instances in place of the unbiased
+// ones: a library of their own, which nvcc compiles beside this one.
+#ifndef PATCH_ATTENTION_RPE
+#define PATCH_ATTENTION_RPE 0
+#endif
 
 namespace cg = cooperative_groups;
 
@@ -109,10 +131,31 @@ __global__ void attn_bwd_prep_kernel(const __nv_bfloat16* __restrict__ out,
 }
 
 // Shared memory of a block: Q and dO of the whole patch (bf16, swizzled),
-// each query's (lse2, D_) and the f32 dQ tile [kp, D].
+// each query's (lse2, D_) and the f32 dQ tile [kp, D]; with a bias (`bins`
+// table entries, `threads` a block) also each query's coordinates (int4),
+// the table column (rounded up to whole int4s) and the [bins, threads] f32
+// tile of the table's gradient.
 template <int D>
-size_t smem_bytes(int kp) {
-  return (size_t)kp * (2 * D * sizeof(__nv_bfloat16) + sizeof(float2) + D * sizeof(float));
+size_t smem_bytes(int kp, int bins = 0, int threads = 0) {
+  const size_t base = (size_t)kp * (2 * D * sizeof(__nv_bfloat16) + sizeof(float2) + D * sizeof(float));
+  if (bins == 0) return base;
+  return base + (size_t)kp * sizeof(int4) + (size_t)(bins + 3) / 4 * 16 + (size_t)bins * threads * sizeof(float);
+}
+
+// a clipped relative coordinate's three table entries, each axis's pointer
+// at its bin 0
+__device__ __forceinline__ float rpe_bias(const float* tx, const float* ty, const float* tz, int b,
+                                          const int4& q, const int3& k) {
+  return tx[min(max(q.x - k.x, -b), b)] + ty[min(max(q.y - k.y, -b), b)] + tz[min(max(q.z - k.z, -b), b)];
+}
+
+// adds ds to the three bins of (q, k) in the thread's column of the
+// gradient tile (bin-major, `threads` columns; `col` the thread's)
+__device__ __forceinline__ void rpe_grad(float* bins, int threads, int col, int b, int nb,
+                                         const int4& q, const int3& k, float ds) {
+  bins[(min(max(q.x - k.x, -b), b) + b) * threads + col] += ds;
+  bins[(nb + min(max(q.y - k.y, -b), b) + b) * threads + col] += ds;
+  bins[(2 * nb + min(max(q.z - k.z, -b), b) + b) * threads + col] += ds;
 }
 
 // f32 offset of (row, col) in the dQ tile: the 8-column groups of a row are
@@ -127,12 +170,15 @@ __device__ __forceinline__ int dq_off(int row, int col) {
   return row * D + (((col >> 3) ^ f) << 3) + (col & 7);
 }
 
-// KT key tiles of 16 a warp
-template <int D, int KT, int kMaxWarps>
+// KT key tiles of 16 a warp. BIAS: the RPE bias from `table` [3 * (2 *
+// bnd + 1), H] f32 and `coords` [nP, K, 3] int32; the table's gradient
+// partials go to `dtab` [gridDim.x, 3 * (2 * bnd + 1)].
+template <int D, int KT, int kMaxWarps, bool BIAS>
 __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
     const __nv_bfloat16* __restrict__ qkv, const __nv_bfloat16* __restrict__ dout,
     const float2* __restrict__ stats, __nv_bfloat16* __restrict__ dqkv, int K, int C, int H,
-    int S, float scale) {
+    int S, float scale, const float* __restrict__ table, const int* __restrict__ coords, int bnd,
+    float* __restrict__ dtab) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int kp = (K + kStep - 1) / kStep * kStep;  // query rows padded to whole steps
   const int nq = kp / kStep;
@@ -164,6 +210,23 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
   for (int r = K + threadIdx.x; r < kp; r += blockDim.x) st[r] = make_float2(INFINITY, 0.f);
   const int W = blockDim.x / 32;
 
+  // RPE: the queries' coordinates (padded rows: 0; their p is 0), the head's
+  // table column x log2e and the zeroed gradient tile, after dQ's tile
+  const int nb = 2 * bnd + 1, bins = 3 * nb;
+  int4* qc = reinterpret_cast<int4*>(dq + (size_t)kp * D);
+  float* tab = reinterpret_cast<float*>(qc + kp);
+  float* gt = tab + (bins + 3) / 4 * 4;
+  const int* crd = BIAS ? coords + p * K * 3 : nullptr;
+  if constexpr (BIAS) {
+    for (int r = threadIdx.x; r < kp; r += blockDim.x)
+      qc[r] = r < K ? make_int4(crd[3 * r], crd[3 * r + 1], crd[3 * r + 2], 0) : make_int4(0, 0, 0, 0);
+    for (int i = threadIdx.x; i < bins; i += blockDim.x) tab[i] = table[(size_t)i * H + h] * kLog2e;
+    for (int i = threadIdx.x; i < bins * (int)blockDim.x; i += blockDim.x) gt[i] = 0.f;
+  }
+  const float* tx = tab + bnd;
+  const float* ty = tab + nb + bnd;
+  const float* tz = tab + 2 * nb + bnd;
+
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int j0 = (rank * W + warp) * 16 * KT;    // the warp's 16 * KT keys
@@ -174,6 +237,7 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
   // operand of dS K
   uint32_t ka[KT][kSteps<D>][4], va[KT][kSteps<D>][4], kb[KT][D / 8][2];
   float dk[KT][D / 8][4], dv[KT][D / 8][4];
+  int3 kc[KT][2];  // RPE: the coordinates of the key tiles' keys g, g + 8
 #pragma unroll
   for (int kt = 0; kt < KT; ++kt)
 #pragma unroll
@@ -192,6 +256,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
       for (int j = 0; j < D / 8; ++j) {
         kb[kt][j][0] = pack2(kr + 8 * j, kr + stride + 8 * j);
         kb[kt][j][1] = pack2(kr + 8 * stride + 8 * j, kr + 9 * stride + 8 * j);
+      }
+      if constexpr (BIAS) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int* c3 = crd + 3 * (k0 + g + 8 * i);
+          kc[kt][i] = make_int3(c3[0], c3[1], c3[2]);
+        }
       }
     }
   }
@@ -217,6 +288,14 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
 #pragma unroll
         for (int n = 0; n < 2; ++n)
           sq[n] = *reinterpret_cast<const float4*>(st + qr + 8 * n + 2 * t);
+        int4 qq[2][2];  // RPE: the coordinates of queries qr + 8n + 2t, +1
+        if constexpr (BIAS) {
+#pragma unroll
+          for (int n = 0; n < 2; ++n) {
+            qq[n][0] = qc[qr + 8 * n + 2 * t];
+            qq[n][1] = qc[qr + 8 * n + 2 * t + 1];
+          }
+        }
         uint32_t pa[KT][4], da[KT][4];  // p^T and dS^T / scale as A fragments (keys x queries)
 #pragma unroll
         for (int kt = 0; kt < KT; ++kt) {
@@ -233,12 +312,30 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
           }
 #pragma unroll
           for (int n = 0; n < 2; ++n) {
+            if constexpr (BIAS) {
+              // s^T's (key g, query 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1)
+              const float p0 = ex2(fmaf(s[n][0], c, rpe_bias(tx, ty, tz, bnd, qq[n][0], kc[kt][0])) - sq[n].x);
+              const float p1 = ex2(fmaf(s[n][1], c, rpe_bias(tx, ty, tz, bnd, qq[n][1], kc[kt][0])) - sq[n].z);
+              const float p2 = ex2(fmaf(s[n][2], c, rpe_bias(tx, ty, tz, bnd, qq[n][0], kc[kt][1])) - sq[n].x);
+              const float p3 = ex2(fmaf(s[n][3], c, rpe_bias(tx, ty, tz, bnd, qq[n][1], kc[kt][1])) - sq[n].z);
+              const float d0 = p0 * (dp[n][0] - sq[n].y), d1 = p1 * (dp[n][1] - sq[n].w);
+              const float d2 = p2 * (dp[n][2] - sq[n].y), d3 = p3 * (dp[n][3] - sq[n].w);
+              pa[kt][2 * n] = pack_bf16(p0, p1);
+              pa[kt][2 * n + 1] = pack_bf16(p2, p3);
+              da[kt][2 * n] = pack_bf16(d0, d1);
+              da[kt][2 * n + 1] = pack_bf16(d2, d3);
+              rpe_grad(gt, blockDim.x, threadIdx.x, bnd, nb, qq[n][0], kc[kt][0], d0);
+              rpe_grad(gt, blockDim.x, threadIdx.x, bnd, nb, qq[n][1], kc[kt][0], d1);
+              rpe_grad(gt, blockDim.x, threadIdx.x, bnd, nb, qq[n][0], kc[kt][1], d2);
+              rpe_grad(gt, blockDim.x, threadIdx.x, bnd, nb, qq[n][1], kc[kt][1], d3);
+            } else {
             const float p0 = ex2(fmaf(s[n][0], c, -sq[n].x)), p1 = ex2(fmaf(s[n][1], c, -sq[n].z));
             const float p2 = ex2(fmaf(s[n][2], c, -sq[n].x)), p3 = ex2(fmaf(s[n][3], c, -sq[n].z));
             pa[kt][2 * n] = pack_bf16(p0, p1);
             pa[kt][2 * n + 1] = pack_bf16(p2, p3);
             da[kt][2 * n] = pack_bf16(p0 * (dp[n][0] - sq[n].y), p1 * (dp[n][1] - sq[n].w));
             da[kt][2 * n + 1] = pack_bf16(p2 * (dp[n][2] - sq[n].y), p3 * (dp[n][3] - sq[n].w));
+            }
           }
         }
         // dV += p^T dO, dK += dS^T Q: B = dO, Q with the queries as contraction
@@ -307,6 +404,17 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
     }
   }
 
+  if constexpr (BIAS) {
+    // the block's partial of the table's gradient: each bin's columns added
+    // in thread order
+    __syncthreads();
+    for (int j = threadIdx.x; j < bins; j += blockDim.x) {
+      float acc = 0.f;
+      for (int col = 0; col < (int)blockDim.x; ++col) acc += gt[j * blockDim.x + col];
+      dtab[(size_t)blockIdx.x * bins + j] = acc;
+    }
+  }
+
   // dQ: the blocks of the cluster add their partial tiles in rank order,
   // each block the rows of its share
   cluster.sync();
@@ -338,11 +446,13 @@ __global__ void __launch_bounds__(32 * kMaxWarps) attn_bwd_kernel(
   cluster.sync();  // no block leaves while another reads its tile
 }
 
-template <int D, int KT, int kMaxWarps>
+template <int D, int KT, int kMaxWarps, bool BIAS>
 int launch_main(const void* qkv, const void* dout, const float2* st, void* dqkv, int np, int K,
-                int C, int H, int S, int W, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>((K + kStep - 1) / kStep * kStep);
-  auto* kernel = attn_bwd_kernel<D, KT, kMaxWarps>;
+                int C, int H, int S, int W, float scale, const float* table, const int* coords,
+                int bnd, float* dtab, cudaStream_t stream) {
+  const size_t smem =
+      smem_bytes<D>((K + kStep - 1) / kStep * kStep, BIAS ? 3 * (2 * bnd + 1) : 0, 32 * W);
+  auto* kernel = attn_bwd_kernel<D, KT, kMaxWarps, BIAS>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -360,15 +470,16 @@ int launch_main(const void* qkv, const void* dout, const float2* st, void* dqkv,
   cfg.numAttrs = 1;
   err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(qkv),
                            static_cast<const __nv_bfloat16*>(dout), st,
-                           static_cast<__nv_bfloat16*>(dqkv), K, C, H, S, scale);
+                           static_cast<__nv_bfloat16*>(dqkv), K, C, H, S, scale, table, coords, bnd,
+                           dtab);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int D, bool BIAS>
 int launch(const void* qkv, const void* out, const void* dout, const float* m, const float* l,
            void* stats, void* dqkv, int np, int K, int C, int H, int S, int W, int T, float scale,
-           cudaStream_t stream) {
+           const float* table, const int* coords, int bnd, float* dtab, cudaStream_t stream) {
   constexpr int kMaxWarps = D == 16 ? 16 : 8;
   const int keys = 16 * T;  // keys a warp owns
   // every block of a cluster owns keys: a block with none would add a dQ
@@ -387,12 +498,25 @@ int launch(const void* qkv, const void* out, const void* dout, const float* m, c
   if (err != cudaSuccess) return (int)err;
   if constexpr (D == 16) {
     // four key tiles take twice the registers of one: at most 8 warps
-    if (T == 4) return launch_main<D, 4, 8>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
+    if (T == 4)
+      return launch_main<D, 4, 8, BIAS>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, table, coords,
+                                        bnd, dtab, stream);
   }
   if constexpr (D == 24) {
-    if (T == 2) return launch_main<D, 2, 8>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
+    if (T == 2)
+      return launch_main<D, 2, 8, BIAS>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, table, coords,
+                                        bnd, dtab, stream);
   }
-  return launch_main<D, 1, kMaxWarps>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, stream);
+  return launch_main<D, 1, kMaxWarps, BIAS>(qkv, dout, st, dqkv, np, K, C, H, S, W, scale, table,
+                                            coords, bnd, dtab, stream);
+}
+
+template <int D>
+int launch_any(const void* qkv, const void* out, const void* dout, const float* m, const float* l,
+               void* stats, void* dqkv, int np, int K, int C, int H, int S, int W, int T, float scale,
+               const float* table, const int* coords, int bnd, float* dtab, cudaStream_t stream) {
+  return launch<D, PATCH_ATTENTION_RPE != 0>(qkv, out, dout, m, l, stats, dqkv, np, K, C, H, S, W, T,
+                                              scale, table, coords, bnd, dtab, stream);
 }
 
 }  // namespace
@@ -403,22 +527,32 @@ int launch(const void* qkv, const void* out, const void* dout, const float* m, c
 // f32 scratch -> dqkv [np, K, 3C] bf16; D 16, 24 or 32. The wrapper's plan: S blocks a
 // cluster of W warps that own T key tiles of 16 each (T = 1, 2 at D = 24, or 4 at
 // D = 16 with W <= 8), (S - 1) * W * 16T < K <= S * W * 16T, K % 16T == 0,
-// W at most the K / 64 query tiles. Returns the cudaError_t of the launches.
+// W at most the K / 64 query tiles. The RPE library (PATCH_ATTENTION_RPE)
+// takes the bias (table [3 * (2 * bnd + 1), H] f32, coords [np, K, 3] int32)
+// and writes the table's gradient partials dtab [np * H * S, 3 * (2 * bnd +
+// 1)] f32; the unbiased one null table, coords and dtab.
+// Returns the cudaError_t of the launches.
 extern "C" int patch_attention_bwd(const void* qkv, const void* out, const void* dout,
                                    const void* m, const void* l, void* stats, void* dqkv, int np,
                                    int K, int C, int H, int D, int S, int W, int T, float scale,
+                                   const void* table, const void* coords, int bnd, void* dtab,
                                    void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (K % 16 != 0) return (int)cudaErrorInvalidValue;
+  if (K % 16 != 0 || (table != nullptr) != (PATCH_ATTENTION_RPE != 0) ||
+      (table != nullptr && (coords == nullptr || dtab == nullptr || bnd < 0)))
+    return (int)cudaErrorInvalidValue;
   const auto* mf = static_cast<const float*>(m);
   const auto* lf = static_cast<const float*>(l);
+  const auto* tf = static_cast<const float*>(table);
+  const auto* ci = static_cast<const int*>(coords);
+  auto* dt = static_cast<float*>(dtab);
   switch (D) {
     case 16:
-      return launch<16>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
+      return launch_any<16>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, tf, ci, bnd, dt, s);
     case 24:
-      return launch<24>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
+      return launch_any<24>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, tf, ci, bnd, dt, s);
     case 32:
-      return launch<32>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, s);
+      return launch_any<32>(qkv, out, dout, mf, lf, stats, dqkv, np, K, C, H, S, W, T, scale, tf, ci, bnd, dt, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

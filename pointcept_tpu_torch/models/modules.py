@@ -242,9 +242,16 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> nn.Module:
     (and weight norm's direction ``weight_v``) uniform in +-1/sqrt(fan_in),
     biases zero, norms identity, a LoRA adapter's ``lora_a`` N(0, 0.02) and
     its ``lora_b`` zero, a PPT wrapper's trainable ``class_embedding`` N(0,
-    0.02) and its context table N(0, 1). Parameters are drawn on the CPU in
-    module order, so a seed gives the same weights on every device."""
+    0.02) and its context table N(0, 1), an RPE table truncated normal at
+    0.02 (flax's `truncated_normal(0.02)`: cut at two deviations, the scale
+    raised so that the cut draw keeps 0.02). Parameters are drawn on the CPU
+    in module order, so a seed gives the same weights on every device."""
     for m in module.modules():
+        t = getattr(m, "rpe_table", None)
+        if isinstance(t, nn.Parameter):
+            std = 0.02 / 0.87962566103423978
+            t.copy_(torch.nn.init.trunc_normal_(torch.empty(t.shape), std=std, a=-2 * std, b=2 * std,
+                                                generator=generator))
         a = getattr(m, "lora_a", None)
         if isinstance(a, nn.Parameter):
             a.copy_(torch.randn(a.shape, generator=generator) * 0.02)

@@ -69,8 +69,16 @@ the batch's ``condition`` and ``context``, which pooling and unpooling carry.
 ``pdnorm_affine`` is accepted and, as in the JAX package, without effect
 (the norms are affine).
 
-Not ported: RPE, attention and projection dropout, host geometry and the
-scene-blocked layout. Each raises when asked for.
+``enable_rpe`` (the S3DIS RPE config) adds each attention's relative
+position encoding: a learned table ``attn.rpe.rpe_table`` [3 * (2b + 1), H]
+(b = `rpe_bound` of the patch size: 15 at 128), made truncated normal at
+0.02, whose entries at each (query, key) pair's clipped relative grid
+coordinate are summed over the three axes and added to the score, inside
+the attention kernels (`patch_attention_rpe_fwd` / `_bwd`).
+
+Not ported: attention and projection dropout, host geometry and the
+scene-blocked layout (whose window attention also refuses RPE, as the JAX
+package asserts). Each raises when asked for.
 """
 
 from __future__ import annotations
@@ -85,6 +93,7 @@ from torch import nn
 from ...ops import serialization as ser
 from ...ops.attention import patch_attention, patch_runs
 from ...ops.block_conv import block_subm_conv, build_block_tables, default_block_capacity
+from ...ops.kernels.patch_attention import rpe_bound
 from ...ops.pointrope import point_rope
 from ...ops.segment_ops import segment_reduce, sorted_segment_mean
 from ...ops.sparse_conv import build_subm_neighbor_map, gather_conv, k3_columns_of_k5
@@ -117,14 +126,29 @@ class SubMConv(nn.Module):
         return gather_conv(feat, geom, self.weight, self.bias, compute_dtype=torch.bfloat16)
 
 
+class RPE(nn.Module):
+    """The relative position encoding's table (reference `RPE`, ptv3 base
+    `:29-48`): ``rpe_table`` [3 * (2b + 1), H] f32, b = `rpe_bound` of the
+    patch size, one block of 2b + 1 rows an axis. The attention kernels read
+    it (`patch_attention_rpe_fwd`)."""
+
+    def __init__(self, patch_size: int, num_heads: int):
+        super().__init__()
+        self.pos_bnd = rpe_bound(patch_size)
+        self.rpe_table = nn.Parameter(torch.zeros(3 * (2 * self.pos_bnd + 1), num_heads))
+
+
 class SerializedAttention(nn.Module):
     """qkv projection (with `lora_rank`, plus its low-rank adapter), patch
     attention, output projection; with `rope` (a dict of ``base`` and the
     optional train-time ``shift``, ``jitter`` and ``rescale`` of the
-    positions) q and k are rotated by the points' coordinates first."""
+    positions) q and k are rotated by the points' coordinates first; with
+    `enable_rpe` the scores take the `RPE` table's bias at the slots' grid
+    coordinates."""
 
     def __init__(self, channels, num_heads, patch_size, qkv_bias=True, qk_scale=None,
-                 compute_dtype=None, rope: Optional[dict] = None, lora_rank: int = 0):
+                 compute_dtype=None, rope: Optional[dict] = None, lora_rank: int = 0,
+                 enable_rpe: bool = False):
         super().__init__()
         self.num_heads = num_heads
         self.patch_size = patch_size
@@ -132,6 +156,8 @@ class SerializedAttention(nn.Module):
         self.rope = rope
         self.qkv = Linear(channels, 3 * channels, bias=qkv_bias, compute_dtype=compute_dtype)
         self.proj = Linear(channels, channels, compute_dtype=compute_dtype)
+        if enable_rpe:
+            self.rpe = RPE(patch_size, num_heads)
         if lora_rank > 0:
             self.lora_a = nn.Parameter(torch.empty(channels, lora_rank))
             self.lora_b = nn.Parameter(torch.zeros(lora_rank, 3 * channels))
@@ -164,7 +190,9 @@ class SerializedAttention(nn.Module):
         return coord
 
     def forward(self, feat: torch.Tensor, partition, coord: Optional[torch.Tensor] = None,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Optional[torch.Generator] = None,
+                grid_coord: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """`grid_coord` [N, 3]: the stage's grid (read with `enable_rpe`)."""
         slot_to_point, point_to_slot = partition
         qkv = self.qkv(feat)
         if hasattr(self, "lora_a"):
@@ -176,9 +204,12 @@ class SerializedAttention(nn.Module):
             q, k = (point_rope(qkv4[:, i].transpose(0, 1), pos, freq=self.rope["base"]).transpose(0, 1)
                     for i in range(2))
             qkv = torch.stack([q, k, qkv4[:, 2]], dim=1).reshape(n, -1)
+        rpe = None
+        if hasattr(self, "rpe"):
+            rpe = (self.rpe.rpe_table, grid_coord[slot_to_point.idx])
         out = patch_attention(qkv, slot_to_point, point_to_slot,
                               num_heads=self.num_heads, patch_size=self.patch_size,
-                              scale=self.scale)
+                              scale=self.scale, rpe=rpe)
         return self.proj(out)
 
 
@@ -201,7 +232,7 @@ class Block(nn.Module):
 
     def __init__(self, channels, num_heads, patch_size, mlp_ratio=4.0, qkv_bias=True,
                  qk_scale=None, pre_norm=True, compute_dtype=None, drop_path=0.0, fused=False,
-                 layer_scale=None, rope=None, lora_rank=0, pd=None):
+                 layer_scale=None, rope=None, lora_rank=0, pd=None, enable_rpe=False):
         super().__init__()
         c = channels
         self.pre_norm = pre_norm
@@ -215,7 +246,7 @@ class Block(nn.Module):
         ])
         self.norm1 = nn.ModuleList([make_norm("ln", c, pd)])
         self.attn = SerializedAttention(c, num_heads, patch_size, qkv_bias, qk_scale, compute_dtype, rope,
-                                        lora_rank)
+                                        lora_rank, enable_rpe)
         self.norm2 = nn.ModuleList([make_norm("ln", c, pd)])
         self.mlp = nn.ModuleList([MLP(c, int(c * mlp_ratio), c, compute_dtype=compute_dtype)])
 
@@ -228,7 +259,8 @@ class Block(nn.Module):
         cpe = self.cpe[0](feat if cpe_feat is None else cpe_feat, nbr3)
         feat = feat + apply_norm(self.cpe[2], self.cpe[1](cpe), pb)
         x = apply_norm(self.norm1[0], feat, pb) if self.pre_norm else feat
-        feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition, pb.coord, generator)), generator)
+        feat = feat + self.drop_path(self._scale("ls1", self.attn(x, partition, pb.coord, generator, pb.grid_coord)),
+                                     generator)
         if not self.pre_norm:
             feat = apply_norm(self.norm1[0], feat, pb)
         x = apply_norm(self.norm2[0], feat, pb) if self.pre_norm else feat
@@ -429,7 +461,7 @@ def up_cast(pb: PointBatch, skips: list, levels: int) -> PointBatch:
     return pb
 
 
-_UNSUPPORTED = dict(enable_rpe=False, scene_blocked=False, attn_drop=0.0, proj_drop=0.0)
+_UNSUPPORTED = dict(scene_blocked=False, attn_drop=0.0, proj_drop=0.0)
 
 
 @MODELS.register_module("PT-v3m1")
@@ -493,9 +525,13 @@ class PointTransformerV3(nn.Module):
         shift_coords: Optional[float] = None,
         jitter_coords: Optional[float] = None,
         rescale_coords: Optional[float] = None,
+        enable_rpe: bool = False,
         **unsupported,
     ):
         super().__init__()
+        if enable_rpe and unsupported.get("scene_blocked"):
+            # the JAX package asserts it: "window attention has no RPE path"
+            raise NotImplementedError(f"{type(self).__name__}: window attention (scene_blocked) has no RPE path")
         for key, value in unsupported.items():
             if key not in _UNSUPPORTED:
                 raise TypeError(f"{type(self).__name__}: unexpected argument {key!r}")
@@ -557,7 +593,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     enc_channels[s], enc_num_head[s], enc_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=enc_dp[sum(enc_depths[:s]) + i], fused=fused,
-                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd, enable_rpe=enable_rpe,
                 ))
             self.enc.add_module(f"enc{s}", stage)
         dec_ch = list(dec_channels) + [enc_channels[-1]]
@@ -570,7 +606,7 @@ class PointTransformerV3(nn.Module):
                 stage.add_module(f"block{i}", Block(
                     dec_ch[s], dec_num_head[s], dec_patch_size[s], mlp_ratio, qkv_bias,
                     qk_scale, pre_norm, dt, drop_path=dp_slice[i], fused=fused,
-                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd,
+                    layer_scale=layer_scale, rope=rope, lora_rank=lora_rank, pd=pd, enable_rpe=enable_rpe,
                 ))
             self.dec.add_module(f"dec{s}", stage)
         self.out_channels = enc_channels[-1] if enc_mode else dec_ch[0]

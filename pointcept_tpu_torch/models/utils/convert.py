@@ -20,7 +20,9 @@ PT-v3m2 adds the linear stem (``embedding/stem_linear`` ->
 ``embedding.mask_token`` and the LayerScale gammas (a block's ``ls1_gamma``
 -> ``ls1.0.gamma``), the names `convert_state_dict` maps back. A LoRA
 adapter (``attn/lora_a [C, r]``, ``attn/lora_b [r, 3C]``) keeps its arrays
-as ``attn.lora_a`` and ``attn.lora_b`` of its block. A Sonata
+as ``attn.lora_a`` and ``attn.lora_b`` of its block, and PT-v3m1's RPE table
+(``attn/rpe/rpe_table``) as ``attn.rpe.rpe_table`` (the reference's name;
+the JAX package's `convert_ptv3` maps no RPE key). A Sonata
 tree (top-level ``teacher_backbone``) maps by `SONATA_ROOTS`: the student's
 subtrees to ``student.*``, the teacher's to ``teacher.*`` (the reference
 model's two ModuleDicts); a head's ``Dense_0``/``Dense_1`` to ``mlp.0`` and
@@ -41,6 +43,12 @@ heads (``bias_fc1``, ``bias_norm``, ``bias_fc2``) map to the reference's
 DefaultClassifier's (``cls_fc0``, ``cls_bn0``, ``cls_fc1``, ``cls_bn1``,
 ``cls_out``) to ``cls_head.0``, ``.1``, ``.4``, ``.5`` and ``.8``
 (`CLS_HEAD`).
+
+LitePT-v1 (a tree whose blocks lack PT-v3's ``cpe_conv``) maps its stem,
+poolings and unpoolings as PT-v3's and its blocks by the JAX package's
+names (`_LITEPT_BLOCK`: ``norm0``, ``conv``, ``norm1``, ``attn/qkv``,
+``attn/proj``, ``norm2``, ``mlp/fc1``, ``mlp/fc2``), which the reference's
+`litept_v1.py`, not in the repository, cannot confirm.
 
 PT-v2 (m1, m2, m3 under DefaultSegmentor) maps to the reference names that
 `convert_ptv2` reads back (`_PTV2_TOP`, `_PTV2_BLOCK`): a PointBN's ``bn``
@@ -81,6 +89,18 @@ _BLOCK = {
     "mlp/fc1": "mlp.0.fc1",
     "mlp/fc2": "mlp.0.fc2",
 }
+# LitePT-v1's blocks: the JAX package's names (the reference's
+# `litept_v1.py` is not in the repository to check them against)
+_LITEPT_BLOCK = {
+    "norm0": "norm0",
+    "conv": "conv",
+    "norm1": "norm1",
+    "attn/qkv": "attn.qkv",
+    "attn/proj": "attn.proj",
+    "norm2": "norm2",
+    "mlp/fc1": "mlp.fc1",
+    "mlp/fc2": "mlp.fc2",
+}
 _MODULE = {
     "embedding/stem_conv": "backbone.embedding.stem.conv",
     "embedding/stem_linear": "backbone.embedding.stem.linear",
@@ -95,8 +115,9 @@ _UP = {"proj": "proj.0", "proj_norm": "proj.1", "proj_skip": "proj_skip.0",
        "proj_skip_norm": "proj_skip.1"}
 
 
-def _torch_module(path: str) -> str:
-    """flax module path (under the segmentor) -> torch module name."""
+def _torch_module(path: str, block: dict = _BLOCK) -> str:
+    """flax module path (under the segmentor) -> torch module name; `block`
+    names a block's modules (PT-v3's, or LitePT's)."""
     if path == "seg_head":
         return "seg_head"
     assert path.startswith("backbone_module/"), path
@@ -106,7 +127,7 @@ def _torch_module(path: str) -> str:
     m = re.fullmatch(r"(enc|dec)(\d+)_block(\d+)/(.+)", p)
     if m:
         kind, s, i, rest = m.groups()
-        return f"backbone.{kind}.{kind}{s}.block{i}.{_BLOCK[rest]}"
+        return f"backbone.{kind}.{kind}{s}.block{i}.{block[rest]}"
     m = re.fullmatch(r"enc(\d+)_down/(proj|norm)", p)
     if m:
         s, rest = m.groups()
@@ -161,6 +182,16 @@ def _ptv3_module(path: str) -> str:
     return _pd_module(path, _torch_module, ("norm", "norm"))
 
 
+def _litept_module(path: str) -> str:
+    return _torch_module(path, _LITEPT_BLOCK)
+
+
+def _is_litept(params: dict) -> bool:
+    """A LitePT-v1 tree: a block without PT-v3's xCPE."""
+    return any(re.fullmatch(r"(enc|dec)\d+_block\d+", name) and "cpe_conv" not in tree
+               for name, tree in params.get("backbone_module", {}).items())
+
+
 def _spunet_pd_module(path: str) -> str:
     return _pd_module(path, _spunet_module, ("bns", "bn"))
 
@@ -182,7 +213,8 @@ def _spunet_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
     return sd
 
 
-def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
+def _ptv3_from_jax(params: dict, batch_stats: dict, module_of=_ptv3_module) -> Dict[str, np.ndarray]:
+    """PT-v3m1/m2/m3 trees, and LitePT-v1's (`module_of`: `_litept_module`)."""
     sd = {}
     for key, value in _flat(params).items():
         path, leaf = "/".join(key[:-1]), key[-1]
@@ -198,7 +230,11 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
             kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)/attn", path).groups()
             sd[f"backbone.{kind}.{kind}{s}.block{i}.attn.{leaf}"] = value
             continue
-        module = _ptv3_module(path)
+        if leaf == "rpe_table":
+            kind, s, i = re.fullmatch(r"backbone_module/(enc|dec)(\d+)_block(\d+)/attn/rpe", path).groups()
+            sd[f"backbone.{kind}.{kind}{s}.block{i}.attn.rpe.rpe_table"] = value
+            continue
+        module = module_of(path)
         if leaf == "kernel":
             sd[f"{module}.weight"] = np.ascontiguousarray(value.T)
         elif leaf == "scale":
@@ -208,7 +244,7 @@ def _ptv3_from_jax(params: dict, batch_stats: dict) -> Dict[str, np.ndarray]:
         else:
             raise KeyError(f"unknown flax leaf {'/'.join(key)}")
     for key, value in _flat(batch_stats).items():
-        module, leaf = _ptv3_module("/".join(key[:-1])), key[-1]
+        module, leaf = module_of("/".join(key[:-1])), key[-1]
         sd[f"{module}.running_{leaf}"] = value
     return sd
 
@@ -343,7 +379,7 @@ def _heads_from_jax(heads: dict, params: dict, batch_stats: dict) -> Dict[str, n
 
 
 def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
-    """DefaultSegmentorV2 + PT-v3m1/m2/m3 (``enc_mode`` too), DefaultSegmentor + SpUNet or
+    """DefaultSegmentorV2 + PT-v3m1/m2/m3 or LitePT-v1 (``enc_mode`` too), DefaultSegmentor + SpUNet or
     PT-v2m1/m2/m3, PPT-v1m1/m2/m3 over either, PG-v1m1/m2 over either, DefaultClassifier over
     either, CAC-v1m1 over SpUNet or PT-v2, or Sonata-v1m1 flax trees (arrays) -> the port's
     state dict."""
@@ -365,6 +401,8 @@ def params_from_jax(params: dict, batch_stats: dict) -> Dict[str, torch.Tensor]:
         sd = _ptv2_from_jax(params, batch_stats)
     elif "teacher_backbone" in params:
         sd = _sonata_from_jax(params, batch_stats)
+    elif _is_litept(params):
+        sd = _ptv3_from_jax(params, batch_stats, _litept_module)
     else:
         sd = _ptv3_from_jax(params, batch_stats)
     sd.update(_ppt_from_jax(ppt))

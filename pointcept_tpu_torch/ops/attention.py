@@ -19,7 +19,7 @@ scene-blocked window attention.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -47,14 +47,17 @@ def patch_attention(
     num_heads: int,
     patch_size: int,
     scale: Optional[float] = None,
-    bias: Optional[torch.Tensor] = None,  # [num_patches, H, K, K]
+    rpe: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     compute_dtype: torch.dtype = torch.bfloat16,
 ) -> torch.Tensor:
     """Returns [N, C] attention output per point, in qkv's dtype.
 
-    Without `bias` the slots go through the patch-attention kernel. With an
-    additive `bias` (RPE) the dense plain path runs: normalised probabilities
-    rounded to `compute_dtype`, as the JAX package's dense path does."""
+    The slots go through the patch-attention kernels. With ``rpe=(table,
+    slot_coords)`` (PT-v3m1's relative position encoding: the f32 table
+    [3 * (2b + 1), H] and the slots' grid coordinates [P, 3]) the biased
+    kernels add each score's table entries, and the table gets its
+    gradient; the JAX package runs the bias on its dense path, the port
+    never builds the [nP, H, K, K] bias."""
     n, c3 = qkv.shape
     c = c3 // 3
     h = num_heads
@@ -66,12 +69,10 @@ def patch_attention(
     if scale is None:
         scale = d**-0.5
     qkv_p = TakeRows.apply(qkv.to(compute_dtype), slot_to_point).reshape(np_, k, c3)
-    if bias is None:
+    if rpe is None:
         out = PatchAttention.apply(qkv_p.contiguous(), h, scale)
     else:
-        x = qkv_p.reshape(np_, k, 3, h, d)
-        q, kk, v = (x[:, :, i].transpose(1, 2) for i in range(3))  # [nP, H, K, D]
-        s = torch.einsum("phkd,phmd->phkm", (q * scale).float(), kk.float()) + bias
-        a = torch.softmax(s.float(), dim=-1).to(compute_dtype)
-        out = torch.einsum("phkm,phmd->phkd", a.float(), v.float()).transpose(1, 2)
+        table, slot_coords = rpe
+        coords = slot_coords.to(torch.int32).reshape(np_, k, 3).contiguous()
+        out = PatchAttention.apply(qkv_p.contiguous(), h, scale, table, coords)
     return TakeRows.apply(out.reshape(p, c), point_to_slot).to(qkv.dtype)

@@ -3,8 +3,9 @@
 Each CUDA source (``.cu``) is compiled by its own `nvcc` into a shared
 library with a plain C interface (no PyTorch headers: a build takes seconds)
 and loaded with `ctypes`. Libraries land in ``build/kernels/`` at the
-repository root, named by a hash of their source, the shared headers
-(`csrc/*.cuh`) and the flags, so an unchanged source is not rebuilt.
+repository root, named by a hash of their source, the sources it includes,
+the shared headers (`csrc/*.cuh`) and the flags, so an unchanged source is
+not rebuilt.
 `build_all` starts one `nvcc` per source, all at once. A host source
 (``.cpp``: PointGroup's clustering) is compiled by `g++` the same way
 (`load_host`).
@@ -19,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -46,9 +48,12 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    """The library's path, named by a hash of its source, the headers of
-    `csrc/` (any of which it may include) and the flags."""
+    """The library's path, named by a hash of its source, the other sources
+    of `csrc/` it includes (the RPE halves include the attention kernels),
+    the headers of `csrc/` (any of which it may include) and the flags."""
     data = (CSRC / f"{name}.cu").read_bytes()
+    for inc in re.findall(rb'#include "([^"]+\.cu)"', data):
+        data += (CSRC / inc.decode()).read_bytes()
     data += b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(data + " ".join(ARCH_FLAGS + NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{name}-{h}.so"

@@ -26,7 +26,9 @@ ModelNet40 probes and its ShapeNet-Part / PartNetE part-seg configs),
 whose models are built on the meta device too; and the 33 configs PT-v2,
 CAC, the Matterport3D / AEO datasets, PreciseEvaluator and
 RuntimeProfilerV2 complete, whose models are built on the meta device
-too."""
+too; and the eight LitePT configs, whose types LitePT-v1 completes and
+whose models both packages refuse (`patch_size`, and head dim 16 under
+PointROPE), each with its reason."""
 
 from pathlib import Path
 
@@ -136,10 +138,10 @@ PPT = sorted(
     + ["sonata/semseg-sonata-v1m1-2f-scannetpp-ppt-submit.py"]
     + [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/concerto").glob("semseg-*-ppt*.py")])
 # instance segmentation: PointGroup (PG-v1m1 / v1m2) with InstanceParser,
-# InsSegEvaluator and InsSegTester; LitePT's and SGIFormer's wait for their
-# backbones
+# InsSegEvaluator and InsSegTester; SGIFormer's waits for its backbone
+# (LitePT's is refused at build, its reason in KNOWN_EXCEPTIONS)
 INSSEG = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/insseg-*.py")
-                if "litept" not in p.name and "sgiformer" not in p.name)
+                if "sgiformer" not in p.name)
 # classification and part segmentation: DefaultClassifier, the ModelNet40,
 # ScanObjectNN, ShapeNet-Part and PartNetE datasets, ClsEvaluator, the cls,
 # voting and part-seg testers, CosineAnnealingLR and MultiStepLR
@@ -154,13 +156,16 @@ PTV2 = sorted(
     + [str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs/matterport3d").glob("*.py")]
     + [f"sonata/semseg-sonata-v1m1-4{t}-aeo-{m}.py" for t, m in (("a", "lin"), ("c", "ft"))]
     + ["scannet/semseg-spunet-v1m1-1-precise-eval.py", "scannet/semseg-spunet-v1m1-3-enable-profiler.py"])
-CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG + CLS + PTV2
+# LitePT-v1: type-complete, refused at build in both packages
+LITEPT = sorted(str(p.relative_to(ROOT / "configs")) for p in (ROOT / "configs").glob("*/*litept*.py"))
+CONFIGS = INDOOR + LORA + OUTDOOR + PPT + INSSEG + CLS + PTV2 + LITEPT
 
 # config-level departures: every type is registered, and what the port
 # refuses or changes is the config's own setting
 KNOWN_EXCEPTIONS = {
-    "s3dis/semseg-pt-v3m1-1-rpe.py": "enable_rpe=True: PT-v3m1's relative position encoding is not ported "
-                                     "(ROADMAP queue 1 item 7); the model raises when built",
+    "s3dis/semseg-pt-v3m1-1-rpe.py": "enable_rpe=True: built, the RPE bias inside the attention kernels; "
+                                     "with scene_blocked (window attention) it raises, as the JAX package "
+                                     "asserts",
     "utonia/": "in_channels=9 over the 6 channels the data section collects (4 outdoors: coord, strength): "
                "the stem raises at the first forward, run with model.backbone.in_channels=6 (or 4) (ROADMAP "
                "queue 3 item 5, fault 5)",
@@ -175,6 +180,11 @@ KNOWN_EXCEPTIONS = {
     "nuscenes/semseg-ppt-": "the outdoor PPT configs keep their _base_'s indoor data (ScanNet and Structured3D "
                             "conditions, 6 channels) under models of the outdoor conditions: the trainer refuses "
                             "them naming both lists (tests/test_torch_port_ppt.py)",
+    **{prefix: "the LitePT configs name patch_size, which LitePT-v1 does not take (a TypeError in both "
+               "packages), and their attention stages' head dim 16 fails PointROPE's multiple of 3 (6 for its "
+               "pairs); the port refuses them naming both (tests/test_torch_port_litept.py)"
+       for prefix in ("nuscenes/semseg-litept-", "scannet/semseg-litept-", "scannet/insseg-pointgroup-v1m2-0-litept",
+                      "structured3d/semseg-litept-", "waymo/semseg-litept-")},
 }
 
 
@@ -199,9 +209,9 @@ def _known(path: str, name: str) -> bool:
 
 
 def test_census_counts():
-    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27 and len(INSSEG) == 35
-    assert len(CLS) == 15 and len(PTV2) == 33
-    assert len(set(CONFIGS)) == 205
+    assert len(INDOOR) == 58 and len(LORA) == 12 and len(OUTDOOR) == 25 and len(PPT) == 27 and len(INSSEG) == 36
+    assert len(CLS) == 15 and len(PTV2) == 33 and len(LITEPT) == 8
+    assert len(set(CONFIGS)) == 213
     assert all(any(path.startswith(k) for path in CONFIGS) for k in KNOWN_EXCEPTIONS)
 
 
@@ -214,11 +224,30 @@ def test_every_type_is_registered(path):
 
 
 def test_rpe_config_raises_on_its_option():
-    """The one census config whose model the port refuses: its reason."""
+    """The RPE config's option with window attention (``scene_blocked``):
+    refused, as the JAX package asserts ("window attention has no RPE
+    path"); the config as written builds (`test_rpe_config_builds`)."""
     cfg = Config.fromfile(str(ROOT / "configs/s3dis/semseg-pt-v3m1-1-rpe.py"))
     assert cfg.model.backbone.enable_rpe
-    with torch.device("meta"), pytest.raises(NotImplementedError, match="enable_rpe"):
-        MODELS.build(apply_amp_policy(dict(cfg.model), cfg.enable_amp))
+    windowed = dict(cfg.model, backbone=dict(cfg.model.backbone, scene_blocked=True))
+    with torch.device("meta"), pytest.raises(NotImplementedError, match="no RPE path"):
+        MODELS.build(apply_amp_policy(windowed, cfg.enable_amp))
+
+
+def test_rpe_config_builds():
+    """The S3DIS RPE config's model builds: an RPE table in every block."""
+    cfg = Config.fromfile(str(ROOT / "configs/s3dis/semseg-pt-v3m1-1-rpe.py"))
+    with torch.device("meta"):
+        model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.enable_amp))
+    assert sum(n.endswith("attn.rpe.rpe_table") for n, _ in model.named_parameters()) == 22
+
+
+@pytest.mark.parametrize("path", LITEPT)
+def test_litept_config_refused_with_its_reason(path):
+    """Each LitePT config's model is refused at build, naming both faults."""
+    cfg = Config.fromfile(str(ROOT / "configs" / path))
+    with torch.device("meta"), pytest.raises(TypeError, match="patch_size.*multiples of 6"):
+        MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
 
 
 @pytest.mark.parametrize("path", OUTDOOR)
@@ -245,8 +274,13 @@ def test_ppt_model_builds(path):
 @pytest.mark.parametrize("path", INSSEG)
 def test_insseg_model_builds(path):
     """Each PointGroup config's model builds on the meta device, its heads
-    as wide as the config's classes."""
+    as wide as the config's classes; LitePT's is refused with its reason
+    (KNOWN_EXCEPTIONS)."""
     cfg = Config.fromfile(str(ROOT / "configs" / path))
+    if "litept" in path:
+        with torch.device("meta"), pytest.raises(TypeError, match="patch_size.*multiples of 6"):
+            MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
+        return
     with torch.device("meta"):
         model = MODELS.build(apply_amp_policy(dict(cfg.model), cfg.get("enable_amp", False)))
     assert model.seg_head.out_features == cfg.model.semantic_num_classes == cfg.data.num_classes

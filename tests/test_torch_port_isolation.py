@@ -84,7 +84,7 @@ def test_entry_points_raise_without_a_gpu():
         make_point_batch({"coord": [[0.0, 0.0, 0.0]], "batch": [0]}, 1)
 
 
-@pytest.mark.parametrize("option", [dict(scene_blocked=True), dict(enable_rpe=True),
+@pytest.mark.parametrize("option", [dict(scene_blocked=True), dict(enable_rpe=True, scene_blocked=True),
                                     dict(proj_drop=0.1), dict(rope_base=10000.0)])
 def test_unported_options_raise(option):
     from pointcept_tpu_torch.models import MODELS

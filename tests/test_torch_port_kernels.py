@@ -571,3 +571,88 @@ def test_ptv2_train_steps_are_bit_identical_on_card(cuda):
         res["loss"].backward()
         runs.append([res["loss"].detach()] + [p.grad.clone() for p in model.parameters()])
     assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+# (nP, K, C, H) of the biased (RPE) kernels on the card: the S3DIS RPE
+# config's stages 0 and 4 (PT-v3m1-base at patch 128: C 32 / H 2 and C 512 /
+# H 32), patch 1024 (bound 31, the backward's four-tile plan), a patch size
+# that is not a multiple of 64, and head dims 8, 18 and 32 (the padded and
+# the wide heads)
+RPE_CARD_CASES = [(64, 128, 32, 2), (6, 128, 512, 32), (3, 1024, 32, 2), (5, 48, 32, 2), (8, 128, 16, 2),
+                  (4, 128, 54, 3), (4, 128, 64, 2)]
+
+
+def _rpe_inputs(device, np_, k, c, h, seed=0):
+    """bf16 rows, an f32 table of the patch size's bound and grid
+    coordinates in a box of 3b + 1 cells (so that some differences clip)."""
+    from pointcept_tpu_torch.ops.kernels.patch_attention import rpe_bound
+
+    g = torch.Generator(device=device).manual_seed(seed + c + k)
+    b = rpe_bound(k)
+    qkv = torch.randn((np_, k, 3 * c), generator=g, device=device).to(torch.bfloat16)
+    table = torch.randn((3 * (2 * b + 1), h), generator=g, device=device) * 0.5
+    coords = torch.randint(0, 3 * b + 1, (np_, k, 3), generator=g, device=device, dtype=torch.int32)
+    dout = torch.randn((np_, k, c), generator=g, device=device).to(torch.bfloat16)
+    return qkv, table, coords, dout
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("np_,k,c,h", RPE_CARD_CASES)
+def test_rpe_kernels_match_plain_on_card(cuda, np_, k, c, h):
+    """The biased forward and backward against their plain versions (the
+    output, dq dk dv and the table's gradient); the backward twice gives
+    the same bits, the table's gradient included; each launch counts on the
+    RPE wrappers alone."""
+    qkv, table, coords, dout = _rpe_inputs(cuda, np_, k, c, h)
+    scale = (c // h) ** -0.5
+    n0, u0 = kernels.patch_attention_rpe_fwd.launches, kernels.patch_attention_fwd.launches
+    out, m, l = kernels.patch_attention_rpe_fwd(qkv, h, scale, table, coords, stats=True)
+    assert kernels.patch_attention_rpe_fwd.launches == n0 + 1 and kernels.patch_attention_fwd.launches == u0
+    assert torch.equal(out, kernels.patch_attention_rpe_fwd(qkv, h, scale, table, coords))
+    want, wm, wl = kernels.patch_attention_fwd_plain(qkv, h, scale, stats=True, rpe=(table, coords))
+    torch.testing.assert_close(out.float(), want.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(m, wm, atol=1e-4, rtol=1e-4)
+    torch.testing.assert_close(l, wl, atol=1e-3, rtol=1e-3)
+    b0 = kernels.patch_attention_rpe_bwd.launches
+    dqkv, dtab = kernels.patch_attention_rpe_bwd(qkv, out, dout, m, l, h, scale, table, coords)
+    assert kernels.patch_attention_rpe_bwd.launches == b0 + 1
+    wq, wt = kernels.patch_attention_bwd_plain(qkv, out, dout, m, l, h, scale, rpe=(table, coords))
+    sq = wq.float().abs().max()
+    assert ((dqkv.float() - wq.float()).abs() <= 2e-2 * sq + 2e-2 * wq.float().abs()).all()
+    # f32 sums of the unrounded dS' in two orders, p from ex2.approx
+    assert dtab.shape == table.shape and dtab.dtype == torch.float32
+    assert ((dtab - wt).abs() <= 1e-3 * wt.abs().max() + 1e-2 * wt.abs()).all(), (dtab - wt).abs().max()
+    again = kernels.patch_attention_rpe_bwd(qkv, out, dout, m, l, h, scale, table, coords)
+    assert torch.equal(dqkv, again[0]) and torch.equal(dtab, again[1])
+
+
+@pytest.mark.gpu
+def test_rpe_kernels_allocate_no_dense_bias_on_card(cuda):
+    """The biased forward and backward at the S3DIS RPE config's stage 0
+    (nP 2,048, K 128, C 32, H 2) allocate their outputs and scratch (~82
+    MB), under half of one [nP, H, K, K] f32 bias (268 MB)."""
+    np_, k, c, h = 2048, 128, 32, 2
+    qkv, table, coords, dout = _rpe_inputs(cuda, np_, k, c, h)
+    scale = (c // h) ** -0.5
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out, m, l = kernels.patch_attention_rpe_fwd(qkv, h, scale, table, coords, stats=True)
+    kernels.patch_attention_rpe_bwd(qkv, out, dout, m, l, h, scale, table, coords)
+    torch.cuda.synchronize()
+    assert torch.cuda.max_memory_allocated() - base < np_ * h * k * k * 4 // 2
+
+
+def test_rpe_wrappers_refuse_bad_tables():
+    """The biased kernels' checks, before any launch: the table's rows and
+    heads, the coordinates' type and shape."""
+    from pointcept_tpu_torch.ops.kernels.patch_attention import _check_rpe
+
+    qkv = torch.zeros((2, 32, 3 * 32), dtype=torch.bfloat16)
+    good = (torch.zeros((63, 2)), torch.zeros((2, 32, 3), dtype=torch.int32))
+    assert _check_rpe(good, qkv, 2, "t") == 10
+    for table, coords in ((torch.zeros((62, 2)), good[1]), (torch.zeros((63, 3)), good[1]),
+                          (good[0].double(), good[1]), (good[0], good[1].long()),
+                          (good[0], torch.zeros((2, 16, 3), dtype=torch.int32))):
+        with pytest.raises(ValueError):
+            _check_rpe((table, coords), qkv, 2, "t")

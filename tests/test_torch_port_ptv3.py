@@ -188,7 +188,8 @@ def test_labelled_batch_and_training_mode_raise(ref):
     assert np.isfinite(res["loss"].item())
     assert all(torch.isfinite(p.grad).all() for p in model.parameters() if p.grad is not None)
     # (PDNorm is ported: tests/test_torch_port_ppt.py)
-    for option in (dict(enable_rpe=True), dict(rope_base=10000.0),
+    # (RPE is ported: tests/test_torch_port_rpe.py; window attention still refuses it)
+    for option in (dict(enable_rpe=True, scene_blocked=True), dict(rope_base=10000.0),
                    dict(proj_drop=0.1), dict(attn_drop=0.1), dict(scene_blocked=True)):
         bad = dict(_cfg(False), backbone=dict(_cfg(False)["backbone"], **option))
         with pytest.raises(NotImplementedError):

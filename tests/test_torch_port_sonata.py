@@ -776,12 +776,12 @@ def test_params_from_jax_round_trips(views):
 # (tests/test_torch_port_utonia.py, tests/test_torch_port_probe.py,
 # tests/test_torch_port_lora.py), and PDNorm (tests/test_torch_port_ppt.py);
 # their cases hold what of them is not: PT-v3m3's attention dropout and the
-# up-cast segmentor's relative position encoding
+# up-cast segmentor's projection dropout (RPE is ported: tests/test_torch_port_rpe.py)
 @pytest.mark.parametrize("cfg", [dict(type="Sonata-v1m2", backbone=BACKBONE), dict(type="Sonata-v1m3"),
                                  dict(BACKBONE, type="PT-v3m3", enc_channels=(18, 18, 36), attn_drop=0.1),
                                  dict(BACKBONE, type="PT-v3m2", rope_base=1e4),
                                  dict(SONATA_MODEL, sync_axis="data"), dict(SONATA_MODEL, mask_jitter=0.01),
-                                 dict(type="DefaultSegmentorV2", backbone=dict(BACKBONE, enable_rpe=True),
+                                 dict(type="DefaultSegmentorV2", backbone=dict(BACKBONE, proj_drop=0.1),
                                       up_cast_level=2)],
                          ids=["sonata-v1m2", "sonata-v1m3", "pt-v3m3", "rope", "sync_axis", "mask_jitter",
                               "up_cast_segmentor"])

@@ -12,7 +12,8 @@ C 32, H 2), the backward at the train step's (nP 202) and at stages 2 and 4
 (nP 20, C 128, H 8; nP 4, C 512, H 32). The variants give wrong results and
 are timed only.
 
-Variants: the forward staging only, staging + pass 1, two blocks an SM
+The kernels run unbiased (a null RPE table). Variants: the forward
+staging only, staging + pass 1, two blocks an SM
 instead of three; the backward without its query
 loop (staging, pre-pass and cluster epilogue), with a multiply in place of
 each exp, without the dV and dK products, with 32-query steps.
@@ -37,16 +38,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # exactly once in the source
 VARIANTS = [
     ("fwd_staging", "patch_attention.cu", [(
-        "  cp_async_wait<1>();\n  __syncthreads();\n  if (active) {",
+        "  cp_async_wait<1>();\n  __syncthreads();\n  const float c = scale * kLog2e;\n  if (active) {",
         "  cp_async_wait<0>();\n  __syncthreads();\n  if (threadIdx.x == 0)\n"
         "    out[(size_t)blockIdx.x * 8] = *reinterpret_cast<const __nv_bfloat16*>(ks + (blockIdx.x % K) * 2 * D) +\n"
         "                                  *reinterpret_cast<const __nv_bfloat16*>(vs + (blockIdx.x % K) * 2 * D);\n"
-        "  return;\n  if (active) {")]),
+        "  return;\n  const float c = scale * kLog2e;\n  if (active) {")]),
     ("fwd_pass1", "patch_attention.cu", [(
-        "  const float c = scale * kLog2e;\n\n  // pass 2",
-        "  cp_async_wait<0>();\n  if (active && t == 0) out[(p * K + r0 + g) * C + h * D] = __float2bfloat16(m[0][0] + m[0][1]);\n"
-        "  return;\n  const float c = scale * kLog2e;\n\n  // pass 2")]),
-    ("fwd_two_blocks", "patch_attention.cu", [("D == 16 ? 3 : 2", "2")]),
+        "\n  // pass 2: p = exp",
+        "\n  cp_async_wait<0>();\n  if (active && t == 0) out[(p * K + r0 + g) * C + h * D] = __float2bfloat16(m[0][0] + m[0][1]);\n"
+        "  return;\n  // pass 2: p = exp")]),
+    ("fwd_two_blocks", "patch_attention.cu", [("D == 16 ? (BIAS ? 2 : 3) : 2", "2")]),
     ("bwd_no_loop", "patch_attention_bwd.cu", [("  for (int i = 0; i < nq; ++i) {", "  for (int i = 0; i < 0; ++i) {")]),
     ("bwd_no_exp", "patch_attention_bwd.cu", [
         ("ex2(fmaf(s[n][0], c, -sq[n].x)), p1 = ex2(fmaf(s[n][1], c, -sq[n].z))",
@@ -133,6 +134,8 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
     vp, ci, cf = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # the entry points' arguments; a null RPE table runs the unbiased kernels
+    fwd_args = [vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, vp, vp, ci, vp]
     lines = []
 
     def emit(row):
@@ -150,13 +153,13 @@ def main() -> int:
     for name, lib in libs.items():
         if name.startswith("fwd"):
             fn = ctypes.CDLL(lib).patch_attention_fwd
-            fn.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, vp]
+            fn.argtypes = fwd_args
             row[f"{name}_ms"] = time_ms(lambda: fn(qkv.data_ptr(), out.data_ptr(), None, None, np_, k, c, h, d,
-                                                  scale, stream))
+                                                  scale, None, None, 0, stream))
     emit(row)
 
     fwd = ctypes.CDLL(libs["fwd_full"]).patch_attention_fwd
-    fwd.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci, ci, cf, vp]
+    fwd.argtypes = fwd_args
     for np_, c, h in BWD_SHAPES:
         d, scale = c // h, (c // h) ** -0.5
         qkv = torch.randn((np_, k, 3 * c), generator=gen, device=dev).to(torch.bfloat16)
@@ -164,7 +167,8 @@ def main() -> int:
         out = torch.empty((np_, k, c), dtype=torch.bfloat16, device=dev)
         m = torch.empty((np_, h, k), device=dev)
         l = torch.empty_like(m)
-        fwd(qkv.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), np_, k, c, h, d, scale, stream)
+        fwd(qkv.data_ptr(), out.data_ptr(), m.data_ptr(), l.data_ptr(), np_, k, c, h, d, scale, None, None, 0,
+            stream)
         dqkv = torch.empty_like(qkv)
         stats = torch.empty((np_, h, k, 2), device=dev)
         split, warps, tiles, _ = bwd_plan(k, d)
@@ -173,10 +177,10 @@ def main() -> int:
             if not name.startswith("bwd"):
                 continue
             fn = ctypes.CDLL(lib).patch_attention_bwd
-            fn.argtypes = [vp] * 7 + [ci] * 8 + [cf, vp]
+            fn.argtypes = [vp] * 7 + [ci] * 8 + [cf, vp, vp, ci, vp, vp]
             row[f"{name}_ms"] = time_ms(lambda: fn(qkv.data_ptr(), out.data_ptr(), dout.data_ptr(), m.data_ptr(),
                                                    l.data_ptr(), stats.data_ptr(), dqkv.data_ptr(), np_, k, c, h, d,
-                                                   split, warps, tiles, scale, stream))
+                                                   split, warps, tiles, scale, None, None, 0, None, stream))
         emit(row)
     if args.out:
         with open(args.out, "a") as f:

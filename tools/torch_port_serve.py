@@ -28,9 +28,10 @@ def main() -> int:
         print("torch_port_serve: no CUDA device", file=sys.stderr)
         return 1
     import chip_smoke as cs
-    from pointcept_tpu_torch.ops.kernels import KERNELS, build
+    from pointcept_tpu_torch.ops.kernels import build
 
-    build.build_all(list(KERNELS))
+    # the serving path's sources (KERNELS names wrappers, not sources)
+    build.build_all(["patch_attention", "block_fill", "take_back"])
     print(f"root {root}", flush=True)
     cs.main_path(torch.device("cuda", 0), cs.nvidia_smi("name,power.limit"))
     return 0
